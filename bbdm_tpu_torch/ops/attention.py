@@ -1,0 +1,60 @@
+"""Multi-head attention with fp32 softmax over [B, H, T, D]
+(twin of ``bbdm_tpu/ops/attention.py``).
+
+q and k are each scaled by D^-1/4 (the reference's symmetric scaling) and the
+softmax runs in float32. Dispatch mirrors ``bbdm_tpu/ops/attention.py:43-48``:
+a CUDA tensor with T >= 1024 and D % 128 == 0 goes to kernel K3
+(``csrc/flash_attention.cu``, which replaces the Pallas
+``bbdm_tpu/ops/flash_attention.py:flash_attention``); everything else, the
+UNet's middle attention (T=256, 16 heads x 64) included, is the explicit
+matmul + softmax of :func:`attention_plain`, as the JAX package leaves it to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bbdm_tpu_torch.ops import use_kernel
+
+KERNEL_MIN_SEQ = 1024  # bbdm_tpu/ops/attention.py:_PALLAS_MIN_SEQ
+
+
+def multi_head_attention(q, k, v):
+    """q, k, v: [B, H, T, D] -> [B, H, T, D] in q.dtype."""
+    if use_kernel(q) and q.shape[-2] >= KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:
+        return flash_attention_cuda(q, k, v)
+    return attention_plain(q, k, v)
+
+
+def attention_plain(q, k, v):
+    """Twin of ``_xla_attention``: the scaled q, k round to the input dtype,
+    both products accumulate in fp32, the softmax weights round to the input
+    dtype before the second product."""
+    scale = 1.0 / (q.shape[-1] ** 0.25)
+    logits = torch.matmul((q * scale).float(), (k * scale).float().transpose(-1, -2))
+    weights = torch.softmax(logits, dim=-1).to(q.dtype)
+    return torch.matmul(weights.float(), v.float()).to(q.dtype)
+
+
+def flash_attention_cuda(q, k, v):
+    """Launch K3 on contiguous bf16 [B, H, T, D] CUDA tensors, D % 16 == 0, D <= 512."""
+    from bbdm_tpu_torch.kernels import build
+
+    for t in (q, k, v):
+        if not t.is_cuda or t.dtype != torch.bfloat16 or t.ndim != 4 or not t.is_contiguous():
+            raise ValueError("flash_attention_cuda takes contiguous bf16 CUDA [B, H, T, D]")
+        if t.shape != q.shape or t.device != q.device:
+            raise ValueError("flash_attention_cuda: q, k, v differ in shape or device")
+    B, H, T, D = q.shape
+    if D % 16 != 0 or D > 512:
+        raise ValueError(f"flash_attention_cuda takes D % 16 == 0 and D <= 512, got {D}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = build.library().flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D, stream)
+    build.check("flash_attention_bf16", rc)
+    flash_attention_cuda.launches += 1
+    return out
+
+
+flash_attention_cuda.launches = 0

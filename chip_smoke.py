@@ -1,0 +1,384 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (``bbdm_tpu_torch``) once on one NVIDIA card.
+
+    python3 chip_smoke.py        # from the root of a checkout; needs one CUDA card
+
+Phases, each of which must pass:
+
+1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
+   versions, TF32 off;
+2. kernel build: nvcc of ``bbdm_tpu_torch/csrc/*.cu`` for sm_90a;
+3. each hand-written kernel (K1 GroupNorm in Triton, K2 subpixel up-conv and
+   K3 flash attention in CUDA C++) against its plain PyTorch twin on the card,
+   in bf16 at the shapes the LBBDM-f4 path gives it, with CUDA-event times of
+   both (median of several runs);
+4. the LBBDM-f4 slice at full width (VQGAN ch 128 x (1,2,4) at 256^2, UNet
+   mc 128 x (1,4,8) at 64^2, bf16, batch 8, seeded random weights), cut to
+   20 sampling steps and 2 draws per condition: the sampled latent through
+   the kernels against the same run forced through the plain twins (same
+   weights, same noise), then ``BBDMRunner.sample_to_eval`` over synthetic
+   batches into a temporary directory, with every kernel's launch count.
+
+Prints the kernels' JSON line, then as its last line
+``{"ok": true, "device": {...}}``; exits non-zero, without that line, when a
+phase fails, when there is no CUDA card, or when run outside a checkout.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+import traceback
+
+import torch
+
+SAMPLE_STEP, SAMPLE_NUM, BATCHES, BATCH = 20, 2, 2, 8
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def cuda_ms(fn, runs=10, warmup=2):
+    """Median CUDA-event time of fn() in ms."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def compare(out, ref, rtol, atol):
+    """(max abs error, max error relative to max |ref|, all within atol + rtol*|ref|)."""
+    out, ref = out.float(), ref.float()
+    diff = (out - ref).abs()
+    ok = bool(torch.isfinite(out).all() and (diff <= atol + rtol * ref.abs()).all())
+    return float(diff.max()), float(diff.max() / ref.abs().max().clamp_min(1e-30)), ok
+
+
+@contextlib.contextmanager
+def plain_ops():
+    """Route the port's three kernel-bearing ops to their plain twins for the
+    length of the block (the package itself never sends a CUDA tensor there)."""
+    from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+
+    saved = (group_norm.group_norm, upsample_conv.upsample2x_conv3x3,
+             attention.multi_head_attention)
+    group_norm.group_norm = group_norm.group_norm_plain
+    upsample_conv.upsample2x_conv3x3 = (
+        lambda x, w, b, *, dtype=None, combined=None:
+        upsample_conv.upsample_conv_plain(x, w, b, dtype=dtype))
+    attention.multi_head_attention = attention.attention_plain
+    try:
+        yield
+    finally:
+        (group_norm.group_norm, upsample_conv.upsample2x_conv3x3,
+         attention.multi_head_attention) = saved
+
+
+# ------------------------------------------------------------------ kernels
+
+def kernel_cases(dev):
+    """(name, route, source, replaces, counter, [(label, run_kernel, run_plain, rtol, atol)])."""
+    from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+
+    g = torch.Generator(dev).manual_seed(0)
+
+    def randn(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+    gn = []
+    # (shape, film, eps): UNet up_0_0.in_norm at 64^2 (C=640), UNet up_2_us.out_norm
+    # with FiLM (C=1024 at 32^2), VQGAN decoder up_0_block_0.norm1 (C=256 at 256^2)
+    for shape, film, eps in (((BATCH, 640, 64, 64), False, 1e-5),
+                             ((BATCH, 1024, 32, 32), True, 1e-5),
+                             ((BATCH, 256, 256, 256), False, 1e-6)):
+        N, C = shape[:2]
+        x = randn(*shape, scale=2.0)
+        w, b = 1 + randn(C, scale=0.1, dtype=torch.float32), randn(C, scale=0.1,
+                                                                   dtype=torch.float32)
+        f = randn(N, 2 * C, scale=0.1) if film else None
+        fs, fb = f.chunk(2, dim=1) if film else (None, None)
+        kw = dict(eps=eps, act="silu", film_scale=fs, film_shift=fb)
+        gn.append((f"{list(shape)} film={film}",
+                   lambda x=x, w=w, b=b, kw=kw: group_norm.group_norm(x, w, b, **kw),
+                   lambda x=x, w=w, b=b, kw=kw: group_norm.group_norm_plain(x, w, b, **kw),
+                   # fp32 arithmetic on both sides; bf16 outputs round up to 2 ulps apart
+                   2 ** -7, 2 ** -7))
+
+    up = []
+    # UNet up_2_us / up_1_us in_conv, VQGAN decoder up_2_upsample / up_1_upsample
+    for (n, ci, h), co in (((BATCH, 1024, 16), 1024), ((BATCH, 512, 32), 512),
+                           ((BATCH, 512, 64), 512), ((BATCH, 256, 128), 256)):
+        x = randn(n, ci, h, h)
+        w = randn(co, ci, 3, 3, scale=0.02, dtype=torch.float32)
+        b = randn(co, scale=0.1, dtype=torch.float32)
+        kp = upsample_conv.combine_kernel_2x2(w).to(torch.bfloat16)
+        up.append((f"{[n, ci, h, h]}->{co}",
+                   lambda x=x, kp=kp, b=b: upsample_conv.upsample_conv_cuda(x, kp, b),
+                   lambda x=x, w=w, b=b: upsample_conv.upsample_conv_plain(
+                       x, w, b, dtype=torch.bfloat16),
+                   # the kernel's phase taps are fp32 sums rounded to bf16 once, the
+                   # twin's 3x3 taps are rounded one by one: 2^-8 relative per tap,
+                   # plus one output rounding each
+                   2 ** -5, 2 ** -5))
+
+    fa = []
+    # VQGAN encoder / decoder mid_attn_1: H=1, T=64^2, D=512
+    q, k, v = (randn(BATCH, 1, 4096, 512) for _ in range(3))
+    fa.append((f"{[BATCH, 1, 4096, 512]}",
+               lambda: attention.multi_head_attention(q, k, v),
+               lambda: attention.attention_plain(q, k, v),
+               # the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as _xla_attention
+               # does; the kernel scales the fp32 scores), and both round the
+               # probabilities to bf16: 2^-8 relative each, over 4096 keys
+               2 ** -6, 2 ** -7))
+
+    return [
+        ("group_norm", "triton", "bbdm_tpu_torch/kernels/group_norm_triton.py",
+         "bbdm_tpu/ops/group_norm_pallas.py:178", (group_norm, "group_norm_cuda"), gn),
+        ("subpixel_upconv", "cuda", "bbdm_tpu_torch/csrc/subpixel_upconv.cu",
+         "bbdm_tpu/ops/subpixel_pallas.py:133", (upsample_conv, "upsample_conv_cuda"), up),
+        ("flash_attention", "cuda", "bbdm_tpu_torch/csrc/flash_attention.cu",
+         "bbdm_tpu/ops/flash_attention.py:115", (attention, "flash_attention_cuda"), fa),
+    ]
+
+
+def kernel_phase(name, cases):
+    """Check and time one kernel at its shapes; returns its JSON entry."""
+    entry = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "shapes": []}
+    ok = True
+    for label, run, plain, rtol, atol in cases:
+        out, ref = run(), plain()
+        torch.cuda.synchronize()
+        abs_err, rel_err, good = compare(out, ref, rtol, atol)
+        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+        log(f"  {name} {label}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
+            f"(bar |d| <= {atol:g} + {rtol:g}|ref|) {'ok' if good else 'FAIL'}; "
+            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
+        entry["shapes"].append({"shape": label, "max_abs_err": abs_err, "ms": ms,
+                                "plain_ms": plain_ms})
+        entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
+        entry["max_rel_err"] = max(entry["max_rel_err"], rel_err)
+        entry["ms"] += ms
+        entry["plain_ms"] += plain_ms
+        ok &= good
+        del out, ref
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain twin")
+    return entry
+
+
+# ------------------------------------------------------------------- slice
+
+def slice_phase(dev, counters):
+    import numpy as np
+
+    from bbdm_tpu_torch.config import lbbdm_f4_config
+    from bbdm_tpu_torch.models import build_model
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+
+    cfg = lbbdm_f4_config()
+    cfg.model.BB.params.sample_step = SAMPLE_STEP
+    cfg.testing.sample_num = SAMPLE_NUM
+    log("reduced: " + json.dumps({"sample_step": {"template": 200, "run": SAMPLE_STEP},
+                                  "sample_num": {"template": 5, "run": SAMPLE_NUM},
+                                  "weights": "random, seed 0", "batches": BATCHES}))
+    t0 = time.time()
+    runner = BBDMRunner(cfg, device=dev, seed=0)
+    model = runner.model
+    torch.cuda.synchronize()
+    log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
+        f"built in {time.time() - t0:.1f} s")
+
+    size = cfg.data.dataset_config.image_size
+    rs = np.random.RandomState(0)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    batches = []
+    for bi in range(BATCHES):
+        phase = rs.uniform(0, 2 * np.pi, (BATCH, 1, 1, 3))
+        smooth = np.sin(6 * yy[None, :, :, None] + 4 * xx[None, :, :, None] + phase)
+        noise = rs.uniform(-0.2, 0.2, (BATCH, size, size, 3))
+        batches.append({
+            "x": np.clip(-smooth + noise, -1, 1).astype(np.float32),
+            "x_cond": np.clip(smooth + noise, -1, 1).astype(np.float32),
+            "x_name": [f"img{bi}_{i}" for i in range(BATCH)],
+            "x_cond_name": [f"cond{bi}_{i}" for i in range(BATCH)],
+        })
+
+    # kernels vs plain twins on the card: same weights, same noise, latent before
+    # quantisation; an fp32 run through the twins says how far bf16 alone moves it
+    x_cond = torch.from_numpy(batches[0]["x_cond"]).permute(0, 3, 1, 2).to(dev)
+    y = model.encode(x_cond)
+    g = torch.Generator(dev).manual_seed(1)
+    noise = [torch.randn(y.shape, generator=g, device=dev) for _ in model.coeffs.steps]
+    z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
+    torch.cuda.synchronize()
+    step_s = (time.time() - t0) / len(noise)
+    with plain_ops():
+        y_plain = model.encode(x_cond)
+        z_plain = model.p_sample_loop(y, noise=noise, clip_denoised=False)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        z_plain = model.p_sample_loop(y, noise=noise, clip_denoised=False)
+        torch.cuda.synchronize()
+        plain_step_s = (time.time() - t0) / len(noise)
+        ref32 = build_model(cfg.model, device=dev, dtype=torch.float32)
+        ref32.load_state_dict(model.state_dict())
+        y_32 = ref32.encode(x_cond)
+        z_32 = ref32.p_sample_loop(y, noise=noise, clip_denoised=False)
+        del ref32
+    img = model.decode(z_kernel)
+    torch.cuda.synchronize()
+    d = lambda a, b: float((a.float() - b.float()).abs().max())
+    dist = {"encode_kernel_vs_plain": d(y, y_plain), "encode_bf16_vs_fp32": d(y_plain, y_32),
+            "latent_kernel_vs_plain": d(z_kernel, z_plain),
+            "latent_bf16_vs_fp32": d(z_plain, z_32), "latent_max_abs": float(z_32.abs().max())}
+    log("  path agreement: " + json.dumps(dist))
+    if not (torch.isfinite(z_kernel).all() and torch.isfinite(img).all()):
+        raise AssertionError("non-finite latent or image")
+    if tuple(img.shape) != (BATCH, 3, size, size):
+        raise AssertionError(f"decoded image shape {tuple(img.shape)}")
+    # bar: the kernel and twin bf16 runs round at different places, each about
+    # as far from the fp32 run as the other, so they may be up to twice the
+    # twin's bf16-vs-fp32 distance apart
+    for what in ("encode", "latent"):
+        if dist[f"{what}_kernel_vs_plain"] > 2 * dist[f"{what}_bf16_vs_fp32"]:
+            raise AssertionError(f"{what}: kernel path farther from the twins than 2x bf16 error")
+    log(f"  seconds per sampler step (batch {BATCH}): kernels {step_s:.4f}, "
+        f"plain twins {plain_step_s:.4f}")
+
+    # the main path, counted: sample_to_eval through the runner
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory(prefix="bbdm_smoke_") as out_dir:
+        t0 = time.time()
+        runner.sample_to_eval(batches, out_dir)
+        torch.cuda.synchronize()
+        total = time.time() - t0
+        launches = {name: getattr(mod, attr).launches for name, (mod, attr) in counters.items()}
+        log(f"  sample_to_eval: {total:.2f} s for {BATCHES} batches of {BATCH} "
+            f"({total / BATCHES:.2f} s per batch), peak device memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
+        check_tree(out_dir, batches, size)
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} was not launched by the main path")
+    return launches, {"sampler_step_s": step_s, "plain_sampler_step_s": plain_step_s,
+                      "sample_to_eval_batch_s": total / BATCHES, **dist}
+
+
+def check_tree(out_dir, batches, size):
+    """The sample_to_eval output contract, and that the outputs are PNGs of the image size."""
+    names = [n for b in batches for n in b["x_name"]]
+    conds = [n for b in batches for n in b["x_cond_name"]]
+    listing = lambda *p: sorted(os.listdir(os.path.join(out_dir, *p)))
+    expect = {(): sorted(["condition", "ground_truth", str(SAMPLE_STEP)]),
+              ("condition",): sorted(f"{n}.png" for n in conds),
+              ("ground_truth",): sorted(f"{n}.png" for n in names),
+              (str(SAMPLE_STEP),): sorted(names)}
+    expect.update({(str(SAMPLE_STEP), n): [f"output_{j}.png" for j in range(SAMPLE_NUM)]
+                   for n in names})
+    for path, files in expect.items():
+        if listing(*path) != files:
+            raise AssertionError(f"sample_to_eval tree: {path} holds {listing(*path)}")
+    with open(os.path.join(out_dir, str(SAMPLE_STEP), names[0], "output_0.png"), "rb") as f:
+        head = f.read(24)
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[16:24] != size.to_bytes(4, "big") * 2:
+        raise AssertionError(f"output_0.png is not a {size}x{size} PNG")
+
+
+def main() -> int:
+    here = os.path.dirname(os.path.abspath(__file__))
+    if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
+        print("chip_smoke.py: bbdm_tpu_torch/ not found; run it from a checkout of the "
+              "repository", file=sys.stderr)
+        return 2
+    sys.path.insert(0, here)
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA card", file=sys.stderr)
+        return 2
+    import bbdm_tpu_torch  # noqa: F401  (sets TF32 off)
+    from bbdm_tpu_torch.kernels import build
+
+    dev = torch.device("cuda", 0)
+    failed = []
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 and smi.stdout else ""
+    log(card or "nvidia-smi: no answer")
+    if not card:
+        failed.append("environment")
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}, "
+        f"tf32 cudnn={torch.backends.cudnn.allow_tf32} "
+        f"matmul={torch.backends.cuda.matmul.allow_tf32}")
+
+    try:
+        t0 = time.time()
+        path = build.build()
+        build.library()
+        log(f"kernel build: {time.time() - t0:.1f} s ({os.path.basename(path)})")
+        with open(path[:-3] + ".log") as f:
+            for line in f:
+                if "Compiling entry" in line or "Used" in line:
+                    log("  " + line.strip())
+    except Exception:
+        traceback.print_exc()
+        log("kernel build: FAILED")
+        return 1
+
+    entries, counters = [], {}
+    for name, route, source, replaces, counter, cases in kernel_cases(dev):
+        counters[name] = counter
+        try:
+            t0 = time.time()
+            e = kernel_phase(name, cases)
+            log(f"kernel {name}: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append(name)
+            e = {}
+        entries.append({"name": name, "route": route, "source": source,
+                        "replaces": replaces, "launches": 0, **e})
+        torch.cuda.empty_cache()
+
+    timings = {}
+    try:
+        t0 = time.time()
+        launches, timings = slice_phase(dev, counters)
+        for e in entries:
+            e["launches"] = launches[e["name"]]
+        log(f"slice: ok ({time.time() - t0:.1f} s)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("slice")
+
+    log(json.dumps({"kernels": entries, "slice": timings, "card": card}))
+    if failed:
+        log(f"FAILED phases: {failed}")
+        return 1
+    log(json.dumps({"ok": True, "device": {"platform": "gpu",
+                                           "kind": torch.cuda.get_device_name(0),
+                                           "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

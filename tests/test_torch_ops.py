@@ -1,0 +1,192 @@
+"""The port's three kernel-bearing ops against the JAX package's Pallas kernels.
+
+CPU cases: each Pallas kernel runs in interpret mode (the Pallas functions pick
+it themselves off-TPU) on numpy-seeded fp32 inputs and is held against the
+port's plain twin; inputs are transposed NHWC <-> NCHW at the boundary.
+
+GPU cases (marker ``gpu``, skipped without a card): each hand-written kernel
+against its twin on the card in bf16, with its launch counter. They import no
+jax, so on a machine without jax they run with
+``python -m pytest tests/test_torch_ops.py -m gpu --noconftest``.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+
+# fp32 bars: both sides sum the same products in another order (per-channel
+# then per-group sums vs. one pass; 2x2 phase taps vs. 3x3 taps over an
+# upsampled grid; blockwise online softmax vs. one softmax), so they agree to a
+# few fp32 ulps of values of order 1, not bit for bit.
+FP32_ATOL = 2e-5
+FP32_RTOL = 1e-4
+
+
+def nchw(a):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(a).transpose(0, 3, 1, 2)))
+
+
+def nhwc(t):
+    return t.permute(0, 2, 3, 1).numpy()
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
+    return torch.device("cuda")
+
+
+# --------------------------------------------------------------- GroupNorm (K1)
+
+@pytest.mark.parametrize("film,act,eps", [(False, None, 1e-5), (False, "silu", 1e-6),
+                                          (True, "silu", 1e-5)])
+def test_group_norm_pallas_matches_twin(film, act, eps):
+    import jax.numpy as jnp
+    from bbdm_tpu.ops.group_norm_pallas import group_norm_pallas
+
+    rs = np.random.RandomState(0)
+    x = rs.randn(2, 8, 8, 128).astype(np.float32) * 2 + 0.5
+    scale = (1 + 0.1 * rs.randn(128)).astype(np.float32)
+    bias = (0.1 * rs.randn(128)).astype(np.float32)
+    fs = (0.1 * rs.randn(2, 128)).astype(np.float32) if film else None
+    fb = (0.1 * rs.randn(2, 128)).astype(np.float32) if film else None
+    j = lambda a: None if a is None else jnp.asarray(a)
+    ref = group_norm_pallas(j(x), j(scale), j(bias), j(fs), j(fb), 32, eps, act)
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    out = group_norm.group_norm(nchw(x), t(scale), t(bias), num_groups=32, eps=eps, act=act,
+                                film_scale=t(fs), film_shift=t(fb))
+    np.testing.assert_allclose(nhwc(out), np.asarray(ref), rtol=FP32_RTOL, atol=FP32_ATOL)
+
+
+@pytest.mark.parametrize("C", [640, 96])
+def test_group_norm_twin_matches_xla_for_channels_off_128(C):
+    """C=640 (on the LBBDM-f4 path, 20 channels per group) and C=96, which the
+    Pallas kernel's ``eligible`` refuses (C % 128 != 0), against the XLA
+    formulation that the JAX package dispatches to by default."""
+    from bbdm_tpu.ops.group_norm import _group_norm_xla
+
+    rs = np.random.RandomState(1)
+    x = rs.randn(2, 4, 4, C).astype(np.float32)
+    scale, bias = rs.randn(C).astype(np.float32), rs.randn(C).astype(np.float32)
+    ref = _group_norm_xla(x, scale, bias, num_groups=32, eps=1e-5, act="silu")
+    out = group_norm.group_norm(nchw(x), torch.from_numpy(scale), torch.from_numpy(bias),
+                                act="silu")
+    np.testing.assert_allclose(nhwc(out), np.asarray(ref), rtol=FP32_RTOL, atol=FP32_ATOL)
+
+
+# ------------------------------------------------------ subpixel up-conv (K2)
+
+def test_combine_kernel_2x2_matches_jax():
+    from bbdm_tpu.ops.subpixel_pallas import arrange_phase_kernel
+    from bbdm_tpu.ops.upsample_conv import combine_kernel_2x2 as jax_combine
+
+    w = np.random.RandomState(2).randn(3, 3, 16, 24).astype(np.float32)  # HWIO
+    ref = np.asarray(arrange_phase_kernel(jax_combine(w)))  # [4, 2, 2, ci, co]
+    out = upsample_conv.combine_kernel_2x2(torch.from_numpy(w.transpose(3, 2, 0, 1).copy()))
+    np.testing.assert_array_equal(out.numpy(), ref.transpose(0, 1, 2, 4, 3))
+
+
+def test_subpixel_pallas_matches_twin():
+    import jax.numpy as jnp
+    from bbdm_tpu.ops.subpixel_pallas import arrange_phase_kernel, subpixel_upconv_pallas
+    from bbdm_tpu.ops.upsample_conv import combine_kernel_2x2 as jax_combine
+
+    rs = np.random.RandomState(3)
+    x = rs.randn(1, 8, 8, 128).astype(np.float32)
+    w = (rs.randn(3, 3, 128, 128) * 0.05).astype(np.float32)
+    b = rs.randn(128).astype(np.float32)
+    kp = arrange_phase_kernel(jax_combine(jnp.asarray(w)))
+    ref = subpixel_upconv_pallas(jnp.asarray(x), kp, jnp.asarray(b))
+    out = upsample_conv.upsample2x_conv3x3(
+        nchw(x), torch.from_numpy(w.transpose(3, 2, 0, 1).copy()), torch.from_numpy(b))
+    np.testing.assert_allclose(nhwc(out), np.asarray(ref), rtol=FP32_RTOL, atol=1e-4)
+
+
+# ------------------------------------------------------ flash attention (K3)
+
+def test_flash_attention_pallas_matches_twin():
+    import jax.numpy as jnp
+    from bbdm_tpu.ops.flash_attention import flash_attention
+
+    rs = np.random.RandomState(4)
+    q, k, v = (rs.randn(1, 2, 512, 128).astype(np.float32) for _ in range(3))
+    ref = flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    out = attention.multi_head_attention(*(torch.from_numpy(a) for a in (q, k, v)))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=FP32_RTOL, atol=FP32_ATOL)
+
+
+def test_attention_twin_matches_xla_in_bf16():
+    """The twin rounds where ``_xla_attention`` rounds: scaled q/k and the
+    softmax weights in the input dtype, fp32 products."""
+    import jax.numpy as jnp
+    from bbdm_tpu.ops.attention import _xla_attention
+
+    rs = np.random.RandomState(5)
+    q, k, v = (rs.randn(2, 4, 64, 32).astype(np.float32) for _ in range(3))
+    ref = _xla_attention(*(jnp.asarray(a, jnp.bfloat16) for a in (q, k, v)))
+    out = attention.attention_plain(*(torch.from_numpy(a).bfloat16() for a in (q, k, v)))
+    # XLA's and torch's exp differ by fp32 ulps, so a softmax weight can round
+    # to the neighbouring bf16 value; outputs of order 1 then differ by up to
+    # two bf16 ulps (2^-7 each)
+    np.testing.assert_allclose(out.float().numpy(), np.asarray(ref, np.float32),
+                               rtol=2 ** -7, atol=2 ** -6)
+
+
+# ------------------------------------------------------------- on the card
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,film,eps,dtype", [
+    ((2, 640, 16, 16), False, 1e-5, torch.bfloat16),
+    ((2, 256, 32, 32), True, 1e-5, torch.bfloat16),
+    ((1, 128, 64, 64), False, 1e-6, torch.float32),
+])
+def test_group_norm_kernel_matches_twin(cuda, shape, film, eps, dtype):
+    g = torch.Generator(cuda).manual_seed(0)
+    N, C = shape[:2]
+    x = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    w = 1 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    b = 0.1 * torch.randn(C, generator=g, device=cuda)
+    f = (0.1 * torch.randn(N, 2 * C, generator=g, device=cuda)).to(dtype) if film else None
+    fs, fb = f.chunk(2, dim=1) if film else (None, None)
+    before = group_norm.group_norm_cuda.launches
+    out = group_norm.group_norm(x, w, b, eps=eps, act="silu", film_scale=fs, film_shift=fb)
+    ref = group_norm.group_norm_plain(x, w, b, eps=eps, act="silu", film_scale=fs,
+                                      film_shift=fb)
+    torch.cuda.synchronize()
+    assert group_norm.group_norm_cuda.launches == before + 1
+    # fp32 arithmetic on both sides; bf16 outputs may round one ulp apart
+    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,co", [((2, 64, 16, 16), 64), ((1, 32, 24, 40), 96)])
+def test_upsample_conv_kernel_matches_twin(cuda, shape, co):
+    g = torch.Generator(cuda).manual_seed(1)
+    x = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    w = 0.05 * torch.randn(co, shape[1], 3, 3, generator=g, device=cuda)
+    b = torch.randn(co, generator=g, device=cuda)
+    before = upsample_conv.upsample_conv_cuda.launches
+    out = upsample_conv.upsample2x_conv3x3(x, w, b, dtype=torch.bfloat16)
+    ref = upsample_conv.upsample_conv_plain(x.float(), w, b)
+    torch.cuda.synchronize()
+    assert upsample_conv.upsample_conv_cuda.launches == before + 1
+    # bf16 phase kernel and output rounding (2^-8 relative each), fp32 sums
+    torch.testing.assert_close(out.float(), ref, rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1, 1024, 512), (1, 2, 1100, 128)])
+def test_flash_attention_kernel_matches_twin(cuda, shape):
+    g = torch.Generator(cuda).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).bfloat16() for _ in range(3))
+    before = attention.flash_attention_cuda.launches
+    out = attention.multi_head_attention(q, k, v)
+    ref = attention.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == before + 1
+    # bf16 probabilities and output on both sides, rounded at different places
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
