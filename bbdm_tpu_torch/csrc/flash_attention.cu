@@ -9,185 +9,305 @@
 // (batch, head), 275 GFLOP at batch 8, against 3*T*D*2 = 12.6 MB read per head.
 // The score matrix never reaches device memory.
 //
-// Design: D=512 is above the head dims of FlashAttention-2/3 and of SDPA's
-// flash backend, and a [BQ, 512] fp32 accumulator does not fit in registers,
-// so one block per (bh, 32-row query tile) keeps in dynamic shared memory
-// (~176 KB at D=512, set with cudaFuncAttributeMaxDynamicSharedMemorySize):
-// the Q tile, one K/V tile of 64 keys (K, then V, in the same buffer), the
-// fp32 O accumulator, the fp32 score tile, the bf16 probability tile and the
-// per-row running max / sum. Per key tile: 8 warps compute S = Q K^T with
-// bf16 WMMA 16x16x16 (fp32 accumulate), one warp per 16x16 tile; each warp
-// then updates 4 rows of the online softmax with shuffles; O is rescaled by
-// exp(m_old - m_new) in shared memory, V is loaded over K, and the warps add
-// P V into their 16x16 slices of O through accumulator fragments. The final
-// pass divides by the row sums and writes bf16. Keys past T are masked to
-// -inf, query rows past T are not written. Pipelining K/V loads and keeping O
-// in registers with wgmma are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+// Design: D=512 is above the head dims of FlashAttention-2/3 and of SDPA's flash
+// backend. A block owns 64 query rows of one (batch, head) and splits the head
+// dim between its two consumer warpgroups: warpgroup g holds the fp32 O
+// accumulator for columns [g*DP/2, (g+1)*DP/2) in registers (128 per thread at
+// D=512). Per 32-key tile:
+// - S = Q K^T: each warpgroup runs wgmma m64n32k16 over its own half of the depth
+//   (Q and K K-major, 128-byte swizzle), writes its fp32 partial S to its half of
+//   a 16 KB exchange buffer, and after a named barrier adds the other's partial.
+//   fp32 addition commutes, so both warpgroups hold the same S bit for bit and
+//   run the same online softmax in registers (fp32 running max and sum, the
+//   1/sqrt(D) scale on the fp32 scores, keys past T masked to -inf).
+// - O = O * alpha + P V: P is rounded to bf16 in registers, where the score
+//   accumulator layout already is wgmma's register-A layout, and each warpgroup
+//   runs wgmma m64n(DP/2)k16 against its half of V (MN-major, transposed-B form).
+// One producer thread (warpgroup 2, registers lowered with setmaxnreg) loads Q
+// once and streams K and V tiles with TMA into 2-stage K and V rings, each stage
+// with a full and an empty mbarrier. DP (128, 256, 512) is the head dim rounded
+// up; TMA zero-fills the columns past D and the rows past T. Query rows past T
+// are not written. At DP=512 the shared memory holds Q 64 KB, K 2 x 32 KB,
+// V 2 x 32 KB and the exchange 16 KB (ops/attention.flash_smem_bytes mirrors it).
+// What holds it back now: ptxas allocates the consumers within ~168 registers
+// (SASS tops out at R165) although setmaxnreg gives them 240, so it places S on
+// O's first registers, spills 64 bytes around the S product and serializes every
+// wgmma (warning C7512, one wait per instruction); the two warpgroups move in
+// lockstep through the exchange, so the tensor cores idle while both run the
+// softmax; and each block streams all of K and V (8 MB per head at T=4096) from
+// L2 for its 64 query rows.
 #include <math.h>
-#include <mma.h>
-#include <stdint.h>
 
-using namespace nvcuda;
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int BQ = 32;        // query rows per block
-constexpr int BKV = 64;       // keys per tile
-constexpr int THREADS = 256;  // 8 warps
-constexpr int NWARPS = THREADS / 32;
-constexpr int S_LD = BKV + 4;  // fp32 score tile stride
-constexpr int P_LD = BKV + 8;  // bf16 probability tile stride
+using namespace hopper;
 
-struct Smem {
-  int d_ld, o_ld;
-  size_t q, kv, o, s, p, stats, bytes;
-  __host__ __device__ explicit Smem(int D) {
-    d_ld = D + 8;
-    o_ld = D + 4;
-    q = 0;
-    kv = q + (size_t)BQ * d_ld * 2;
-    o = kv + (size_t)BKV * d_ld * 2;
-    s = o + (size_t)BQ * o_ld * 4;
-    p = s + (size_t)BQ * S_LD * 4;
-    stats = p + (size_t)BQ * P_LD * 2;
-    bytes = stats + 3 * BQ * 4;
+constexpr int BQ = 64;        // query rows per block
+constexpr int BKV = 32;       // keys per tile
+constexpr int STAGES = 2;     // K and V tiles in flight
+constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; warpgroup 2: producer
+constexpr int Q_CHUNK = BQ * 64 * 2;    // one [64 rows x 64 columns] bf16 TMA box
+constexpr int KV_CHUNK = BKV * 64 * 2;  // one [32 keys x 64 columns] bf16 TMA box
+constexpr int X_BYTES = 2 * BQ * BKV * 4;
+
+__host__ __device__ constexpr int smem_bytes(int DP) {
+  // Q, STAGES K tiles, STAGES V tiles, the exchange, 1 + 4 * STAGES mbarriers,
+  // alignment slack
+  return (DP / 64) * (Q_CHUNK + 2 * STAGES * KV_CHUNK) + X_BYTES + (1 + 4 * STAGES) * 8 + 1024;
+}
+
+template <int NH>
+__device__ __forceinline__ void wgmma_pv(float (&o)[NH / 2], const uint32_t (&a)[4],
+                                         uint64_t db) {
+  if constexpr (NH == 256) wgmma_rs_n256<1>(o, a, db, 1);
+  else if constexpr (NH == 128) wgmma_rs_n128<1>(o, a, db, 1);
+  else wgmma_rs_n64<1>(o, a, db, 1);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
+                       __grid_constant__ const CUtensorMap map_k,
+                       __grid_constant__ const CUtensorMap map_v,
+                       __nv_bfloat16* __restrict__ out, int T, int D, int Tm, int Dm,
+                       float scale_log2) {
+  constexpr int QCH = DP / 64;  // 64-column chunks of a tile
+  constexpr int NH = DP / 2;    // head-dim columns per consumer warpgroup
+  constexpr int WCH = NH / 64;
+  constexpr int Q_TILE = QCH * Q_CHUNK;
+  constexpr int KV_TILE = QCH * KV_CHUNK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* Qs = smem;
+  unsigned char* Ks = smem + Q_TILE;                     // stage s at + s * KV_TILE
+  unsigned char* Vs = smem + Q_TILE + STAGES * KV_TILE;  // stage s at + s * KV_TILE
+  float* X = reinterpret_cast<float*>(smem + Q_TILE + 2 * STAGES * KV_TILE);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + Q_TILE + 2 * STAGES * KV_TILE + X_BYTES);
+  uint64_t *kfull = qfull + 1, *kempty = kfull + STAGES, *vfull = kempty + STAGES,
+           *vempty = vfull + STAGES;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int bh = blockIdx.y;
+  const int ntiles = (T + BKV - 1) / BKV;
+
+  if (tid == 0) {
+    mbar_init(qfull, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&kfull[s], 1);
+      mbar_init(&kempty[s], 2);  // one arrival per consumer warpgroup
+      mbar_init(&vfull[s], 1);
+      mbar_init(&vempty[s], 2);
+    }
+    mbar_fence_init();
   }
-};
+  __syncthreads();
 
-// rows [row0, row0 + rows) of a [T, D] bf16 matrix into smem with stride ld; zero past T
-__device__ void load_tile(__nv_bfloat16* dst, const __nv_bfloat16* src, int row0, int rows,
-                          int T, int D, int ld) {
-  const int vec_per_row = D / 8;
-  for (int v = threadIdx.x; v < rows * vec_per_row; v += THREADS) {
-    const int r = v / vec_per_row;
-    const int c8 = (v % vec_per_row) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < T) val = *reinterpret_cast<const uint4*>(src + (size_t)(row0 + r) * D + c8);
-    *reinterpret_cast<uint4*>(dst + r * ld + c8) = val;
+  // the warpgroup index through a shuffle, so the compiler knows it is
+  // warp-uniform and builds the wgmma descriptors with uniform instructions
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (wg == 2) {
+    // ------------------------------------------------------------ producer
+    setmaxnreg_dec<24>();
+    if (tid == 256) {
+      prefetch_tensormap(&map_q);
+      prefetch_tensormap(&map_k);
+      prefetch_tensormap(&map_v);
+      mbar_arrive_expect_tx(qfull, Q_TILE);
+      for (int c = 0; c < QCH; ++c)
+        tma_load_3d(Qs + c * Q_CHUNK, &map_q, qfull, c * 64, q0, bh);
+      for (int j = 0; j < ntiles; ++j) {
+        const int st = j % STAGES;
+        const uint32_t phase = (j / STAGES) & 1;
+        mbar_wait(&kempty[st], phase ^ 1);
+        mbar_arrive_expect_tx(&kfull[st], KV_TILE);
+        for (int c = 0; c < QCH; ++c)
+          tma_load_3d(Ks + st * KV_TILE + c * KV_CHUNK, &map_k, &kfull[st], c * 64, j * BKV, bh);
+        mbar_wait(&vempty[st], phase ^ 1);
+        mbar_arrive_expect_tx(&vfull[st], KV_TILE);
+        for (int c = 0; c < QCH; ++c)
+          tma_load_3d(Vs + st * KV_TILE + c * KV_CHUNK, &map_v, &vfull[st], c * 64, j * BKV, bh);
+      }
+    }
+  } else {
+    // ------------------------------------------------------------ consumers
+    setmaxnreg_inc<240>();
+    const int g = wg;
+    const int lt = tid & 127;
+    const int lane = lt & 31;
+    // accumulator layout of m64nNk16: d[4j + 2h + e] is row 16*warp + lane/4 + 8h,
+    // column 8j + 2*(lane%4) + e
+    float o[NH / 2];
+#pragma unroll
+    for (int i = 0; i < NH / 2; ++i) o[i] = 0.0f;
+    float s[BKV / 2];
+    float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};
+    float* mine = X + g * (BQ * BKV);
+    const float* other = X + (1 - g) * (BQ * BKV);
+
+    const uint32_t q_addr = smem_u32(Qs), k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+    mbar_wait(qfull, 0);
+#pragma unroll 1
+    for (int j = 0; j < ntiles; ++j) {
+      const int st = j % STAGES;
+      const uint32_t phase = (j / STAGES) & 1;
+      // S_g = Q[:, half g] K[:, half g]^T
+      mbar_wait(&kfull[st], phase);
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int c = 0; c < WCH; ++c)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const int col = g * WCH + c;
+          wgmma_ss_n32<0>(s, make_desc(q_addr + col * Q_CHUNK + k * 32, 16, 1024),
+                          make_desc(k_addr + st * KV_TILE + col * KV_CHUNK + k * 32, 16, 1024),
+                          (c > 0 || k > 0) ? 1 : 0);
+        }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      if (lt == 0) mbar_arrive(&kempty[st]);
+
+      // S = S_0 + S_1 through the exchange buffer
+      named_barrier(1, 256);  // the other warpgroup has read this buffer's last tile
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) mine[i * 128 + lt] = s[i];
+      named_barrier(2, 256);
+#pragma unroll
+      for (int i = 0; i < BKV / 2; ++i) s[i] += other[i * 128 + lt];
+
+      // keys past T only in the last tile: mask there, against one register
+      if (j == ntiles - 1) {
+        // column 8jj + 2*(lane%4) + e of the tile is past T when 8jj + e >= left
+        const int left = T - j * BKV - 2 * (lane & 3);
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+#pragma unroll
+            for (int hh = 0; hh < 2; ++hh)
+              if (8 * jj + e >= left) s[4 * jj + 2 * hh + e] = -INFINITY;
+      }
+      // online softmax over this thread's two rows
+      float alpha[2];
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        float mx = -INFINITY;
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) mx = fmaxf(mx, s[4 * jj + 2 * hh + e]);
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+        const float m_new = fmaxf(m[hh], mx);
+        alpha[hh] = exp2f((m[hh] - m_new) * scale_log2);
+        m[hh] = m_new;
+        const float ms = m_new * scale_log2;
+        float sum = 0.0f;
+#pragma unroll
+        for (int jj = 0; jj < BKV / 8; ++jj)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            float& v = s[4 * jj + 2 * hh + e];
+            v = exp2f(fmaf(v, scale_log2, -ms));
+            sum += v;
+          }
+        l[hh] = l[hh] * alpha[hh] + sum;
+      }
+#pragma unroll
+      for (int jj = 0; jj < NH / 8; ++jj)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          o[4 * jj + 2 * hh] *= alpha[hh];
+          o[4 * jj + 2 * hh + 1] *= alpha[hh];
+        }
+      // P as bf16 in wgmma's register-A layout, 16 keys per k step
+      uint32_t pa[BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+
+      // O_g += P V[:, half g]
+      mbar_wait(&vfull[st], phase);
+      fence_regs(o);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+        wgmma_pv<NH>(o, pa[kk],
+                     make_desc(v_addr + st * KV_TILE + g * WCH * KV_CHUNK + kk * 16 * 128,
+                               KV_CHUNK, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+      if (lt == 0) mbar_arrive(&vempty[st]);
+    }
+
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 1);
+      l[hh] += __shfl_xor_sync(0xffffffffu, l[hh], 2);
+    }
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = q0 + (lt >> 5) * 16 + (lane >> 2) + 8 * hh;
+      if (row >= T) continue;
+      const float inv = 1.0f / l[hh];
+      __nv_bfloat16* dst = out + ((size_t)bh * Tm + row) * Dm;
+#pragma unroll
+      for (int jj = 0; jj < NH / 8; ++jj) {
+        const int col = g * NH + 8 * jj + 2 * (lane & 3);
+        if (col < D)
+          *reinterpret_cast<uint32_t*>(dst + col) =
+              pack_bf16x2(o[4 * jj + 2 * hh] * inv, o[4 * jj + 2 * hh + 1] * inv);
+      }
+    }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
-flash_attention_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                       const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ out,
-                       int T, int D, float scale) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Smem L(D);
-  __nv_bfloat16* Qs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.q);
-  __nv_bfloat16* KVs = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.kv);
-  float* Os = reinterpret_cast<float*>(smem_raw + L.o);
-  float* Ss = reinterpret_cast<float*>(smem_raw + L.s);
-  __nv_bfloat16* Ps = reinterpret_cast<__nv_bfloat16*>(smem_raw + L.p);
-  float* m_s = reinterpret_cast<float*>(smem_raw + L.stats);
-  float* l_s = m_s + BQ;
-  float* a_s = l_s + BQ;
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5, lane = tid & 31;
-  const size_t head = (size_t)blockIdx.y * T * D;
-  const int q0 = blockIdx.x * BQ;
-
-  load_tile(Qs, q + head, q0, BQ, T, D, L.d_ld);
-  for (int i = tid; i < BQ * D; i += THREADS) Os[(i / D) * L.o_ld + i % D] = 0.0f;
-  if (tid < BQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
-  }
-
-  for (int k0 = 0; k0 < T; k0 += BKV) {
-    load_tile(KVs, k + head, k0, BKV, T, D, L.d_ld);
-    __syncthreads();
-
-    {  // S = Q K^T: (BQ/16) x (BKV/16) = 8 tiles, one per warp
-      const int tr = warp / (BKV / 16), tc = warp % (BKV / 16);
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc;
-      wmma::fill_fragment(sacc, 0.0f);
-      for (int kk = 0; kk < D; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::col_major> b;
-        wmma::load_matrix_sync(a, Qs + tr * 16 * L.d_ld + kk, L.d_ld);
-        wmma::load_matrix_sync(b, KVs + tc * 16 * L.d_ld + kk, L.d_ld);
-        wmma::mma_sync(sacc, a, b, sacc);
-      }
-      wmma::store_matrix_sync(Ss + tr * 16 * S_LD + tc * 16, sacc, S_LD, wmma::mem_row_major);
-    }
-    __syncthreads();
-
-    // online softmax: each warp owns BQ / NWARPS rows, each lane two keys
-    for (int rr = 0; rr < BQ / NWARPS; ++rr) {
-      const int row = warp * (BQ / NWARPS) + rr;
-      float s0 = Ss[row * S_LD + lane] * scale;
-      float s1 = Ss[row * S_LD + lane + 32] * scale;
-      if (k0 + lane >= T) s0 = -INFINITY;
-      if (k0 + lane + 32 >= T) s1 = -INFINITY;
-      float mx = fmaxf(s0, s1);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_old = m_s[row];
-      const float m_new = fmaxf(m_old, mx);
-      const float p0 = expf(s0 - m_new), p1 = expf(s1 - m_new);
-      float sum = p0 + p1;
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      Ps[row * P_LD + lane] = __float2bfloat16(p0);
-      Ps[row * P_LD + lane + 32] = __float2bfloat16(p1);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        a_s[row] = alpha;
-        l_s[row] = l_s[row] * alpha + sum;
-        m_s[row] = m_new;
-      }
-    }
-    __syncthreads();  // all reads of K done, all alphas written
-
-    load_tile(KVs, v + head, k0, BKV, T, D, L.d_ld);
-    for (int i = tid; i < BQ * D; i += THREADS) Os[(i / D) * L.o_ld + i % D] *= a_s[i / D];
-    __syncthreads();
-
-    // O += P V: (BQ/16) x (D/16) tiles of 16 x 16, strided over the warps
-    for (int t = warp; t < (BQ / 16) * (D / 16); t += NWARPS) {
-      const int tr = t / (D / 16), tc = t % (D / 16);
-      float* o_tile = Os + tr * 16 * L.o_ld + tc * 16;
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> oacc;
-      wmma::load_matrix_sync(oacc, o_tile, L.o_ld, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, Ps + tr * 16 * P_LD + kk, P_LD);
-        wmma::load_matrix_sync(b, KVs + kk * L.d_ld + tc * 16, L.d_ld);
-        wmma::mma_sync(oacc, a, b, oacc);
-      }
-      wmma::store_matrix_sync(o_tile, oacc, L.o_ld, wmma::mem_row_major);
-    }
-    __syncthreads();
-  }
-
-  for (int i = tid; i < BQ * D; i += THREADS) {
-    const int row = i / D, c = i % D;
-    if (q0 + row < T)
-      out[head + (size_t)(q0 + row) * D + c] = __float2bfloat16(Os[row * L.o_ld + c] / l_s[row]);
-  }
+template <int DP>
+int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
+           __nv_bfloat16* out, int BH, int T, int D, int Tm, int Dm, cudaStream_t stream) {
+  static std::atomic<uint64_t> smem_ready{0};
+  const int rc = allow_dynamic_smem(flash_attention_kernel<DP>, smem_bytes(DP), smem_ready);
+  if (rc != 0) return rc;
+  dim3 grid((unsigned)((T + BQ - 1) / BQ), (unsigned)BH);
+  flash_attention_kernel<DP><<<grid, THREADS, smem_bytes(DP), stream>>>(
+      mq, mk, mv, out, T, D, Tm, Dm, 1.4426950408889634f / sqrtf((float)D));
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out: [BH, T, D] bf16 contiguous. Requires D % 16 == 0 and D <= 512
-// (checked by the Python wrapper).
+// q, k, v, out: [BH, Tm, Dm] bf16 contiguous, of which rows < T and columns < D
+// hold the problem (D % 16 == 0, D <= 512); Tm, Dm >= 64 so that every TMA box
+// fits inside the tensor, and the padding is zero. smem is the caller's copy of
+// the shared-memory layout (ops/attention.flash_smem_bytes); a mismatch is
+// refused. Returns a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    int BH, int T, int D, void* stream) {
-  const Smem L(D);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)L.bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((unsigned)((T + BQ - 1) / BQ), (unsigned)BH);
-  flash_attention_kernel<<<grid, THREADS, L.bytes, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out), T, D,
-      1.0f / sqrtf((float)D));
-  return static_cast<int>(cudaGetLastError());
+                                    int BH, int T, int D, int Tm, int Dm, int smem,
+                                    void* stream) {
+  if (D % 16 != 0 || D <= 0 || D > 512 || Tm < 64 || Tm < T || Dm < 64 || Dm < D ||
+      Dm % 8 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int DP = Dm <= 128 ? 128 : Dm <= 256 ? 256 : 512;
+  if (Dm > 512 || smem != smem_bytes(DP)) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const uint64_t dims[3] = {(uint64_t)Dm, (uint64_t)Tm, (uint64_t)BH};
+  const uint64_t strides[2] = {(uint64_t)Dm * 2, (uint64_t)Tm * Dm * 2};
+  for (int i = 0; i < 3; ++i) {
+    const uint64_t box[3] = {64, (uint64_t)(i == 0 ? BQ : BKV), 1};
+    const int rc = encode_bf16_map(&maps[i], ptrs[i], 3, dims, strides, box);
+    if (rc != 0) return rc;
+  }
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (DP == 128) return launch<128>(maps[0], maps[1], maps[2], o, BH, T, D, Tm, Dm, st);
+  if (DP == 256) return launch<256>(maps[0], maps[1], maps[2], o, BH, T, D, Tm, Dm, st);
+  return launch<512>(maps[0], maps[1], maps[2], o, BH, T, D, Tm, Dm, st);
 }

@@ -2,9 +2,11 @@
 
 The counterpart of ``bbdm_tpu/native/build.py``: one shared library with a
 plain C interface (no PyTorch headers, so nvcc takes seconds), compiled for
-sm_90a into ``bbdm_tpu_torch/_build/`` under a name keyed by the sources'
-hash. Each C entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` raises on a non-zero code.
+sm_90a into ``bbdm_tpu_torch/_build/`` under a name keyed by the hash of every
+source and header in ``csrc/`` and the flags. Each ``.cu`` file compiles in its
+own nvcc process, all started together, then one link. Each C entry point
+launches on the stream it is given and returns ``cudaGetLastError()`` (or
+another ``cudaError_t``); :func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
@@ -16,20 +18,21 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# C signatures: every entry returns the cudaError_t of its launch as int
+# C signatures: every entry returns a cudaError_t as int
 _SIGNATURES = {
-    # x, kp, bias, out, N, ci, co, h, w, stream
-    "subpixel_upconv_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
-    # q, k, v, out, BH, T, D, stream
-    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # x, kp, bias, out, plan (24 x uint64, ops/upsample_conv.UpconvPlan.c_values), stream
+    "subpixel_upconv_bf16": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64), _P],
+    # q, k, v, out, BH, T, D, Tm, Dm, smem_bytes, stream
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -45,25 +48,56 @@ def _nvcc() -> str:
                        "with the CUDA toolkit")
 
 
-def build() -> str:
-    """Compile the sources if no library for their hash exists; return its path."""
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def source_hash() -> str:
+    """Hash of every ``csrc/*.cu`` and ``csrc/*.cuh`` and the nvcc flags."""
     h = hashlib.sha256()
-    for s in sources:
+    for s in sorted(glob.glob(os.path.join(CSRC, "*.cu")) + glob.glob(os.path.join(CSRC, "*.cuh"))):
+        h.update(os.path.basename(s).encode())
         with open(s, "rb") as f:
             h.update(f.read())
     h.update(" ".join(NVCC_FLAGS).encode())
-    out = os.path.join(BUILD_DIR, f"bbdm_kernels-{h.hexdigest()[:16]}.so")
+    return h.hexdigest()[:16]
+
+
+def build() -> str:
+    """Compile the sources if no library for their hash exists; return its path.
+    The compiler's output (ptxas registers and spills per kernel) and the build
+    time go to the ``.log`` beside the library."""
+    out = os.path.join(BUILD_DIR, f"bbdm_kernels-{source_hash()}.so")
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-                          capture_output=True, text=True)
+    t0 = time.time()
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    procs = []
+    for src in sorted(glob.glob(os.path.join(CSRC, "*.cu"))):
+        obj = os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+        procs.append((src, obj, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", obj, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+    log, failed = [], []
+    for src, _, p in procs:
+        text, _ = p.communicate()
+        log.append(f"== {os.path.basename(src)} (rc {p.returncode})\n{text}")
+        if p.returncode != 0:
+            failed.append(text)
+    tmp = f"{out}.{tag}"
+    if not failed:
+        link = subprocess.run([nvcc, "-shared", "-gencode", "arch=compute_90a,code=sm_90a",
+                               "-o", tmp, *(obj for _, obj, _ in procs)],
+                              capture_output=True, text=True)
+        log.append(f"== link (rc {link.returncode})\n{link.stdout}{link.stderr}")
+        if link.returncode != 0:
+            failed.append(link.stderr)
+    for _, obj, _ in procs:
+        if os.path.exists(obj):
+            os.remove(obj)
+    log.append(f"== build time {time.time() - t0:.1f} s")
     with open(out[:-3] + ".log", "w") as f:
-        f.write(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+        f.write("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(t[-4000:] for t in failed))
     os.replace(tmp, out)
     return out
 

@@ -36,8 +36,27 @@ def attention_plain(q, k, v):
     return torch.matmul(weights.float(), v.float()).to(q.dtype)
 
 
+def flash_padded_dim(D):
+    """K3's compiled head dim for a (memory) head dim D: 128, 256 or 512; TMA
+    zero-fills the columns past D."""
+    return 128 if D <= 128 else 256 if D <= 256 else 512
+
+
+def flash_smem_bytes(D):
+    """K3's dynamic shared memory at head dim D (csrc/flash_attention.cu
+    smem_bytes): Q (64 rows x DP bf16), two stages each of K and V tiles
+    (32 keys x DP bf16), the 2 x [64 x 32] fp32 score exchange, 9 mbarriers and
+    1 KB of alignment slack."""
+    dp = flash_padded_dim(D)
+    return 64 * dp * 2 + 2 * 2 * 32 * dp * 2 + 2 * 64 * 32 * 4 + 9 * 8 + 1024
+
+
 def flash_attention_cuda(q, k, v):
-    """Launch K3 on contiguous bf16 [B, H, T, D] CUDA tensors, D % 16 == 0, D <= 512."""
+    """Launch K3 on contiguous bf16 [B, H, T, D] CUDA tensors, D % 16 == 0, D <= 512.
+
+    A TMA box is 64 rows x 64 columns and must fit inside its tensor, so T or D
+    below 64 is zero-padded to 64 (padded keys are masked, padded rows and
+    columns not written) and the output cut back."""
     from bbdm_tpu_torch.kernels import build
 
     for t in (q, k, v):
@@ -48,13 +67,17 @@ def flash_attention_cuda(q, k, v):
     B, H, T, D = q.shape
     if D % 16 != 0 or D > 512:
         raise ValueError(f"flash_attention_cuda takes D % 16 == 0 and D <= 512, got {D}")
+    Tm, Dm = max(T, 64), max(D, 64)
+    if (Tm, Dm) != (T, D):
+        q, k, v = (torch.nn.functional.pad(t, (0, Dm - D, 0, Tm - T)) for t in (q, k, v))
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = build.library().flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D, Tm, Dm,
+        flash_smem_bytes(Dm), stream)
     build.check("flash_attention_bf16", rc)
     flash_attention_cuda.launches += 1
-    return out
+    return out[..., :T, :D].contiguous() if (Tm, Dm) != (T, D) else out
 
 
 flash_attention_cuda.launches = 0

@@ -12,6 +12,10 @@ on a CPU tensor to :func:`upsample_conv_plain`.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+from typing import NamedTuple
+
 import torch
 import torch.nn.functional as F
 
@@ -63,15 +67,76 @@ def upsample_conv_plain(x, w, b, *, dtype=None):
     return F.conv2d(up, w.to(dt), b.to(dt), padding=1)
 
 
+# K2's block tile (csrc/subpixel_upconv.cu): BM output channels x BN source
+# pixels, BK input channels per pipeline stage
+BM, BN, BK = 128, 128, 64
+
+
+class UpconvPlan(NamedTuple):
+    """K2's tiles and TMA boxes for x [N, ci, h, w].
+
+    A block owns BN source pixels of one sample (``rows`` image rows of a
+    ``w_box``-wide segment) for BM output channels and one py (both px). The
+    kernel reads a channels-last copy of x, zero-padded to ``x_dims`` where a
+    box would not fit inside the tensor. Dims, strides (bytes, of dims 1..) and
+    boxes are innermost first; the C entry encodes and launches exactly these
+    values (:meth:`c_values`) and refuses boxes it was not compiled for. Both
+    maps use the 128-byte swizzle.
+    """
+    w_box: int
+    rows: int
+    row_tiles: int
+    segs: int
+    grid: tuple
+    x_dims: tuple  # (ci, w, h, N), padded
+    x_strides: tuple
+    x_box: tuple
+    k_dims: tuple  # (ci, co, 16), padded
+    k_strides: tuple
+    k_box: tuple
+    swizzle: int = 128
+
+    def c_values(self) -> tuple:
+        """The 24 values ``subpixel_upconv_bf16`` takes, in its order."""
+        return (*self.x_dims, *self.x_strides, *self.x_box, *self.k_dims, *self.k_strides,
+                *self.k_box, *self.grid, self.row_tiles, self.segs)
+
+
+@functools.lru_cache(maxsize=None)
+def plan_upconv(N, ci, co, h, w) -> UpconvPlan:
+    """The widest power-of-two row segment (8 ... 128 pixels) that ``w`` fills;
+    rows of it make up the BN pixels of a block. Pads ci to a multiple of 8 and
+    at least BK, co to at least BM, h to at least one tile of rows and w to 8."""
+    wp = max(w, 8)
+    w_box = min(128, 1 << (wp.bit_length() - 1))
+    rows = BN // w_box
+    hp, cip, cop = max(h, rows), max(BK, -(-ci // 8) * 8), max(BM, co)
+    row_tiles, segs = -(-hp // rows), -(-wp // w_box)
+    return UpconvPlan(
+        w_box=w_box, rows=rows, row_tiles=row_tiles, segs=segs,
+        grid=(N * row_tiles * segs, -(-cop // BM), 2),
+        x_dims=(cip, wp, hp, N), x_strides=(2 * cip, 2 * wp * cip, 2 * hp * wp * cip),
+        x_box=(BK, w_box, rows, 1),
+        k_dims=(cip, cop, 16), k_strides=(2 * cip, 2 * cop * cip), k_box=(BK, BM, 1))
+
+
+@functools.lru_cache(maxsize=None)
+def _c_plan(plan: UpconvPlan):
+    values = plan.c_values()
+    return (ctypes.c_uint64 * len(values))(*values)
+
+
 def upsample_conv_cuda(x, kp, b):
-    """Launch K2. x [N, ci, h, w] bf16; kp [4, 2, 2, co, ci] bf16; b [co] fp32."""
+    """Launch K2. x [N, ci, h, w] bf16; kp [4, 2, 2, co, ci] bf16; b [co] fp32.
+
+    The kernel reads x channels-last, so x is copied once into that layout,
+    zero-padded where :func:`plan_upconv` says (the padding is the conv's own;
+    the extra outputs are cut off)."""
     from bbdm_tpu_torch.kernels import build
 
     if not x.is_cuda or x.dtype != torch.bfloat16 or x.ndim != 4 or not x.is_contiguous():
         raise ValueError("upsample_conv_cuda takes a contiguous bf16 CUDA [N, ci, h, w] tensor")
     N, ci, h, w = x.shape
-    if ci % 32 != 0:
-        raise ValueError(f"upsample_conv_cuda needs ci % 32 == 0, got {ci}")
     co = kp.shape[3]
     if kp.shape != (4, 2, 2, co, ci) or kp.dtype != torch.bfloat16 \
             or not kp.is_contiguous() or kp.device != x.device:
@@ -79,13 +144,25 @@ def upsample_conv_cuda(x, kp, b):
     if b.shape != (co,) or b.dtype != torch.float32 or not b.is_contiguous() \
             or b.device != x.device:
         raise ValueError("bias must be contiguous fp32 [co]")
-    out = torch.empty((N, co, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    plan = plan_upconv(N, ci, co, h, w)
+    (cip, wp, hp, _), cop = plan.x_dims, plan.k_dims[1]
+    padded = (cip, wp, hp, cop) != (ci, w, h, co)
+    if padded:
+        xl = x.new_zeros((N, hp, wp, cip))
+        xl[:, :h, :w, :ci] = x.permute(0, 2, 3, 1)
+        kpp = kp.new_zeros((4, 2, 2, cop, cip))
+        kpp[..., :co, :ci] = kp
+        bp = b.new_zeros(cop)
+        bp[:co] = b
+    else:
+        xl, kpp, bp = x.permute(0, 2, 3, 1).contiguous(), kp, b
+    out = torch.empty((N, cop, 2 * hp, 2 * wp), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = build.library().subpixel_upconv_bf16(
-        x.data_ptr(), kp.data_ptr(), b.data_ptr(), out.data_ptr(), N, ci, co, h, w, stream)
+        xl.data_ptr(), kpp.data_ptr(), bp.data_ptr(), out.data_ptr(), _c_plan(plan), stream)
     build.check("subpixel_upconv_bf16", rc)
     upsample_conv_cuda.launches += 1
-    return out
+    return out[:, :co, :2 * h, :2 * w].contiguous() if padded else out
 
 
 upsample_conv_cuda.launches = 0

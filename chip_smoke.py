@@ -91,7 +91,9 @@ def plain_ops():
 # ------------------------------------------------------------------ kernels
 
 def kernel_cases(dev):
-    """(name, route, source, replaces, counter, [(label, run_kernel, run_plain, rtol, atol)])."""
+    """(name, route, source, replaces, counter, [(label, run_kernel, run_plain, rtol, atol,
+    flops)]): flops None marks an edge case that is checked but not timed, 0 a timed
+    shape without a FLOP count."""
     from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
 
     g = torch.Generator(dev).manual_seed(0)
@@ -116,35 +118,47 @@ def kernel_cases(dev):
                    lambda x=x, w=w, b=b, kw=kw: group_norm.group_norm(x, w, b, **kw),
                    lambda x=x, w=w, b=b, kw=kw: group_norm.group_norm_plain(x, w, b, **kw),
                    # fp32 arithmetic on both sides; bf16 outputs round up to 2 ulps apart
-                   2 ** -7, 2 ** -7))
+                   2 ** -7, 2 ** -7, 0))
 
     up = []
-    # UNet up_2_us / up_1_us in_conv, VQGAN decoder up_2_upsample / up_1_upsample
-    for (n, ci, h), co in (((BATCH, 1024, 16), 1024), ((BATCH, 512, 32), 512),
-                           ((BATCH, 512, 64), 512), ((BATCH, 256, 128), 256)):
-        x = randn(n, ci, h, h)
+    # UNet up_2_us / up_1_us in_conv, VQGAN decoder up_2_upsample / up_1_upsample; then
+    # the edge cases of the gpu-marked tests (ragged co, ci < 64, w = 40, h = 24) and
+    # one that pads every dimension (ci % 8, co < 128, h < one tile of rows, w % 4)
+    for (n, ci, h, wd), co, timed in (((BATCH, 1024, 16, 16), 1024, True),
+                                      ((BATCH, 512, 32, 32), 512, True),
+                                      ((BATCH, 512, 64, 64), 512, True),
+                                      ((BATCH, 256, 128, 128), 256, True),
+                                      ((1, 32, 24, 40), 96, False),
+                                      ((2, 64, 16, 16), 64, False),
+                                      ((1, 20, 5, 7), 30, False)):
+        x = randn(n, ci, h, wd)
         w = randn(co, ci, 3, 3, scale=0.02, dtype=torch.float32)
         b = randn(co, scale=0.1, dtype=torch.float32)
         kp = upsample_conv.combine_kernel_2x2(w).to(torch.bfloat16)
-        up.append((f"{[n, ci, h, h]}->{co}",
+        up.append((f"{[n, ci, h, wd]}->{co}",
                    lambda x=x, kp=kp, b=b: upsample_conv.upsample_conv_cuda(x, kp, b),
                    lambda x=x, w=w, b=b: upsample_conv.upsample_conv_plain(
                        x, w, b, dtype=torch.bfloat16),
                    # the kernel's phase taps are fp32 sums rounded to bf16 once, the
                    # twin's 3x3 taps are rounded one by one: 2^-8 relative per tap,
                    # plus one output rounding each
-                   2 ** -5, 2 ** -5))
+                   2 ** -5, 2 ** -5, 2 * n * h * wd * 16 * ci * co if timed else None))
 
     fa = []
-    # VQGAN encoder / decoder mid_attn_1: H=1, T=64^2, D=512
-    q, k, v = (randn(BATCH, 1, 4096, 512) for _ in range(3))
-    fa.append((f"{[BATCH, 1, 4096, 512]}",
-               lambda: attention.multi_head_attention(q, k, v),
-               lambda: attention.attention_plain(q, k, v),
-               # the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as _xla_attention
-               # does; the kernel scales the fp32 scores), and both round the
-               # probabilities to bf16: 2^-8 relative each, over 4096 keys
-               2 ** -6, 2 ** -7))
+    # VQGAN encoder / decoder mid_attn_1: H=1, T=64^2, D=512; then the edge cases of
+    # the gpu-marked tests: ragged T (keys masked, rows not written) and D=128; then
+    # T and D below one 64 x 64 box
+    for shape, timed in (((BATCH, 1, 4096, 512), True), ((1, 2, 1100, 128), False),
+                         ((2, 1, 1024, 512), False), ((1, 1, 50, 48), False)):
+        q, k, v = (randn(*shape) for _ in range(3))
+        B, H, T, D = shape
+        fa.append((f"{list(shape)}",
+                   lambda q=q, k=k, v=v: attention.flash_attention_cuda(q, k, v),
+                   lambda q=q, k=k, v=v: attention.attention_plain(q, k, v),
+                   # the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as _xla_attention
+                   # does; the kernel scales the fp32 scores), and both round the
+                   # probabilities to bf16: 2^-8 relative each, over T keys
+                   2 ** -6, 2 ** -7, 4 * B * H * T * T * D if timed else None))
 
     return [
         ("group_norm", "triton", "bbdm_tpu_torch/kernels/group_norm_triton.py",
@@ -160,20 +174,27 @@ def kernel_phase(name, cases):
     """Check and time one kernel at its shapes; returns its JSON entry."""
     entry = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "shapes": []}
     ok = True
-    for label, run, plain, rtol, atol in cases:
+    for label, run, plain, rtol, atol, flops in cases:
         out, ref = run(), plain()
         torch.cuda.synchronize()
         abs_err, rel_err, good = compare(out, ref, rtol, atol)
-        ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-        log(f"  {name} {label}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
-            f"(bar |d| <= {atol:g} + {rtol:g}|ref|) {'ok' if good else 'FAIL'}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms")
-        entry["shapes"].append({"shape": label, "max_abs_err": abs_err, "ms": ms,
-                                "plain_ms": plain_ms})
+        line = (f"  {name} {label}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
+                f"(bar |d| <= {atol:g} + {rtol:g}|ref|) {'ok' if good else 'FAIL'}")
+        shape = {"shape": label, "max_abs_err": abs_err}
+        if flops is None:
+            line += "; edge case, not timed"
+        else:
+            ms, plain_ms = cuda_ms(run), cuda_ms(plain)
+            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
+            if flops:
+                line += f", kernel {flops / ms / 1e9:.1f} TFLOP/s"
+            shape.update(ms=ms, plain_ms=plain_ms)
+            entry["ms"] += ms
+            entry["plain_ms"] += plain_ms
+        log(line)
+        entry["shapes"].append(shape)
         entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel_err)
-        entry["ms"] += ms
-        entry["plain_ms"] += plain_ms
         ok &= good
         del out, ref
     if not ok:
@@ -337,7 +358,8 @@ def main() -> int:
         log(f"kernel build: {time.time() - t0:.1f} s ({os.path.basename(path)})")
         with open(path[:-3] + ".log") as f:
             for line in f:
-                if "Compiling entry" in line or "Used" in line:
+                if any(key in line for key in ("Compiling entry", "Used", "spill", "warning",
+                                               "build time")):
                     log("  " + line.strip())
     except Exception:
         traceback.print_exc()

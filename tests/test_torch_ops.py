@@ -163,7 +163,8 @@ def test_group_norm_kernel_matches_twin(cuda, shape, film, eps, dtype):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("shape,co", [((2, 64, 16, 16), 64), ((1, 32, 24, 40), 96)])
+@pytest.mark.parametrize("shape,co", [((2, 64, 16, 16), 64), ((1, 32, 24, 40), 96),
+                                      ((1, 20, 5, 7), 30)])
 def test_upsample_conv_kernel_matches_twin(cuda, shape, co):
     g = torch.Generator(cuda).manual_seed(1)
     x = torch.randn(shape, generator=g, device=cuda).bfloat16()
@@ -189,4 +190,16 @@ def test_flash_attention_kernel_matches_twin(cuda, shape):
     torch.cuda.synchronize()
     assert attention.flash_attention_cuda.launches == before + 1
     # bf16 probabilities and output on both sides, rounded at different places
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+def test_flash_attention_kernel_pads_shapes_below_one_box(cuda):
+    """T and D below K3's 64 x 64 TMA box: the wrapper zero-pads, masks and cuts."""
+    g = torch.Generator(cuda).manual_seed(3)
+    q, k, v = (torch.randn((1, 1, 50, 48), generator=g, device=cuda).bfloat16() for _ in range(3))
+    out = attention.flash_attention_cuda(q, k, v)
+    ref = attention.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
