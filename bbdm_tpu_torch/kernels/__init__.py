@@ -1,2 +1,2 @@
-"""Hand-written Hopper kernels: the nvcc build of ``csrc/*.cu`` and the Triton
-GroupNorm. Nothing here imports triton or compiles anything at import time."""
+"""Hand-written Hopper kernels: the nvcc build of ``csrc/*.cu``. Nothing here
+compiles anything at import time."""

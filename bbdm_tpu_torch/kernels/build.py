@@ -29,6 +29,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P, _I = ctypes.c_void_p, ctypes.c_int
 # C signatures: every entry returns a cudaError_t as int
 _SIGNATURES = {
+    # x, w, b, film_scale, film_shift, out, plan (15 x uint64,
+    # ops/group_norm.GroupNormPlan.c_values), clusters, dtype, film, film_f32,
+    # film_stride, silu, eps, stream
+    "group_norm_fwd": [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64), _I, _I, _I, _I,
+                       ctypes.c_int64, _I, ctypes.c_float, _P],
+    # dtype, cs, smem_bytes, out: clusters resident at once
+    "group_norm_resident_clusters": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # x, kp, bias, out, plan (24 x uint64, ops/upsample_conv.UpconvPlan.c_values), stream
     "subpixel_upconv_bf16": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64), _P],
     # q, k, v, out, BH, T, D, Tm, Dm, smem_bytes, stream

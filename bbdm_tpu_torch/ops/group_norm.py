@@ -5,15 +5,18 @@ normalisation in float32, the affine folded into one scale and shift per
 (n, c), optional FiLM ``y * (1 + s) + b`` per (n, c), optional SiLU, output in
 the input dtype.
 
-On a CUDA tensor every call goes to the Triton kernel
-(``kernels/group_norm_triton.py``, which replaces the Pallas
-``bbdm_tpu/ops/group_norm_pallas.py:group_norm_pallas``); on a CPU tensor to
+On a CUDA tensor every call is one launch of kernel K1 (``csrc/group_norm.cu``,
+which replaces the Pallas ``bbdm_tpu/ops/group_norm_pallas.py:group_norm_pallas``)
+with the launch shape of :func:`plan_group_norm`; on a CPU tensor it goes to
 :func:`group_norm_plain`.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -33,6 +36,13 @@ def group_norm(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
     fn = group_norm_cuda if use_kernel(x) else group_norm_plain
     return fn(x, weight, bias, num_groups=num_groups, eps=eps, act=act,
               film_scale=film_scale, film_shift=film_shift)
+
+
+def group_norm_bytes(x, weight, film_scale=None) -> int:
+    """Bytes one call must move, each read once and written once: x in, y out,
+    fp32 weight and bias, and the FiLM scale and shift ([N, C] each)."""
+    film = 0 if film_scale is None else 2 * film_scale.numel() * film_scale.element_size()
+    return 2 * x.numel() * x.element_size() + 8 * weight.numel() + film
 
 
 def group_norm_plain(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
@@ -66,14 +76,117 @@ def group_norm_plain(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5
     return y.to(x.dtype)
 
 
+# K1's launch limits (csrc/group_norm.cu)
+THREADS = 512
+MAX_CHUNKS = 8
+CLUSTER_SIZES = (1, 2, 4, 8)
+MAX_DYN_SMEM = 232_448 - 1024  # of a block's 227 KB; the kernel's static arrays take the rest
+PAIR_BUDGET = 96 * 1024  # slice bytes per CTA at which two CTAs share an SM
+CHUNK_BYTES = 16 * 1024  # bulk-copy chunk the stats pass starts on
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1, torch.float32: 2}
+
+
+class GroupNormPlan(NamedTuple):
+    """K1's launch for x [N, C, hw]: one cluster of ``cs`` CTAs per (n, group)
+    span of ``span = cpg * hw`` elements. CTA ``rank`` of a cluster owns the
+    slice ``[rank * per, min((rank + 1) * per, span))`` of its span and holds its
+    first ``keep`` elements in shared memory (``overflow`` more are read twice).
+    With ``bulk`` the held part arrives as 1-D bulk copies of ``chunk`` elements
+    (at most ``nchunks``); else as 16-byte vector loads with scalar edges. The
+    per-channel scale and shift (2 x ``cpg`` fp32) start at byte ``sc_off`` of
+    the ``smem_bytes`` of dynamic shared memory. ``grid`` is one cluster per
+    span; the launch holds as many of them as the card runs at once
+    (:func:`_launch_shape`), each walking the spans grid-stride. The field
+    order is the C entry's layout (:meth:`c_values`)."""
+    grid: int
+    cs: int
+    threads: int
+    smem_bytes: int
+    sc_off: int
+    groups: int
+    cpg: int
+    hw: int
+    span: int
+    per: int
+    keep: int
+    chunk: int
+    nchunks: int
+    bulk: int
+    itemsize: int
+
+    @property
+    def overflow(self) -> int:
+        """Elements of a full slice that do not fit in shared memory."""
+        return self.per - self.keep
+
+    def c_values(self) -> tuple:
+        """The 15 values ``group_norm_fwd`` takes, in its order."""
+        return tuple(int(v) for v in self)
+
+
+def _round_up(a: int, m: int) -> int:
+    return -(-a // m) * m
+
+
+@functools.lru_cache(maxsize=None)
+def plan_group_norm(N: int, C: int, hw: int, groups: int, itemsize: int) -> GroupNormPlan:
+    """The smallest cluster whose per-CTA slice fits ``PAIR_BUDGET`` (two CTAs
+    per SM); else the smallest whose slice fits a CTA's whole shared memory
+    (one per SM); else 8 CTAs that each keep what fits and re-read the rest.
+    Bulk copies where the span is a whole number of 16-byte vectors."""
+    if C % groups:
+        raise ValueError(f"channels {C} not divisible by num_groups {groups}")
+    cpg = C // groups
+    span, vec = cpg * hw, 16 // itemsize
+    if not 0 < span < 2 ** 31:
+        raise ValueError(f"group span of {span} elements")
+    cap = ((MAX_DYN_SMEM - 8 * cpg) // itemsize - vec) // vec * vec  # elements a CTA holds
+    if cap < vec:
+        raise ValueError(f"{cpg} channels per group leave K1 no shared memory")
+    per_of = lambda cs: _round_up(-(-span // cs), vec)
+    fits = [cs for cs in CLUSTER_SIZES if per_of(cs) * itemsize <= PAIR_BUDGET] \
+        or [cs for cs in CLUSTER_SIZES if per_of(cs) <= cap] or [CLUSTER_SIZES[-1]]
+    cs = fits[0]
+    per = per_of(cs)
+    keep = min(per, cap)
+    pieces = min(MAX_CHUNKS, -(-keep * itemsize // CHUNK_BYTES))
+    chunk = _round_up(-(-keep // pieces), vec)
+    sc_off = _round_up((keep + vec) * itemsize, 16)
+    return GroupNormPlan(grid=N * groups * cs, cs=cs, threads=THREADS,
+                         smem_bytes=sc_off + 8 * cpg, sc_off=sc_off, groups=groups, cpg=cpg,
+                         hw=hw, span=span, per=per, keep=keep, chunk=chunk,
+                         nchunks=-(-keep // chunk), bulk=int(span % vec == 0),
+                         itemsize=itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _launch_shape(plan: GroupNormPlan, dtype: int, device: int):
+    """(the plan as the C entry's uint64 array, clusters to launch): as many
+    clusters as the card runs at once, at most one per span; each walks the
+    spans grid-stride."""
+    from bbdm_tpu_torch.kernels import build
+
+    resident = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        build.check("group_norm_resident_clusters", build.library().group_norm_resident_clusters(
+            dtype, plan.cs, plan.smem_bytes, ctypes.byref(resident)))
+    if resident.value < 1:
+        raise RuntimeError(f"K1: no cluster of {plan.cs} CTAs with {plan.smem_bytes} bytes of "
+                           "shared memory fits the card")
+    values = plan.c_values()
+    return (ctypes.c_uint64 * len(values))(*values), min(plan.grid // plan.cs, resident.value)
+
+
 def group_norm_cuda(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
                     act: str | None = None, film_scale=None, film_shift=None):
-    """Launch the Triton GroupNorm kernel; raises on what it does not take."""
-    from bbdm_tpu_torch.kernels import group_norm_triton
+    """Launch K1 once; raises on what it does not take. x: contiguous bf16,
+    fp16 or fp32 [N, C, ...]; weight, bias: fp32 [C]; film_*: [N, C] with unit
+    channel stride, of x's dtype or fp32."""
+    from bbdm_tpu_torch.kernels import build
 
     if not x.is_cuda:
         raise ValueError("group_norm_cuda takes a CUDA tensor")
-    if x.dtype not in (torch.bfloat16, torch.float16, torch.float32):
+    if x.dtype not in _DTYPES:
         raise TypeError(f"group_norm_cuda: unsupported dtype {x.dtype}")
     if x.ndim < 3 or not x.is_contiguous():
         raise ValueError("group_norm_cuda takes a contiguous [N, C, ...] tensor")
@@ -84,16 +197,34 @@ def group_norm_cuda(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
         if p.shape != (C,) or p.dtype != torch.float32 or not p.is_contiguous() \
                 or p.device != x.device:
             raise ValueError("group_norm_cuda takes contiguous fp32 [C] weight and bias")
-    if film_scale is not None:
+    film = film_scale is not None
+    if film:
         for f in (film_scale, film_shift):
             if f.shape != (N, C) or f.stride(1) != 1 or f.device != x.device:
                 raise ValueError("group_norm_cuda takes [N, C] film tensors with unit "
                                  "channel stride")
+            if f.dtype not in (x.dtype, torch.float32) or f.dtype != film_scale.dtype:
+                raise TypeError("group_norm_cuda takes film tensors of x's dtype or fp32")
         if film_scale.stride(0) != film_shift.stride(0):
             raise ValueError("film_scale and film_shift need the same row stride")
-    out = torch.empty_like(x)
-    group_norm_triton.launch(x, weight, bias, film_scale, film_shift, out,
-                             num_groups=num_groups, eps=eps, silu=act == "silu")
+    out = torch.empty_like(x, memory_format=torch.contiguous_format)
+    if x.numel() == 0:
+        return out
+    if x.data_ptr() % 16:  # a view at an odd offset; the kernel reads 16-byte vectors
+        x = x.clone()
+    dtype = _DTYPES[x.dtype]
+    c_plan, clusters = _launch_shape(
+        plan_group_norm(N, C, x.numel() // (N * C), num_groups, x.element_size()), dtype,
+        x.device.index)
+    rc = build.library().group_norm_fwd(
+        x.data_ptr(), weight.data_ptr(), bias.data_ptr(),
+        film_scale.data_ptr() if film else None, film_shift.data_ptr() if film else None,
+        out.data_ptr(), c_plan, clusters, dtype, int(film),
+        int(film and film_scale.dtype == torch.float32), film_scale.stride(0) if film else 0,
+        int(act == "silu"), eps,
+        # the current stream's handle without building a Stream object (~3 us less)
+        torch._C._cuda_getCurrentRawStream(x.device.index))
+    build.check("group_norm_fwd", rc)
     group_norm_cuda.launches += 1
     return out
 

@@ -6,26 +6,48 @@ Full width (VQGAN ch 128 x (1,2,4) at 256^2, UNet mc 128 x (1,4,8) at 64^2),
 bf16, batch 8, random weights from seed 0. For each region it prints the host
 wall time (synchronised, median of ``REPS``), the device busy time (the sum of
 the card's kernel, copy and fill times that ``torch.profiler`` records, per
-rep), the idle share 1 - busy / wall, the hand-written kernels' share, and the
-kernels that take the most device time. The sampler region is one
-``p_sample_loop`` of ``STEPS`` steps, reported per step.
+rep), the idle share 1 - busy / wall, the hand-written kernels' share, K1's
+bound (the bytes its GroupNorm calls must move, each input read once and each
+output written once, over the H100's 3.35 TB/s) and the kernels that take the
+most device time. The sampler region is one ``p_sample_loop`` of ``STEPS``
+steps, reported per step.
 """
 
 from __future__ import annotations
 
 import json
 import statistics
+import subprocess
 import time
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-# name fragments of the hand-written kernels (K1 is Triton's _stats + _apply)
-KERNELS = {"K1": ("_stats", "_apply"), "K2": ("subpixel_upconv_kernel",),
+from bbdm_tpu_torch.ops import PEAK_BYTES_S
+
+# name fragments of the hand-written kernels
+KERNELS = {"K1": ("group_norm_kernel",), "K2": ("subpixel_upconv_kernel",),
            "K3": ("flash_attention_kernel",)}
 STEPS, REPS, TOP = 3, 3, 6  # sampler steps per loop, timed repeats, kernels listed
 
+
+def k1_bytes(fn):
+    """Bytes K1's calls in one fn() must move (:func:`group_norm_bytes` summed)."""
+    from bbdm_tpu_torch.ops import group_norm
+
+    op, total = group_norm.group_norm, [0]
+
+    def counting(x, weight, bias, *, film_scale=None, **kw):
+        total[0] += group_norm.group_norm_bytes(x, weight, film_scale)
+        return op(x, weight, bias, film_scale=film_scale, **kw)
+
+    group_norm.group_norm = counting
+    try:
+        fn()
+    finally:
+        group_norm.group_norm = op
+    return total[0]
 
 def measure(fn, reps, per):
     """Wall ms, device busy ms and the top kernels of fn(), each per ``per`` units."""
@@ -75,16 +97,22 @@ def main() -> int:
         "encode": (lambda: model.encode(x_cond), 1),
         "decode": (lambda: model.decode(z), 1),
     }
-    print(f"{torch.cuda.get_device_name(0)}; batch {batch}, bf16, {len(noise)}-step loop, "
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    print(f"{smi.stdout.strip() or torch.cuda.get_device_name(0)}; batch {batch}, bf16, "
+          f"{len(noise)}-step loop, "
           f"median of {REPS}", flush=True)
     for name, (fn, per) in regions.items():
         wall, busy, dev_ms = measure(fn, REPS, per)
         kern = {k: sum(v for n, v in dev_ms.items() if any(p in n for p in pats))
                 for k, pats in KERNELS.items()}
+        k1_bound = k1_bytes(fn) / per / PEAK_BYTES_S * 1e3
         top = sorted(dev_ms.items(), key=lambda kv: -kv[1])[:TOP]
         print(json.dumps({"region": name, "wall_ms": wall, "device_busy_ms": busy,
-                          "idle_share": 1 - busy / wall,
-                          "kernels_ms": kern}), flush=True)
+                          "idle_share": 1 - busy / wall, "kernels_ms": kern,
+                          "k1_bound_ms": k1_bound,
+                          "k1_share_of_bound": k1_bound / kern["K1"] if kern["K1"] else None}),
+              flush=True)
         for n, v in top:
             print(f"    {v:8.3f} ms  {n[:110]}", flush=True)
     return 0

@@ -14,16 +14,18 @@ import numpy as np
 import torch
 
 from bbdm_tpu_torch.models import build_model
+from bbdm_tpu_torch.models.factory import resolve_device
 from bbdm_tpu_torch.utils.images import save_single_image
 
 
 class BBDMRunner:
     """Holds the model (seeded random weights until a checkpoint is loaded into
-    ``runner.model``), the sampling generator and the latent statistics."""
+    ``runner.model``), the sampling generator and the latent statistics, on
+    ``device`` (default: the CUDA card; raises where there is none)."""
 
-    def __init__(self, config, *, device="cpu", seed: int = 0):
+    def __init__(self, config, *, device=None, seed: int = 0):
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.model = build_model(config.model, device=self.device,
                                  generator=torch.Generator(self.device).manual_seed(seed))
         self.generator = torch.Generator(self.device).manual_seed(seed + 1)

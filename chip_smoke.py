@@ -8,10 +8,14 @@ Phases, each of which must pass:
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, TF32 off;
 2. kernel build: nvcc of ``bbdm_tpu_torch/csrc/*.cu`` for sm_90a;
-3. each hand-written kernel (K1 GroupNorm in Triton, K2 subpixel up-conv and
-   K3 flash attention in CUDA C++) against its plain PyTorch twin on the card,
-   in bf16 at the shapes the LBBDM-f4 path gives it, with CUDA-event times of
-   both (median of several runs);
+3. each hand-written kernel (K1 GroupNorm, K2 subpixel up-conv, K3 flash
+   attention, all CUDA C++) against its plain PyTorch twin on the card at the
+   shapes the LBBDM-f4 path gives it and at edge cases, one launch per call;
+   at the path shapes also CUDA-event times of the kernel (wrapper included),
+   its twin and one PyTorch library call computing the same function (or, for
+   K1, a subset of it), the kernel's own device time from torch.profiler, and
+   its bound: the larger of its bytes over 3.35 TB/s and its operations over
+   the peak rate for their type (H100 SXM data sheet);
 4. the LBBDM-f4 slice at full width (VQGAN ch 128 x (1,2,4) at 256^2, UNet
    mc 128 x (1,4,8) at 64^2, bf16, batch 8, seeded random weights), cut to
    20 sampling steps and 2 draws per condition: the sampled latent through
@@ -90,11 +94,62 @@ def plain_ops():
 
 # ------------------------------------------------------------------ kernels
 
+def upconv_transposed_kernel(w):
+    """[co, ci, 3, 3] -> [ci, co, 4, 4] such that
+    ``conv_transpose2d(x, W4, b, stride=2, padding=1)`` is exactly
+    ``conv2d(interpolate(x, 2, 'nearest'), w, b, padding=1)``: along each axis
+    output 2m reads x[m-1] w0 + x[m] (w1 + w2) and 2m+1 reads x[m] (w0 + w1) +
+    x[m+1] w2, so the four transposed taps are (w2, w1 + w2, w0 + w1, w0)."""
+    m = torch.tensor([[0, 0, 1], [0, 1, 1], [1, 1, 0], [1, 0, 0]], dtype=torch.float32,
+                     device=w.device)
+    return torch.einsum("ar,bs,oirs->ioab", m, m, w.float()).to(w.dtype)
+
+
+def kernel_times_us(fn, calls=5):
+    """{device kernel name: microseconds per call} of fn() from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / calls for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0}
+
+
+def sdpa_backends(q, k, v):
+    """CUDA-event ms of F.scaled_dot_product_attention at D^-1/2 with each backend
+    pinned in turn, or why it refused."""
+    import warnings
+
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    out = {}
+    for be in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+               SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with warnings.catch_warnings(), sdpa_kernel([be]):
+                warnings.simplefilter("ignore")
+                out[be.name] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, scale=q.shape[-1] ** -0.5), runs=5)
+        except RuntimeError as e:
+            out[be.name] = "refused: " + str(e).strip().splitlines()[0][:120]
+    return out
+
+
 def kernel_cases(dev):
-    """(name, route, source, replaces, counter, [(label, run_kernel, run_plain, rtol, atol,
-    flops)]): flops None marks an edge case that is checked but not timed, 0 a timed
-    shape without a FLOP count."""
-    from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+    """(name, route, source, replaces, counter, kernel-name fragment, cases); each
+    case is (label, run_kernel, run_plain, rtol, atol, work): work None marks an
+    edge case that is checked but not timed, else a dict with the case's
+    ``flops`` at ``peak`` FLOP/s, its ``bytes`` (each input read once, each output
+    written once) and its ``library`` call (or None)."""
+    import torch.nn.functional as F
+
+    from bbdm_tpu_torch.ops import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, attention, group_norm,
+                                    upsample_conv)
 
     g = torch.Generator(dev).manual_seed(0)
 
@@ -102,23 +157,44 @@ def kernel_cases(dev):
         return (scale * torch.randn(shape, generator=g, device=dev)).to(dtype)
 
     gn = []
-    # (shape, film, eps): UNet up_0_0.in_norm at 64^2 (C=640), UNet up_2_us.out_norm
-    # with FiLM (C=1024 at 32^2), VQGAN decoder up_0_block_0.norm1 (C=256 at 256^2)
-    for shape, film, eps in (((BATCH, 640, 64, 64), False, 1e-5),
-                             ((BATCH, 1024, 32, 32), True, 1e-5),
-                             ((BATCH, 256, 256, 256), False, 1e-6)):
-        N, C = shape[:2]
-        x = randn(*shape, scale=2.0)
+    # timed: UNet up_0_0.in_norm at 64^2 (C=640), UNet up_2_us.out_norm with FiLM
+    # (C=1024 at 32^2), VQGAN decoder up_0_block_0.norm1 (C=256 at 256^2); then
+    # the edge cases of the gpu-marked tests: a span that overflows a cluster of 8
+    # (fp32 at 256^2), a ragged span (C=96 at 7x5), fp16 with FiLM, a cluster of
+    # 4, and a ragged span split over a cluster of 2
+    for shape, film, eps, dtype, timed in (
+            ((BATCH, 640, 64, 64), False, 1e-5, torch.bfloat16, True),
+            ((BATCH, 1024, 32, 32), True, 1e-5, torch.bfloat16, True),
+            ((BATCH, 256, 256, 256), False, 1e-6, torch.bfloat16, True),
+            ((1, 256, 256, 256), False, 1e-6, torch.float32, False),
+            ((2, 96, 7, 5), False, 1e-5, torch.bfloat16, False),
+            ((2, 320, 24, 24), True, 1e-5, torch.float16, False),
+            ((2, 256, 128, 128), False, 1e-6, torch.bfloat16, False),
+            ((2, 32, 255, 255), True, 1e-6, torch.bfloat16, False)):
+        N, C, H, W = shape
+        x = randn(*shape, scale=2.0, dtype=dtype)
         w, b = 1 + randn(C, scale=0.1, dtype=torch.float32), randn(C, scale=0.1,
                                                                    dtype=torch.float32)
-        f = randn(N, 2 * C, scale=0.1) if film else None
+        f = randn(N, 2 * C, scale=0.1, dtype=dtype) if film else None
         fs, fb = f.chunk(2, dim=1) if film else (None, None)
         kw = dict(eps=eps, act="silu", film_scale=fs, film_shift=fb)
-        gn.append((f"{list(shape)} film={film}",
+        wl, bl = w.to(dtype), b.to(dtype)
+        plan = group_norm.plan_group_norm(N, C, H * W, 32, x.element_size())
+        work = dict(flops=10 * x.numel(), peak=PEAK_FP32_FLOPS,
+                    bytes=group_norm.group_norm_bytes(x, w, fs),
+                    library=lambda x=x, wl=wl, bl=bl, eps=eps: F.group_norm(x, 32, wl, bl, eps),
+                    library_call="F.group_norm (no FiLM, no SiLU: a subset of K1's work)")
+        clusters = group_norm._launch_shape(plan, group_norm._DTYPES[dtype], dev.index)[1]
+        gn.append((f"{list(shape)} {str(dtype)[6:]} film={film} cs={plan.cs} "
+                   f"clusters={clusters}"
+                   f"{' overflow=' + str(plan.overflow) if plan.overflow else ''}"
+                   f"{'' if plan.bulk else ' vector-loads'}",
                    lambda x=x, w=w, b=b, kw=kw: group_norm.group_norm(x, w, b, **kw),
                    lambda x=x, w=w, b=b, kw=kw: group_norm.group_norm_plain(x, w, b, **kw),
-                   # fp32 arithmetic on both sides; bf16 outputs round up to 2 ulps apart
-                   2 ** -7, 2 ** -7, 0))
+                   # fp32 arithmetic on both sides; 16-bit outputs may round up to 2
+                   # ulps apart
+                   *((1e-4, 1e-4) if dtype == torch.float32 else (2 ** -7, 2 ** -7)),
+                   work if timed else None))
 
     up = []
     # UNet up_2_us / up_1_us in_conv, VQGAN decoder up_2_upsample / up_1_upsample; then
@@ -135,6 +211,12 @@ def kernel_cases(dev):
         w = randn(co, ci, 3, 3, scale=0.02, dtype=torch.float32)
         b = randn(co, scale=0.1, dtype=torch.float32)
         kp = upsample_conv.combine_kernel_2x2(w).to(torch.bfloat16)
+        w4, bl = upconv_transposed_kernel(w).to(torch.bfloat16), b.to(torch.bfloat16)
+        work = dict(flops=2 * n * h * wd * 16 * ci * co, peak=PEAK_BF16_FLOPS,
+                    bytes=2 * (x.numel() + kp.numel() + 4 * n * h * wd * co) + 4 * co,
+                    library=lambda x=x, w4=w4, bl=bl: F.conv_transpose2d(
+                        x, w4, bl, stride=2, padding=1),
+                    library_call="F.conv_transpose2d(x, W4, b, stride=2, padding=1)")
         up.append((f"{[n, ci, h, wd]}->{co}",
                    lambda x=x, kp=kp, b=b: upsample_conv.upsample_conv_cuda(x, kp, b),
                    lambda x=x, w=w, b=b: upsample_conv.upsample_conv_plain(
@@ -142,7 +224,7 @@ def kernel_cases(dev):
                    # the kernel's phase taps are fp32 sums rounded to bf16 once, the
                    # twin's 3x3 taps are rounded one by one: 2^-8 relative per tap,
                    # plus one output rounding each
-                   2 ** -5, 2 ** -5, 2 * n * h * wd * 16 * ci * co if timed else None))
+                   2 ** -5, 2 ** -5, work if timed else None))
 
     fa = []
     # VQGAN encoder / decoder mid_attn_1: H=1, T=64^2, D=512; then the edge cases of
@@ -152,51 +234,83 @@ def kernel_cases(dev):
                          ((2, 1, 1024, 512), False), ((1, 1, 50, 48), False)):
         q, k, v = (randn(*shape) for _ in range(3))
         B, H, T, D = shape
+        work = dict(flops=4 * B * H * T * T * D, peak=PEAK_BF16_FLOPS, bytes=4 * q.numel() * 2,
+                    library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
+                        q, k, v, scale=q.shape[-1] ** -0.5),
+                    library_call="F.scaled_dot_product_attention(q, k, v, scale=D**-0.5)",
+                    backends=lambda q=q, k=k, v=v: sdpa_backends(q, k, v))
         fa.append((f"{list(shape)}",
                    lambda q=q, k=k, v=v: attention.flash_attention_cuda(q, k, v),
                    lambda q=q, k=k, v=v: attention.attention_plain(q, k, v),
                    # the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as _xla_attention
                    # does; the kernel scales the fp32 scores), and both round the
                    # probabilities to bf16: 2^-8 relative each, over T keys
-                   2 ** -6, 2 ** -7, 4 * B * H * T * T * D if timed else None))
+                   2 ** -6, 2 ** -7, work if timed else None))
 
     return [
-        ("group_norm", "triton", "bbdm_tpu_torch/kernels/group_norm_triton.py",
-         "bbdm_tpu/ops/group_norm_pallas.py:178", (group_norm, "group_norm_cuda"), gn),
+        ("group_norm", "cuda", "bbdm_tpu_torch/csrc/group_norm.cu",
+         "bbdm_tpu/ops/group_norm_pallas.py:178", (group_norm, "group_norm_cuda"),
+         "group_norm_kernel", gn),
         ("subpixel_upconv", "cuda", "bbdm_tpu_torch/csrc/subpixel_upconv.cu",
-         "bbdm_tpu/ops/subpixel_pallas.py:133", (upsample_conv, "upsample_conv_cuda"), up),
+         "bbdm_tpu/ops/subpixel_pallas.py:133", (upsample_conv, "upsample_conv_cuda"),
+         "subpixel_upconv_kernel", up),
         ("flash_attention", "cuda", "bbdm_tpu_torch/csrc/flash_attention.cu",
-         "bbdm_tpu/ops/flash_attention.py:115", (attention, "flash_attention_cuda"), fa),
+         "bbdm_tpu/ops/flash_attention.py:115", (attention, "flash_attention_cuda"),
+         "flash_attention_kernel", fa),
     ]
 
 
-def kernel_phase(name, cases):
-    """Check and time one kernel at its shapes; returns its JSON entry."""
-    entry = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0, "shapes": []}
+def kernel_phase(name, counter, pattern, cases):
+    """Check each case against the twin (and that it is one launch); time the
+    path shapes; returns the kernel's JSON entry (sums over the timed shapes)."""
+    from bbdm_tpu_torch.ops import PEAK_BYTES_S
+
+    mod, attr = counter
+    entry = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+             "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0, "shapes": []}
+    ops_s = bytes_s = 0.0
     ok = True
-    for label, run, plain, rtol, atol, flops in cases:
-        out, ref = run(), plain()
+    for label, run, plain, rtol, atol, work in cases:
+        before = getattr(mod, attr).launches
+        out = run()
+        launched = getattr(mod, attr).launches - before
+        ref = plain()
         torch.cuda.synchronize()
         abs_err, rel_err, good = compare(out, ref, rtol, atol)
+        good &= launched == 1
         line = (f"  {name} {label}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
-                f"(bar |d| <= {atol:g} + {rtol:g}|ref|) {'ok' if good else 'FAIL'}")
+                f"(bar |d| <= {atol:g} + {rtol:g}|ref|), launches {launched} "
+                f"{'ok' if good else 'FAIL'}")
         shape = {"shape": label, "max_abs_err": abs_err}
-        if flops is None:
+        if work is None:
             line += "; edge case, not timed"
         else:
-            ms, plain_ms = cuda_ms(run), cuda_ms(plain)
-            line += f"; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms"
-            if flops:
-                line += f", kernel {flops / ms / 1e9:.1f} TFLOP/s"
-            shape.update(ms=ms, plain_ms=plain_ms)
+            ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(work["library"])
+            dev = sum(v for k, v in kernel_times_us(run).items() if pattern in k)
+            t_ops, t_bytes = work["flops"] / work["peak"], work["bytes"] / PEAK_BYTES_S
+            bound_us = max(t_ops, t_bytes) * 1e6
+            ops_s, bytes_s = ops_s + t_ops, bytes_s + t_bytes
+            shape.update(ms=ms, plain_ms=plain_ms, device_us=dev or None, bound_us=bound_us,
+                         bound_by="operations" if t_ops > t_bytes else "bytes",
+                         library_ms=lib_ms, library_call=work["library_call"])
+            line += (f"; kernel {ms:.4f} ms (device {dev:.1f} us), plain {plain_ms:.4f} ms, "
+                     f"library {lib_ms:.4f} ms; bound {bound_us:.1f} us "
+                     f"({shape['bound_by']}), {bound_us / dev:.0%} of it" if dev else
+                     "; device time not measured")
+            if "backends" in work:
+                shape["library_backends"] = work["backends"]()
+                line += f"; sdpa backends {shape['library_backends']}"
             entry["ms"] += ms
             entry["plain_ms"] += plain_ms
+            entry["library_ms"] += lib_ms
         log(line)
         entry["shapes"].append(shape)
         entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
         entry["max_rel_err"] = max(entry["max_rel_err"], rel_err)
         ok &= good
         del out, ref
+    entry["bound_ms"] = max(ops_s, bytes_s) * 1e3
+    entry["bound_by"] = "operations" if ops_s > bytes_s else "bytes"
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
     return entry
@@ -367,11 +481,11 @@ def main() -> int:
         return 1
 
     entries, counters = [], {}
-    for name, route, source, replaces, counter, cases in kernel_cases(dev):
+    for name, route, source, replaces, counter, pattern, cases in kernel_cases(dev):
         counters[name] = counter
         try:
             t0 = time.time()
-            e = kernel_phase(name, cases)
+            e = kernel_phase(name, counter, pattern, cases)
             log(f"kernel {name}: ok ({time.time() - t0:.1f} s)")
         except Exception:
             traceback.print_exc()

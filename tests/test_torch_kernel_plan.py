@@ -1,5 +1,12 @@
 """The host-side plans of the port's CUDA kernels, checked on the CPU.
 
+K1 (``csrc/group_norm.cu``) launches one cluster of CTAs per (n, group) span
+with the slices, bulk copies and shared memory that ``plan_group_norm`` decides;
+its C entry launches the plan's values as they are. The plan is held here to the
+card's limits (shared memory, cluster size), to tiling each span exactly once,
+and to 16-byte aligned bulk copies, at every GroupNorm shape of the LBBDM-f4
+path and of the ``gpu``-marked tests.
+
 K2 (``csrc/subpixel_upconv.cu``) and K3 (``csrc/flash_attention.cu``) load their
 tiles with TMA, whose tensor maps the H100 takes only within limits: box dims at
 most 256 and inside the tensor, an inner box row that is a multiple of 16 bytes
@@ -16,7 +23,9 @@ import re
 from collections import Counter
 
 import pytest
+import torch
 
+from bbdm_tpu_torch.ops import group_norm as gn
 from bbdm_tpu_torch.ops.attention import flash_padded_dim, flash_smem_bytes
 from bbdm_tpu_torch.ops.upsample_conv import BK, BM, BN, plan_upconv
 
@@ -133,3 +142,161 @@ def test_flash_attention_pads_head_dims_to_a_compiled_one(D):
     # each of the two consumer warpgroups owns DP/2 columns: whole 64-column boxes
     assert DP >= D and DP in (128, 256, 512) and (DP // 2) % 64 == 0
     assert flash_smem_bytes(D) == flash_smem_bytes(DP) <= H100_BLOCK_SMEM
+
+
+# ------------------------------------------------------------- GroupNorm (K1)
+
+# (N, C, H, W) of every GroupNorm on the LBBDM-f4 path at batch 8 (UNet 44 calls
+# per sampler step, VQGAN encoder 18, decoder 24; bf16), as
+# test_group_norm_path_shapes_are_the_models finds them in the port's modules
+GN_PATH_SHAPES = [
+    (8, 128, 64, 64), (8, 128, 32, 32), (8, 512, 32, 32), (8, 512, 16, 16),
+    (8, 1024, 16, 16), (8, 2048, 16, 16), (8, 1536, 16, 16), (8, 1536, 32, 32),
+    (8, 1024, 32, 32), (8, 640, 32, 32), (8, 640, 64, 64), (8, 256, 64, 64),
+    (8, 512, 64, 64), (8, 128, 256, 256), (8, 256, 128, 128), (8, 128, 128, 128),
+    (8, 512, 128, 128), (8, 256, 256, 256),
+]
+# (N, C, H, W, itemsize) of the gpu-marked tests and chip_smoke.py's extra cases:
+# small bf16 and film shapes, fp32, a span that overflows a cluster of 8 (fp32 at
+# 256^2), a ragged span (C = 96 at 7 x 5), fp16, a cluster of 4, and a ragged span
+# split over a cluster of 2
+GN_EDGE_SHAPES = [
+    (2, 640, 16, 16, 2), (2, 256, 32, 32, 2), (1, 128, 64, 64, 4), (1, 256, 256, 256, 4),
+    (2, 96, 7, 5, 2), (2, 320, 24, 24, 2), (2, 256, 128, 128, 2), (2, 32, 255, 255, 2),
+]
+GN_SHAPES = [(*s, 2) for s in GN_PATH_SHAPES] + GN_EDGE_SHAPES
+
+
+def _gn_plan(shape):
+    N, C, H, W, itemsize = shape
+    return gn.plan_group_norm(N, C, H * W, 32, itemsize)
+
+
+def _gn_slices(plan):
+    """(start, len, keep) of each CTA rank's slice of a span, as
+    ``group_norm_kernel`` computes them from the plan."""
+    out = []
+    for rank in range(plan.cs):
+        start = rank * plan.per
+        length = max(0, min(plan.per, plan.span - start))
+        out.append((start, length, min(length, plan.keep)))
+    return out
+
+
+def test_group_norm_path_shapes_are_the_models():
+    """Walk the full-width UNet and VQGAN on the meta device (no memory, no
+    arithmetic) with a recorder in place of the GroupNorm op."""
+    import torch
+
+    from bbdm_tpu_torch.config import lbbdm_f4_config
+    from bbdm_tpu_torch.models.unet import UNet
+    from bbdm_tpu_torch.models.vqgan import VQModel
+    from bbdm_tpu_torch.ops import attention, upsample_conv
+
+    seen = []
+
+    def record(x, *args, **kw):
+        seen.append(tuple(x.shape))
+        return torch.empty_like(x)
+
+    cfg = lbbdm_f4_config().model
+    mp = pytest.MonkeyPatch()
+    try:
+        mp.setattr(gn, "group_norm", record)
+        for mod in (upsample_conv, attention):  # the twins' shape arithmetic on meta
+            mp.setattr(mod, "use_kernel", lambda x: False)
+        unet = UNet.from_config(cfg.BB.params.UNetParams, "nocond", device="meta")
+        vq = VQModel.from_config(cfg.VQGAN.params, dtype=torch.bfloat16, device="meta")
+        with torch.no_grad():
+            unet(torch.empty(8, 3, 64, 64, device="meta"),
+                 torch.zeros(8, dtype=torch.int32, device="meta"))
+            counts = [len(seen)]
+            vq.encoder(torch.empty(8, 3, 256, 256, device="meta"))
+            counts.append(len(seen) - sum(counts))
+            vq.decoder(torch.empty(8, 3, 64, 64, device="meta"))
+            counts.append(len(seen) - sum(counts))
+    finally:
+        mp.undo()
+    assert counts == [44, 18, 24]
+    assert sorted(set(seen)) == sorted(GN_PATH_SHAPES)
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_plan_fits_the_card(shape):
+    plan = _gn_plan(shape)
+    N, C = shape[:2]
+    assert plan.cs in gn.CLUSTER_SIZES and plan.cs <= 8
+    assert plan.grid == N * 32 * plan.cs
+    assert plan.threads == gn.THREADS
+    assert plan.smem_bytes <= H100_BLOCK_SMEM - 1024
+    # the slice (with one vector of slack for an unaligned start), then the
+    # per-channel scale and shift
+    assert plan.sc_off >= (plan.keep + 16 // plan.itemsize) * plan.itemsize
+    assert plan.sc_off % 16 == 0 and plan.smem_bytes == plan.sc_off + 2 * 4 * plan.cpg
+    assert 1 <= plan.nchunks <= gn.MAX_CHUNKS and plan.chunk * plan.nchunks >= plan.keep
+    if plan.per * plan.itemsize <= gn.PAIR_BUDGET:  # two CTAs per SM
+        assert 2 * (plan.smem_bytes + 1024) <= 233_472
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_slices_tile_each_span_once(shape):
+    plan = _gn_plan(shape)
+    assert plan.span == plan.cpg * shape[2] * shape[3]
+    covered = []
+    for start, length, keep in _gn_slices(plan):
+        covered += range(start, start + length)
+        assert 0 <= keep <= length and length - keep <= plan.overflow
+    assert covered == list(range(plan.span))
+    # the smallest cluster that holds the span, unless even 8 CTAs do not
+    smaller = [cs for cs in gn.CLUSTER_SIZES if cs < plan.cs]
+    if plan.overflow == 0 and smaller:
+        prev = smaller[-1]
+        assert -(-plan.span // prev) * plan.itemsize > gn.PAIR_BUDGET
+
+
+@pytest.mark.parametrize("shape", GN_SHAPES)
+def test_group_norm_bulk_copies_are_16_byte_aligned(shape):
+    plan = _gn_plan(shape)
+    N = shape[0]
+    if not plan.bulk:
+        assert plan.span * plan.itemsize % 16 != 0
+        return
+    s = plan.itemsize
+    for ng in range(N * 32):
+        for start, _, keep in _gn_slices(plan):
+            for c0 in range(0, keep, plan.chunk):
+                size = min(plan.chunk, keep - c0) * s
+                assert ((ng * plan.span + start + c0) * s) % 16 == 0  # source
+                assert (c0 * s) % 16 == 0  # destination in shared memory
+                assert size % 16 == 0 and 0 < size < 2 ** 20  # an mbarrier's tx count
+
+
+def test_group_norm_shapes_reach_every_cluster_size():
+    plans = [_gn_plan(s) for s in GN_SHAPES]
+    assert {p.cs for p in plans} == set(gn.CLUSTER_SIZES)
+    assert any(p.overflow > 0 for p in plans) and any(not p.bulk for p in plans)
+    assert any(not p.bulk and p.cs > 1 for p in plans)
+
+
+def test_group_norm_c_values_match_the_c_entry_layout():
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "bbdm_tpu_torch", "csrc",
+                       "group_norm.cu")
+    with open(src) as f:
+        text = f.read()
+    offsets = dict(re.findall(r"(\w+) = plan\[(\d+)\]", text))
+    plan = _gn_plan(GN_SHAPES[0])
+    assert {name: int(off) for name, off in offsets.items()} == \
+        {name: i for i, name in enumerate(plan._fields)}
+    assert plan.c_values() == tuple(getattr(plan, f) for f in plan._fields)
+
+
+@pytest.mark.parametrize("dtype,film", [(torch.bfloat16, False), (torch.bfloat16, True),
+                                        (torch.float32, True)])
+def test_group_norm_bytes_count_each_tensor_once(dtype, film):
+    N, C, H, W = 2, 64, 5, 7
+    x, w = torch.empty(N, C, H, W, dtype=dtype), torch.empty(C)
+    f = torch.empty(N, 2 * C, dtype=dtype)
+    fs, fb = f.chunk(2, dim=1)  # the views the UNet passes: halves of one [N, 2C] tensor
+    size = x.element_size()
+    expect = 2 * x.numel() * size + 2 * C * 4 + (f.numel() * size if film else 0)
+    assert gn.group_norm_bytes(x, w, fs if film else None) == expect

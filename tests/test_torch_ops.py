@@ -105,6 +105,24 @@ def test_subpixel_pallas_matches_twin():
     np.testing.assert_allclose(nhwc(out), np.asarray(ref), rtol=FP32_RTOL, atol=1e-4)
 
 
+def test_transposed_conv_yardstick_computes_the_upconv():
+    """chip_smoke.py times F.conv_transpose2d with the 4x4 kernel of
+    ``upconv_transposed_kernel`` beside K2; it must be the same function as
+    nearest-2x + padded 3x3 conv (fp32, so only the summation order differs)."""
+    import torch.nn.functional as F
+
+    from chip_smoke import upconv_transposed_kernel
+
+    rs = np.random.RandomState(6)
+    x = torch.from_numpy(rs.randn(2, 5, 6, 7).astype(np.float32))
+    w = torch.from_numpy(rs.randn(4, 5, 3, 3).astype(np.float32))
+    b = torch.from_numpy(rs.randn(4).astype(np.float32))
+    out = F.conv_transpose2d(x, upconv_transposed_kernel(w), b, stride=2, padding=1)
+    ref = upsample_conv.upsample_conv_plain(x, w, b)
+    assert out.shape == ref.shape == (2, 4, 12, 14)
+    torch.testing.assert_close(out, ref, rtol=FP32_RTOL, atol=FP32_ATOL)
+
+
 # ------------------------------------------------------ flash attention (K3)
 
 def test_flash_attention_pallas_matches_twin():
@@ -142,6 +160,17 @@ def test_attention_twin_matches_xla_in_bf16():
     ((2, 640, 16, 16), False, 1e-5, torch.bfloat16),
     ((2, 256, 32, 32), True, 1e-5, torch.bfloat16),
     ((1, 128, 64, 64), False, 1e-6, torch.float32),
+    # a cluster of 2 (VQGAN 128 channels at 128^2), of 8 (the decoder's largest norm)
+    ((2, 128, 128, 128), False, 1e-6, torch.bfloat16),
+    ((2, 256, 256, 256), False, 1e-6, torch.bfloat16),
+    # a span that overflows a cluster of 8 (fp32 at 256^2: 2 MB, 256 KB per CTA)
+    ((1, 256, 256, 256), False, 1e-6, torch.float32),
+    # a ragged span (105 elements: vector loads with scalar edges), fp16 with FiLM,
+    # a cluster of 4, and a ragged span split over a cluster of 2
+    ((2, 96, 7, 5), False, 1e-5, torch.bfloat16),
+    ((2, 320, 24, 24), True, 1e-5, torch.float16),
+    ((2, 256, 128, 128), False, 1e-6, torch.bfloat16),
+    ((2, 32, 255, 255), True, 1e-6, torch.bfloat16),
 ])
 def test_group_norm_kernel_matches_twin(cuda, shape, film, eps, dtype):
     g = torch.Generator(cuda).manual_seed(0)
@@ -157,8 +186,8 @@ def test_group_norm_kernel_matches_twin(cuda, shape, film, eps, dtype):
                                       film_shift=fb)
     torch.cuda.synchronize()
     assert group_norm.group_norm_cuda.launches == before + 1
-    # fp32 arithmetic on both sides; bf16 outputs may round one ulp apart
-    tol = 2 ** -7 if dtype == torch.bfloat16 else 1e-4
+    # fp32 arithmetic on both sides; 16-bit outputs may round one ulp apart
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
 
 

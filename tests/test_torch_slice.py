@@ -91,7 +91,7 @@ def params():
 
 
 def port_model(cfg, params):
-    m = port_build(cfg)
+    m = port_build(cfg, device="cpu")
     m.load_state_dict(state_dict_from_jax(params, m))
     return m
 
@@ -207,7 +207,7 @@ def test_sample_to_eval_tree(tmp_path, sample_num):
         "testing": {"sample_num": sample_num, "clip_denoised": False},
         "data": {"dataset_config": {"to_normal": True}},
     })
-    runner = BBDMRunner(cfg, seed=3)
+    runner = BBDMRunner(cfg, device="cpu", seed=3)
     rs = np.random.RandomState(8)
     batches = [{"x": rs.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32),
                 "x_cond": rs.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32),
@@ -235,3 +235,22 @@ def test_sample_to_eval_tree(tmp_path, sample_num):
 
     gt = np.asarray(Image.open(tmp_path / "ground_truth" / "a10.png"))
     np.testing.assert_array_equal(gt, to_uint8(batches[1]["x"][0]))
+
+
+@pytest.mark.parametrize("card", ["as found", "absent"])
+@pytest.mark.parametrize("entry", ["build_model", "BBDMRunner"])
+def test_entry_points_default_to_the_card(monkeypatch, entry, card):
+    """Without a device, build_model and BBDMRunner take the CUDA card, and raise
+    where there is none: they never fall back to the CPU. Whether a card is
+    present is read here, when the test runs ("absent" hides any card)."""
+    if card == "absent":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = dict2namespace({"model": config().to_dict(), "testing": {"sample_num": 1},
+                          "data": {"dataset_config": {"to_normal": True}}})
+    build = (lambda: port_build(cfg.model)) if entry == "build_model" else \
+        (lambda: BBDMRunner(cfg).model)
+    if torch.cuda.is_available():
+        assert next(build().parameters()).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            build()
