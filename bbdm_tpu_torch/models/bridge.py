@@ -1,11 +1,18 @@
 """Brownian Bridge Diffusion Model, sampling path (port of ``bbdm_tpu/models/bridge.py``).
 
 The reverse sampler is a Python loop over the precomputed per-step
-coefficients (``models/schedules.py``): one UNet forward and one linear update
-per step, starting from x_T := y (no prior draw). Once per call, not per step:
-the subpixel phase kernels of every ``UpsampleConv3x3`` are combined, and the
-UNet's >=2-D weights are cast to the compute dtype (1-D params, GroupNorm
-scale/bias and conv biases, stay fp32).
+coefficients (``models/schedules.py``), starting from x_T := y (no prior
+draw). ``BB.params.sampler`` picks the update:
+
+* ``euler`` (the reference's): one UNet forward and one linear update per step;
+* ``heun`` (``bbdm_tpu/models/bridge.py:311-377``): a deterministic proposal
+  to the next grid time, a second UNet forward there, and the step redone from
+  x_t with the mean of the two x0 estimates; noise is added once, after the
+  corrector. The terminal t = 0 entry takes a single forward and returns x0.
+
+Once per call, not per step: the subpixel phase kernels of every
+``UpsampleConv3x3`` are combined, and the UNet's >=2-D weights are cast to the
+compute dtype (1-D params, GroupNorm scale/bias and conv biases, stay fp32).
 
 Objectives: grad (x0 = x_t - pred), noise, ysubx.
 """
@@ -15,6 +22,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 from torch.func import functional_call
@@ -37,8 +45,9 @@ class BrownianBridgeModel(nn.Module):
         bb = model_config.BB.params
         self.num_timesteps = bb.num_timesteps
         self.objective = bb.objective
-        if bb.get("sampler", "euler") != "euler":
-            raise NotImplementedError("only the euler sampler is ported")
+        self.sampler = bb.get("sampler", "euler")
+        if self.sampler not in ("euler", "heun"):
+            raise NotImplementedError(f"sampler {self.sampler!r}")
         self.condition_key = bb.UNetParams.condition_key
         self.dtype = dtype
 
@@ -82,35 +91,97 @@ class BrownianBridgeModel(nn.Module):
             for m in mods:
                 m.combined = None
 
+    def noised_steps(self) -> int:
+        """How many noise tensors one ``p_sample_loop`` draws (its ``noise=`` length)."""
+        return len(self.coeffs.steps) - (self.sampler == "heun")
+
     @torch.inference_mode()
     def p_sample_loop(self, y, context=None, *, clip_denoised=True,
                       generator: Optional[torch.Generator] = None,
-                      noise: Optional[Sequence[torch.Tensor]] = None):
+                      noise: Optional[Sequence[torch.Tensor]] = None,
+                      sample_mid_step: bool = False):
         """Reverse skip-step sampler from x_T := y.
 
-        ``noise``: one tensor of y's shape per step (for tests that feed the
-        JAX package's draws); by default each step draws from ``generator``.
+        ``noise``: :meth:`noised_steps` tensors of y's shape (for tests that
+        feed the JAX package's draws); by default each noised step draws from
+        ``generator``. ``sample_mid_step`` returns the trajectory instead of
+        its end: ``(imgs, one_step_imgs)``, each [S, B, C, H, W], the state after
+        each step and that step's x0 estimate.
         """
+        y = y.contiguous()  # the kernels take NCHW-contiguous activations
         if self.condition_key == "nocond":
             context = None
         elif context is None:
             context = y
         c = self.coeffs
-        if noise is not None and len(noise) != len(c.steps):
-            raise ValueError(f"need {len(c.steps)} noise tensors, got {len(noise)}")
+        if noise is not None and len(noise) != self.noised_steps():
+            raise ValueError(f"need {self.noised_steps()} noise tensors, got {len(noise)}")
         params = self._sampling_params()
         B = y.shape[0]
+
+        def predict(x, t, m_t, sigma_t):
+            tt = torch.full((B,), int(t), dtype=torch.int32, device=y.device)
+            pred = functional_call(self.unet, params, (x, tt, context)).to(y.dtype)
+            x0 = self.predict_x0_from_objective(x, y, pred, m_t=float(m_t),
+                                                sigma_t=float(sigma_t))
+            return x0.clamp(-1.0, 1.0) if clip_denoised else x0
+
+        def draw(i):
+            if noise is not None:
+                return noise[i]
+            return torch.randn(y.shape, generator=generator, dtype=y.dtype, device=y.device)
+
+        def update(i, x_t, x0, eps=None):
+            x = float(c.a_xt[i]) * x_t + float(c.a_x0[i]) * x0 + float(c.a_y[i]) * y
+            return x if eps is None else x + float(c.sigma[i]) * eps
+
+        imgs, one_step = [], []  # the trajectory, kept under sample_mid_step only
+
+        def keep(x, x0):
+            if sample_mid_step:
+                imgs.append(x)
+                one_step.append(x0)
+
         x_t = y
         with self._hoisted_subpixel():
-            for i in range(len(c.steps)):
-                t = torch.full((B,), int(c.steps[i]), dtype=torch.int32, device=y.device)
-                pred = functional_call(self.unet, params, (x_t, t, context)).to(y.dtype)
-                x0_hat = self.predict_x0_from_objective(
-                    x_t, y, pred, m_t=float(c.m_t[i]), sigma_t=float(c.sigma_fwd[i]))
-                if clip_denoised:
-                    x0_hat = x0_hat.clamp(-1.0, 1.0)
-                eps = noise[i] if noise is not None else torch.randn(
-                    x_t.shape, generator=generator, dtype=x_t.dtype, device=x_t.device)
-                x_t = (float(c.a_xt[i]) * x_t + float(c.a_x0[i]) * x0_hat
-                       + float(c.a_y[i]) * y + float(c.sigma[i]) * eps)
+            if self.sampler == "euler":
+                for i in range(len(c.steps)):
+                    x0 = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
+                    x_t = update(i, x_t, x0, draw(i))
+                    keep(x_t, x0)
+            else:
+                m, sig = self.schedule.m_t, np.sqrt(self.schedule.variance_t)
+                for i in range(len(c.steps) - 1):
+                    nt = int(c.steps[i + 1])
+                    x0_a = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
+                    x0_b = predict(update(i, x_t, x0_a), nt, m[nt], sig[nt])
+                    x0 = 0.5 * (x0_a + x0_b)
+                    x_t = update(i, x_t, x0, draw(i))
+                    keep(x_t, x0)
+                last = int(c.steps[-1])
+                x_t = predict(x_t, last, m[last], sig[last])
+                keep(x_t, x_t)
+        if sample_mid_step:
+            return torch.stack(imgs), torch.stack(one_step)
         return x_t
+
+    @torch.inference_mode()
+    def sample(self, x_cond, context=None, *, clip_denoised=True, sample_mid_step=False,
+               num_samples: int = 1, generator: Optional[torch.Generator] = None,
+               noise: Optional[Sequence] = None):
+        """Pixel-space sampling from the condition image (``bbdm_tpu/models/bridge.py:379-397``).
+
+        ``num_samples > 1`` returns [num_samples, B, C, H, W]; ``noise`` is then
+        one per-step noise sequence per draw.
+        """
+        def draw(step_noise, mid=False):
+            return self.p_sample_loop(x_cond, context, clip_denoised=clip_denoised,
+                                      generator=generator, noise=step_noise,
+                                      sample_mid_step=mid)
+
+        if num_samples > 1:
+            if sample_mid_step:
+                raise NotImplementedError("num_samples>1 with sample_mid_step")
+            return torch.stack([draw(None if noise is None else noise[i])
+                                for i in range(num_samples)])
+        return draw(noise, sample_mid_step)

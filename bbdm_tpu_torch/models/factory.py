@@ -10,13 +10,13 @@ from bbdm_tpu_torch.models.layers import init_parameters
 
 
 def resolve_device(device=None) -> torch.device:
-    """``device`` as a torch.device; None means the CUDA card, and raises where
-    there is none (the CPU only when asked for, ``device="cpu"``)."""
-    if device is not None:
-        return torch.device(device)
-    if not torch.cuda.is_available():
-        raise RuntimeError("no CUDA card: pass device='cpu' to run on the CPU")
-    return torch.device("cuda")
+    """``device`` as a torch.device; None means the CUDA card. A CUDA device
+    raises where there is no card (the CPU only when asked for, ``device="cpu"``)."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card: pass device='cpu' (CLI: --gpu_ids -1) to run on "
+                           "the CPU")
+    return device
 
 
 def build_model(model_config, *, device=None, dtype=None,

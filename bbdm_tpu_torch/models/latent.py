@@ -3,7 +3,10 @@
 
 encode: VQGAN encoder [+ quant_conv unless latent_before_quant_conv], optional
 per-channel normalisation; decode: denormalise, [quant_conv], quantise,
-post_quant_conv + decoder. Latent statistics are [1, C, 1, 1] tensors.
+post_quant_conv + decoder. Latent statistics are [1, C, 1, 1] tensors. The
+UNet's context is none (``nocond``), the condition's latent
+(``first_stage``) or ``cond_stage``, a :class:`SpatialRescaler` of the
+condition image (``SpatialRescaler``).
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional, Sequence
 import torch
 
 from bbdm_tpu_torch.models.bridge import BrownianBridgeModel
+from bbdm_tpu_torch.models.cond import SpatialRescaler
 from bbdm_tpu_torch.models.vqgan import VQModel
 
 
@@ -30,7 +34,11 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
         self.latent_before_quant_conv = model_config.get("latent_before_quant_conv", False)
         self.normalize_latent = model_config.get("normalize_latent", False)
         self.vqgan = VQModel.from_config(model_config.VQGAN.params, dtype=dtype, device=device)
-        if self.condition_key not in ("nocond", "first_stage"):
+        self.cond_stage = None
+        if self.condition_key == "SpatialRescaler":
+            self.cond_stage = SpatialRescaler.from_config(model_config.CondStageParams,
+                                                          dtype=dtype, device=device)
+        elif self.condition_key not in ("nocond", "first_stage"):
             raise NotImplementedError(f"condition_key {self.condition_key!r} is not ported")
 
     def _stats(self, z, latent_stats, cond):
@@ -62,30 +70,42 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
         quant, _ = self.vqgan.quantize_latent(z)
         return self.vqgan.decode_from_quant(quant)
 
+    @torch.inference_mode()
     def get_cond_stage_context(self, x_cond):
+        if self.condition_key == "SpatialRescaler":
+            return self.cond_stage(x_cond.contiguous())
         if self.condition_key == "first_stage":
             return self.encode(x_cond, cond=True)
         return None
 
     @torch.inference_mode()
-    def sample(self, x_cond, context=None, *, clip_denoised=False, latent_stats=None,
-               num_samples: int = 1, generator: Optional[torch.Generator] = None,
-               noise: Optional[Sequence] = None):
+    def sample(self, x_cond, context=None, *, clip_denoised=False, sample_mid_step=False,
+               latent_stats=None, num_samples: int = 1,
+               generator: Optional[torch.Generator] = None, noise: Optional[Sequence] = None):
         """Encode the condition once, run the reverse bridge from it, decode.
 
         ``num_samples > 1`` returns [num_samples, B, C, H, W], one decode per
         draw; ``noise`` is then one per-step noise sequence per draw.
+        ``sample_mid_step`` returns both trajectories of ``p_sample_loop``
+        decoded, each [S, B, C, H, W].
         """
         y_latent = self.encode(x_cond, cond=True, latent_stats=latent_stats)
         if context is None:
             context = self.get_cond_stage_context(x_cond)
 
-        def draw(step_noise):
-            z = self.p_sample_loop(y_latent, context, clip_denoised=clip_denoised,
-                                   generator=generator, noise=step_noise)
+        def loop(step_noise, mid=False):
+            return self.p_sample_loop(y_latent, context, clip_denoised=clip_denoised,
+                                      generator=generator, noise=step_noise,
+                                      sample_mid_step=mid)
+
+        def decode(z):
             return self.decode(z, cond=False, latent_stats=latent_stats)
 
         if num_samples > 1:
-            return torch.stack([draw(None if noise is None else noise[i])
+            if sample_mid_step:
+                raise NotImplementedError("num_samples>1 with sample_mid_step")
+            return torch.stack([decode(loop(None if noise is None else noise[i]))
                                 for i in range(num_samples)])
-        return draw(noise)
+        if sample_mid_step:
+            return tuple(torch.stack([decode(z) for z in zs]) for zs in loop(noise, True))
+        return decode(loop(noise))

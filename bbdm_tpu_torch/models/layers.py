@@ -99,23 +99,26 @@ class GroupNorm32(_Init):
 
 
 class Conv2d(_Init):
-    """flax ``nn.Conv`` semantics: compute in ``dtype``, symmetric ``padding``."""
+    """flax ``nn.Conv`` semantics: compute in ``dtype``, symmetric ``padding``,
+    ``bias=False`` for ``use_bias=False``."""
 
     def __init__(self, in_ch, out_ch, kernel, *, stride=1, padding=0, init=normal_init,
-                 dtype=None, device=None):
+                 dtype=None, bias=True, device=None):
         super().__init__()
         self.stride, self.padding, self.dtype, self._init = stride, padding, dtype, init
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel, device=device))
-        self.bias = nn.Parameter(torch.empty(out_ch, device=device))
+        self.bias = nn.Parameter(torch.empty(out_ch, device=device)) if bias else None
 
     def init_from(self, g):
         self._init(self.weight, g)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
         dt = _dt(self.dtype, x, self.weight)
-        return F.conv2d(x.to(dt), self.weight.to(dt), self.bias.to(dt),
-                        stride=self.stride, padding=self.padding)
+        bias = self.bias.to(dt) if self.bias is not None else None
+        return F.conv2d(x.to(dt), self.weight.to(dt), bias, stride=self.stride,
+                        padding=self.padding)
 
 
 def conv3x3(in_ch, out_ch, *, init=normal_init, dtype=None, stride=1, device=None):
@@ -123,8 +126,8 @@ def conv3x3(in_ch, out_ch, *, init=normal_init, dtype=None, stride=1, device=Non
                   device=device)
 
 
-def conv1x1(in_ch, out_ch, *, init=normal_init, dtype=None, device=None):
-    return Conv2d(in_ch, out_ch, 1, init=init, dtype=dtype, device=device)
+def conv1x1(in_ch, out_ch, *, init=normal_init, dtype=None, bias=True, device=None):
+    return Conv2d(in_ch, out_ch, 1, init=init, dtype=dtype, bias=bias, device=device)
 
 
 class Dense(_Init):

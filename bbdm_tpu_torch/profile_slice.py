@@ -77,12 +77,12 @@ def main() -> int:
         raise SystemExit("profile_slice: no CUDA card")
 
     from bbdm_tpu_torch.config import lbbdm_f4_config
-    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+    from bbdm_tpu_torch.models import build_model
 
     cfg = lbbdm_f4_config()
     cfg.model.BB.params.sample_step = STEPS
     dev = torch.device("cuda", 0)
-    model = BBDMRunner(cfg, device=dev, seed=0).model
+    model = build_model(cfg.model, device=dev)  # seeded random weights (seed 0)
     size, batch = cfg.data.dataset_config.image_size, 8
     rs = np.random.RandomState(0)
     x_cond = torch.from_numpy(rs.uniform(-1, 1, (batch, 3, size, size)).astype(np.float32)).to(dev)

@@ -21,7 +21,17 @@ Phases, each of which must pass:
    20 sampling steps and 2 draws per condition: the sampled latent through
    the kernels against the same run forced through the plain twins (same
    weights, same noise), then ``BBDMRunner.sample_to_eval`` over synthetic
-   batches into a temporary directory, with every kernel's launch count.
+   batches into a temporary directory, with every kernel's launch count;
+5. the CLI, ``main_torch.main``, on synthetic ``custom_aligned`` PNG datasets
+   (16 test pairs, 256^2 for LBBDM-f4, 64^2 for pixel BBDM) with text copies
+   of ``configs/Template-{LBBDM-f4,BBDM}.yaml`` (cut to 20 steps) and model
+   checkpoints whose ``model`` and ``ema`` weights differ, at full width:
+   LBBDM-f4 euler ``--sample_to_eval`` (2 draws), LBBDM-f4 heun
+   ``--sample_to_eval``, BBDM grid mode and BBDM ``--sample_to_eval``, each
+   with its kernels' launch counts and output tree; the euler run against an
+   in-process ``BBDMRunner`` given the same EMA weights and seed; heun through
+   the kernels against heun through the twins (same noise); the card's idle
+   share over one CLI batch; the host's PNG decode time per 256^2 image.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``; exits non-zero, without that line, when a
@@ -43,6 +53,7 @@ import traceback
 import torch
 
 SAMPLE_STEP, SAMPLE_NUM, BATCHES, BATCH = 20, 2, 2, 8
+CLI_TEST_PAIRS, CLI_SEED = 16, 1234
 
 
 def log(*a):
@@ -328,6 +339,7 @@ def slice_phase(dev, counters):
     cfg = lbbdm_f4_config()
     cfg.model.BB.params.sample_step = SAMPLE_STEP
     cfg.testing.sample_num = SAMPLE_NUM
+    cfg.model.VQGAN.params.ckpt_path = None  # seeded random VQGAN weights
     log("reduced: " + json.dumps({"sample_step": {"template": 200, "run": SAMPLE_STEP},
                                   "sample_num": {"template": 5, "run": SAMPLE_NUM},
                                   "weights": "random, seed 0", "batches": BATCHES}))
@@ -411,7 +423,8 @@ def slice_phase(dev, counters):
         log(f"  sample_to_eval: {total:.2f} s for {BATCHES} batches of {BATCH} "
             f"({total / BATCHES:.2f} s per batch), peak device memory "
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
-        check_tree(out_dir, batches, size)
+        check_tree(out_dir, [n for b in batches for n in b["x_name"]],
+                   [n for b in batches for n in b["x_cond_name"]], SAMPLE_STEP, SAMPLE_NUM, size)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
@@ -419,24 +432,289 @@ def slice_phase(dev, counters):
                       "sample_to_eval_batch_s": total / BATCHES, **dist}
 
 
-def check_tree(out_dir, batches, size):
+def check_tree(out_dir, names, conds, step, sample_num, size):
     """The sample_to_eval output contract, and that the outputs are PNGs of the image size."""
-    names = [n for b in batches for n in b["x_name"]]
-    conds = [n for b in batches for n in b["x_cond_name"]]
     listing = lambda *p: sorted(os.listdir(os.path.join(out_dir, *p)))
-    expect = {(): sorted(["condition", "ground_truth", str(SAMPLE_STEP)]),
+    expect = {(): sorted(["condition", "ground_truth", str(step)]),
               ("condition",): sorted(f"{n}.png" for n in conds),
-              ("ground_truth",): sorted(f"{n}.png" for n in names),
-              (str(SAMPLE_STEP),): sorted(names)}
-    expect.update({(str(SAMPLE_STEP), n): [f"output_{j}.png" for j in range(SAMPLE_NUM)]
-                   for n in names})
+              ("ground_truth",): sorted(f"{n}.png" for n in names)}
+    if sample_num > 1:
+        expect[(str(step),)] = sorted(names)
+        expect.update({(str(step), n): [f"output_{j}.png" for j in range(sample_num)]
+                       for n in names})
+        first = os.path.join(out_dir, str(step), names[0], "output_0.png")
+    else:
+        expect[(str(step),)] = sorted(f"{n}.png" for n in names)
+        first = os.path.join(out_dir, str(step), f"{names[0]}.png")
     for path, files in expect.items():
         if listing(*path) != files:
             raise AssertionError(f"sample_to_eval tree: {path} holds {listing(*path)}")
-    with open(os.path.join(out_dir, str(SAMPLE_STEP), names[0], "output_0.png"), "rb") as f:
+    check_png(first, size, size)
+
+
+def check_png(path, height, width):
+    with open(path, "rb") as f:
         head = f.read(24)
-    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[16:24] != size.to_bytes(4, "big") * 2:
-        raise AssertionError(f"output_0.png is not a {size}x{size} PNG")
+    if head[:8] != b"\x89PNG\r\n\x1a\n" or head[16:24] != (width.to_bytes(4, "big")
+                                                            + height.to_bytes(4, "big")):
+        raise AssertionError(f"{path} is not a {width}x{height} PNG")
+
+
+# ---------------------------------------------------------------------- CLI
+
+@contextlib.contextmanager
+def timed(cls, attr, store):
+    """Record the wall seconds of each ``cls.attr`` call in ``store`` (synchronised)."""
+    fn = getattr(cls, attr)
+
+    def wrapper(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+
+    setattr(cls, attr, wrapper)
+    try:
+        yield store
+    finally:
+        setattr(cls, attr, fn)
+
+
+def write_dataset(root, size, pairs, seed):
+    """A ``custom_aligned`` PNG dataset: ``<stage>/A`` conditions, ``<stage>/B``
+    targets (2 train and 2 val pairs, ``pairs`` test pairs), written by the port."""
+    import numpy as np
+
+    from bbdm_tpu_torch.utils.images import to_uint8, write_png
+
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    for stage, n in (("train", 2), ("val", 2), ("test", pairs)):
+        for side in "AB":
+            os.makedirs(os.path.join(root, stage, side), exist_ok=True)
+        for i in range(n):
+            smooth = np.sin(6 * yy[..., None] + 4 * xx[..., None] + rs.uniform(0, 2 * np.pi, 3))
+            noise = rs.uniform(-0.2, 0.2, (size, size, 3))
+            for side, img in (("A", smooth + noise), ("B", -smooth + noise)):
+                write_png(os.path.join(root, stage, side, f"{i:04d}.png"),
+                          to_uint8(np.clip(img, -1, 1)))
+
+
+def write_checkpoints(cfg, dev, path, vqgan_path=None):
+    """A model checkpoint whose ``model`` and ``ema`` UNets (and condition stages)
+    come from two seeds, with one frozen VQGAN; for an LBBDM also that VQGAN
+    alone at ``vqgan_path``. Returns the ``ema`` tree."""
+    from bbdm_tpu_torch.checkpoints.from_jax import jax_tree_from_state_dict
+    from bbdm_tpu_torch.checkpoints.io import save_checkpoint
+    from bbdm_tpu_torch.models import build_model
+
+    trees = []
+    for seed in (11, 12):
+        m = build_model(cfg.model, device=dev, generator=torch.Generator(dev).manual_seed(seed))
+        trees.append(jax_tree_from_state_dict(m))
+        del m
+    model, other = trees
+    ema = dict(model, **{k: other[k] for k in ("unet", "cond_stage") if k in other})
+    if vqgan_path:
+        save_checkpoint({"vqgan": model["vqgan"]}, vqgan_path)
+    save_checkpoint({"model": model, "ema": ema, "step": 1000, "epoch": 10}, path)
+    return ema
+
+
+def read_pngs(root):
+    """{relative path: uint8 array} of every PNG under ``root``."""
+    from bbdm_tpu_torch.utils.images import read_png
+
+    out = {}
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".png"):
+                out[os.path.relpath(os.path.join(d, f), root)] = read_png(os.path.join(d, f))
+    return out
+
+
+def png_decode_ms(size=256, reps=3):
+    """Host ms to decode a size^2 RGB PNG whose rows all use one filter, per filter."""
+    import zlib
+
+    import numpy as np
+
+    from bbdm_tpu_torch.utils import images
+
+    rs = np.random.RandomState(0)
+    rows = rs.randint(0, 256, (size, 1 + 3 * size)).astype(np.uint8)
+    out = {}
+    for f, name in enumerate(("none", "sub", "up", "average", "paeth")):
+        rows[:, 0] = f
+        data = zlib.decompress(zlib.compress(rows.tobytes()))
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            images._unfilter(data, size, size, 3)
+        out[name] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
+def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST_PAIRS,
+              configs=None):
+    """Drive ``main_torch.main`` over synthetic datasets (see the module
+    docstring, phase 5); ``configs`` (name -> ConfigNode, default the two
+    templates) lets a CPU rehearsal pass tiny models."""
+    import numpy as np
+
+    import main_torch
+    from bbdm_tpu_torch.checkpoints.from_jax import state_dict_from_jax
+    from bbdm_tpu_torch.config import load_config, save_config
+    from bbdm_tpu_torch.data import DataLoader, get_dataset
+    from bbdm_tpu_torch.profile_slice import measure
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if configs is None:
+        configs = {name: load_config(os.path.join(here, "configs", f"Template-{name}.yaml"))
+                   for name in ("LBBDM-f4", "BBDM")}
+    out = {"png_decode_ms_256": png_decode_ms()}
+    log("  PNG decode, host ms per 256^2 RGB image by row filter: "
+        + json.dumps(out["png_decode_ms_256"]))
+    paths, emas = {}, {}
+    for name, cfg in configs.items():
+        size = cfg.data.dataset_config.image_size
+        data = os.path.join(root, f"data-{name}")
+        write_dataset(data, size, pairs, seed=len(paths))
+        cfg.data.dataset_config.dataset_path = data
+        cfg.model.BB.params.sample_step = step
+        vq = None
+        if cfg.model.model_type == "LBBDM":
+            vq = cfg.model.VQGAN.params.ckpt_path = os.path.join(root, f"{name}-vqgan.ckpt")
+        t0 = time.time()
+        emas[name] = write_checkpoints(cfg, dev, os.path.join(root, f"{name}.ckpt"), vq)
+        log(f"  {name}: dataset and checkpoints written in {time.time() - t0:.1f} s")
+        for sampler, num in (("euler", 2), ("heun", 1), ("euler", 1)):
+            cfg.model.BB.params.sampler = sampler
+            cfg.testing.sample_num = num
+            paths[name, sampler, num] = os.path.join(root, f"{name}-{sampler}-{num}.yaml")
+            save_config(cfg, paths[name, sampler, num])
+
+    (f4, bbdm) = configs
+    runs = (("f4_euler_sample_to_eval", f4, "euler", 2, True, ("K1", "K2", "K3")),
+            ("f4_heun_sample_to_eval", f4, "heun", 1, True, ("K1", "K2", "K3")),
+            ("bbdm_grid", bbdm, "euler", 1, False, ("K1", "K2")),
+            ("bbdm_sample_to_eval", bbdm, "euler", 1, True, ("K1", "K2")))
+    names = [f"{i:04d}" for i in range(pairs)]
+    launches, runners = {}, {}
+    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    for label, name, sampler, num, to_eval, needed in runs:
+        result = os.path.join(root, f"results-{label}")
+        argv = ["-c", paths[name, sampler, num], "--resume_model",
+                os.path.join(root, f"{name}.ckpt"), "-r", result, "-s", str(CLI_SEED),
+                "--gpu_ids", gpu_ids] + (["--sample_to_eval"] if to_eval else [])
+        for mod, attr in counters.values():
+            getattr(mod, attr).launches = 0
+        sweeps = []
+        t0 = time.time()
+        with timed(BBDMRunner, "sample_to_eval", sweeps):
+            runner = main_torch.main(argv)
+        total = time.time() - t0
+        launches[label] = {short[k]: getattr(mod, attr).launches
+                           for k, (mod, attr) in counters.items()}
+        cfg = runner.config
+        tree = cfg.result.sample_to_eval_path if to_eval else os.path.join(
+            cfg.result.sample_path, "0", "test_sample")
+        size = cfg.data.dataset_config.image_size
+        if to_eval:
+            check_tree(tree, names, names, step, num, size)
+        else:
+            if sorted(os.listdir(tree)) != ["condition.png", "ground_truth.png",
+                                            "skip_sample.png"]:
+                raise AssertionError(f"grid mode wrote {sorted(os.listdir(tree))}")
+            cols = min(4, cfg.data.test.batch_size)  # the grid holds the first 4 images
+            check_png(os.path.join(tree, "skip_sample.png"), size + 4, cols * (size + 2) + 2)
+        batches = pairs // cfg.data.test.batch_size
+        entry = {"launches": launches[label], "wall_s": total}
+        if sweeps:
+            entry["sample_to_eval_batch_s"] = sweeps[0] / batches
+        log(f"  {label}: {total:.1f} s in main_torch.main"
+            + (f", {entry['sample_to_eval_batch_s']:.3f} s per sample_to_eval batch of "
+               f"{cfg.data.test.batch_size} ({num} draw(s), {step} steps)" if sweeps else "")
+            + f", launches {launches[label]}")
+        missing = [k for k in needed if launches[label][k] <= 0]
+        if missing:
+            raise AssertionError(f"{label}: kernels {missing} were not launched")
+        if (runner.global_epoch, runner.global_step) != (10, 1000):
+            raise AssertionError(f"{label}: checkpoint epoch and step not read")
+        out[label] = entry
+        runners[label] = runner
+
+    # the CLI's euler run against an in-process runner with the same EMA weights and seed
+    euler = runners["f4_euler_sample_to_eval"]
+    ref_cfg = load_config(paths[f4, "euler", 2])
+    ref = BBDMRunner(ref_cfg, device=euler.device, seed=CLI_SEED)
+    ref.model.load_state_dict(state_dict_from_jax(emas[f4], ref.model))
+    test_ds = get_dataset(ref_cfg.data)[2]
+    loader = DataLoader(test_ds, ref_cfg.data.test.batch_size)
+    ref_dir = os.path.join(root, "in-process")
+    ref.sample_to_eval(loader, ref_dir)
+    cli_png, ref_png = read_pngs(euler.config.result.sample_to_eval_path), read_pngs(ref_dir)
+    if sorted(cli_png) != sorted(ref_png):
+        raise AssertionError("CLI and in-process sample_to_eval trees differ")
+    worst = max(int(np.abs(cli_png[k].astype(int) - ref_png[k]).max()) for k in cli_png)
+    out["f4_euler_cli_vs_in_process_max_uint8"] = worst
+    log(f"  f4 euler CLI vs in-process runner (same EMA weights, seed {CLI_SEED}): "
+        f"{len(cli_png)} PNGs, max difference {worst} uint8 level(s)")
+    if worst > 1:
+        raise AssertionError("CLI output differs from the in-process runner by > 1 level")
+    del ref
+
+    # the card's idle share over one CLI batch (PNG writes included)
+    batch = next(iter(loader))
+    wall, busy, _ = measure(lambda: euler.sample_to_eval([batch], os.path.join(root, "idle")),
+                            2, 1)
+    out["f4_euler_batch_wall_ms"], out["f4_euler_batch_device_busy_ms"] = wall, busy
+    out["f4_euler_batch_idle_share"] = 1 - busy / wall
+    log(f"  f4 euler sample_to_eval batch: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
+        f"idle share {1 - busy / wall:.0%}")
+    del euler, runners["f4_euler_sample_to_eval"]
+
+    # heun through the kernels against heun through the twins, same noise
+    heun = runners["f4_heun_sample_to_eval"]
+    model = heun.model
+    x_cond = torch.from_numpy(batch["x_cond"]).permute(0, 3, 1, 2).to(heun.device)
+    y = model.encode(x_cond)
+    g = torch.Generator(heun.device).manual_seed(2)
+    noise = [torch.randn(y.shape, generator=g, device=heun.device)
+             for _ in range(model.noised_steps())]
+    z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
+    torch.cuda.synchronize()
+    out["heun_step_s"] = (time.time() - t0) / (len(model.coeffs.steps) - 1)
+    with plain_ops():
+        z_plain = model.p_sample_loop(y, noise=noise, clip_denoised=False)
+        ref32 = build_fp32_copy(heun.config.model, model, heun.device)
+        z_32 = ref32.p_sample_loop(y, noise=noise, clip_denoised=False)
+        del ref32
+    d = lambda a, b: float((a.float() - b.float()).abs().max())
+    out["heun_latent_kernel_vs_plain"] = d(z_kernel, z_plain)
+    out["heun_latent_bf16_vs_fp32"] = d(z_plain, z_32)
+    log(f"  heun (f4, {len(model.coeffs.steps)}-entry grid, two UNet evals per step): "
+        f"{out['heun_step_s']:.4f} s per step; latent kernel vs plain "
+        f"{out['heun_latent_kernel_vs_plain']:.4f}, plain bf16 vs fp32 "
+        f"{out['heun_latent_bf16_vs_fp32']:.4f}")
+    if not torch.isfinite(z_kernel).all():
+        raise AssertionError("heun: non-finite latent")
+    if out["heun_latent_kernel_vs_plain"] > 2 * out["heun_latent_bf16_vs_fp32"]:
+        raise AssertionError("heun: kernel path farther from the twins than 2x bf16 error")
+    return launches, out
+
+
+def build_fp32_copy(model_config, model, dev):
+    """An fp32 copy of ``model`` (same weights) for the twin-vs-bf16 distance."""
+    from bbdm_tpu_torch.models import build_model
+
+    ref = build_model(model_config, device=dev, dtype=torch.float32)
+    ref.load_state_dict(model.state_dict())
+    return ref
 
 
 def main() -> int:
@@ -506,7 +784,21 @@ def main() -> int:
         traceback.print_exc()
         failed.append("slice")
 
-    log(json.dumps({"kernels": entries, "slice": timings, "card": card}))
+    cli = {}
+    try:
+        t0 = time.time()
+        with tempfile.TemporaryDirectory(prefix="bbdm_smoke_cli_") as root:
+            by_path, cli = cli_phase(dev, counters, root)
+        short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+        for e in entries:
+            e["launches_by_path"] = {"slice_sample_to_eval": e["launches"],
+                                     **{p: n[short[e["name"]]] for p, n in by_path.items()}}
+        log(f"cli: ok ({time.time() - t0:.1f} s)")
+    except Exception:
+        traceback.print_exc()
+        failed.append("cli")
+
+    log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

@@ -92,15 +92,18 @@ def test_png_writer_round_trips_through_pillow(tmp_path, channels):
 
 
 def test_import_needs_no_jax_yaml_or_pillow():
-    """The package and chip_smoke.py import where jax, yaml and PIL are absent,
-    and import no triton and build nothing at import time."""
+    """The package (every module), main_torch.py and chip_smoke.py import where
+    jax, flax, yaml, PIL and msgpack are absent, and import no triton and build
+    nothing at import time."""
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'yaml', 'PIL'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'yaml', 'PIL', 'msgpack'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, bbdm_tpu_torch\n"
         "for mod in pkgutil.walk_packages(bbdm_tpu_torch.__path__, 'bbdm_tpu_torch.'):\n"
         "    importlib.import_module(mod.name)\n"
+        "assert 'bbdm_tpu_torch.data.loader' in sys.modules\n"
+        "import main_torch\n"
         "import chip_smoke\n"
         "assert 'triton' not in sys.modules\n"
         "assert not any(m.startswith('bbdm_tpu.') or m == 'bbdm_tpu' for m in sys.modules)\n"
