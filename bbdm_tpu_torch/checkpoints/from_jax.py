@@ -6,7 +6,7 @@ The port's module names are the flax names, so the mapping is mechanical:
 codebook ``embedding`` as they are. A reference ``.pth`` loads as
 ``checkpoints/torch_import.py`` composed with this function. Latent
 statistics are NHWC ``[1, 1, 1, C]`` in a checkpoint, ``[1, C, 1, 1]`` in the
-port.
+port. The optimizer's moments and the plateau state convert both ways too.
 """
 
 from __future__ import annotations
@@ -17,6 +17,8 @@ import numpy as np
 import torch
 from torch import nn
 
+from bbdm_tpu_torch.training.plateau import PlateauState
+
 
 def _flatten(tree, prefix=""):
     for key, value in tree.items():
@@ -26,13 +28,15 @@ def _flatten(tree, prefix=""):
             yield f"{prefix}{key}", np.asarray(value)
 
 
-def state_dict_from_jax(params, model: nn.Module) -> dict:
-    """Convert a (nested dict of numpy arrays) JAX parameter tree for ``model``.
+def state_dict_from_jax(params, model) -> dict:
+    """Convert a (nested dict of numpy arrays) JAX parameter tree for ``model``
+    (a module, or a {name: tensor} dict of the entries it must give, e.g. the
+    trainable ones for an optimizer moment whose frozen leaves are ``{}``).
 
     Raises KeyError on a JAX leaf the model has no place for, or a model
     parameter the tree does not give; ValueError on a shape mismatch.
     """
-    expected = model.state_dict()
+    expected = model if isinstance(model, Mapping) else model.state_dict()
     out = {}
     for key, arr in _flatten(params):
         mod, leaf = key.rsplit(".", 1) if "." in key else ("", key)
@@ -58,25 +62,28 @@ def state_dict_from_jax(params, model: nn.Module) -> dict:
     return out
 
 
-def jax_tree_from_state_dict(state) -> dict:
+def jax_tree_from_state_dict(state, *, masked=()) -> dict:
     """Inverse of :func:`state_dict_from_jax`: a ``state_dict`` (or a module)
-    -> the JAX package's nested parameter tree of float32 numpy arrays."""
+    -> the JAX package's nested parameter tree of float32 numpy arrays. Names
+    in ``masked`` become ``{}``, the serialised form of a leaf that
+    ``optax.masked`` leaves without state."""
     if isinstance(state, nn.Module):
         state = state.state_dict()
+    masked = set(masked)
     tree: dict = {}
     for name, t in state.items():
-        arr = t.detach().float().cpu().numpy()
         mod, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         if leaf == "weight":
-            if arr.ndim == 4:
-                leaf, arr = "kernel", arr.transpose(2, 3, 1, 0)
-            elif arr.ndim == 2:
-                leaf, arr = "kernel", arr.T
-            else:
-                leaf = "scale"
+            leaf = "kernel" if t.ndim in (2, 4) else "scale"
         node = tree
         for part in mod.split(".") if mod else ():
             node = node.setdefault(part, {})
+        if name in masked:
+            node[leaf] = {}
+            continue
+        arr = t.detach().float().cpu().numpy()
+        if leaf == "kernel":
+            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node[leaf] = np.ascontiguousarray(arr)
     return tree
 
@@ -104,3 +111,73 @@ def load_model_checkpoint(states, model: nn.Module, use_ema: bool) -> tuple:
     tree = states["ema"] if use_ema and "ema" in states else states["model"]
     model.load_state_dict(state_dict_from_jax(tree, model))
     return int(states["epoch"]), int(states["step"])
+
+
+# ------------------------------------------------------- optimizer and plateau
+# An optimizer checkpoint holds ``{"optimizer": [opt_state], "scheduler":
+# [plateau]}`` (bbdm_tpu/runners/base.py:246-249), opt_state being flax's
+# ``to_state_dict`` of ``optax.masked(chain)``: {"inner_state": {"0": {"count",
+# "mu", "nu"}}} for Adam, {"inner_state": {"0": {"nu"}}} for RMSProp (the
+# state moves to "1" behind add_decayed_weights's empty "0" when weight_decay
+# is set) and {"inner_state": {"trace"}} for SGD; moments are parameter trees
+# with {} at the masked (frozen VQGAN) leaves.
+
+_MOMENTS = {"Adam": ("mu", "nu"), "RMSProp": ("nu",), "SGD": ("trace",)}
+
+
+def opt_state_to_jax(optimizer, model: nn.Module) -> dict:
+    """The optimizer's state as the JAX package's ``opt_state`` tree for ``model``."""
+    sd = model.state_dict()
+    masked = [k for k in sd if k not in set(optimizer.names)]
+
+    def tree(tensors):
+        return jax_tree_from_state_dict({**sd, **dict(zip(optimizer.names, tensors))},
+                                        masked=masked)
+
+    node = {k: tree(optimizer.state[k]) for k in _MOMENTS[optimizer.name]}
+    if optimizer.name == "SGD":
+        return {"inner_state": node}
+    if "count" in optimizer.state:
+        node["count"] = optimizer.state["count"].cpu().numpy()
+    return {"inner_state": {"0": {}, "1": node} if optimizer.weight_decay else {"0": node}}
+
+
+def opt_state_from_jax(tree, optimizer) -> None:
+    """Load a JAX ``opt_state`` tree into ``optimizer`` (in place). Raises
+    ValueError where the tree does not fit: another optimizer or weight-decay
+    setting, or the bucketed layout of ``training.fuse_small_leaves``."""
+    expected = dict(zip(optimizer.names, optimizer.params))
+    try:
+        node = tree["inner_state"]
+        if optimizer.name != "SGD":
+            node = node["1" if optimizer.weight_decay else "0"]
+        moments = {k: node[k] for k in _MOMENTS[optimizer.name]}
+        if any("bucket" in m for m in moments.values()):
+            raise ValueError("it was written with training.fuse_small_leaves, whose bucketed "
+                             "layout the port does not read")
+        loaded = {k: state_dict_from_jax(m, expected) for k, m in moments.items()}
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"the optimizer state does not fit a {optimizer.name} state over the "
+                         f"trainable parameters: {e}") from e
+    with torch.no_grad():
+        for k, sd in loaded.items():
+            for name, t in zip(optimizer.names, optimizer.state[k]):
+                t.copy_(sd[name])
+    if "count" in optimizer.state:
+        optimizer.state["count"].fill_(int(np.asarray(node["count"])))
+
+
+def plateau_to_jax(state) -> dict:
+    """A PlateauState as the JAX ``scheduler`` entry: 0-d fp32 lr and best, int32 counters."""
+    return {k: getattr(state, k).cpu().numpy() for k in ("lr", "best", "num_bad",
+                                                         "cooldown_count")}
+
+
+def plateau_from_jax(d, device=None) -> PlateauState:
+    """Inverse of :func:`plateau_to_jax`."""
+    f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    return PlateauState(lr=torch.tensor(float(d["lr"]), **f32),
+                        best=torch.tensor(float(d["best"]), **f32),
+                        num_bad=torch.tensor(int(d["num_bad"]), **i32),
+                        cooldown_count=torch.tensor(int(d["cooldown_count"]), **i32))

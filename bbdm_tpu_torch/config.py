@@ -377,12 +377,12 @@ def save_config(config: ConfigNode, path: str) -> None:
 
 def device_from_gpu_ids(gpu_ids: str) -> str:
     """``--gpu_ids``: "-1" is the CPU, one id N is ``cuda:N``. Several ids
-    raise: data-parallel sampling is not ported (ROADMAP.md §1 item 5)."""
+    raise: data parallelism is not ported (ROADMAP.md §1 item 6)."""
     ids = [s.strip() for s in str(gpu_ids).split(",") if s.strip()]
     if len(ids) != 1:
         raise NotImplementedError(
             f"--gpu_ids {gpu_ids!r}: give -1 (CPU) or one card id; data-parallel "
-            "sampling over several cards is not ported (ROADMAP.md §1 item 5)")
+            "training and sampling over several cards are not ported (ROADMAP.md §1 item 6)")
     if ids[0] == "-1":
         return "cpu"
     if not ids[0].isdigit():

@@ -1,4 +1,10 @@
-"""Brownian Bridge Diffusion Model, sampling path (port of ``bbdm_tpu/models/bridge.py``).
+"""Brownian Bridge Diffusion Model (port of ``bbdm_tpu/models/bridge.py``).
+
+Training: :meth:`BrownianBridgeModel.loss` draws t and the noise (from an
+explicit generator, or takes them as ``t=`` / ``noise=``), forms x_t and the
+objective with :meth:`q_sample` and runs the UNet in the module's mode (in
+training mode with dropout and the naive up-conv, as the JAX loss runs it
+with ``train=True``).
 
 The reverse sampler is a Python loop over the precomputed per-step
 coefficients (``models/schedules.py``), starting from x_T := y (no prior
@@ -10,9 +16,11 @@ draw). ``BB.params.sampler`` picks the update:
   x_t with the mean of the two x0 estimates; noise is added once, after the
   corrector. The terminal t = 0 entry takes a single forward and returns x0.
 
-Once per call, not per step: the subpixel phase kernels of every
-``UpsampleConv3x3`` are combined, and the UNet's >=2-D weights are cast to the
-compute dtype (1-D params, GroupNorm scale/bias and conv biases, stay fp32).
+The sampler runs the UNet in eval mode, whatever the module's mode. Once per
+call, not per step: the subpixel phase kernels of every ``UpsampleConv3x3``
+are combined, and the UNet's >=2-D weights are cast to the compute dtype (1-D
+params, GroupNorm scale/bias and conv biases, stay fp32); neither outlives
+the call.
 
 Objectives: grad (x0 = x_t - pred), noise, ysubx.
 """
@@ -45,6 +53,7 @@ class BrownianBridgeModel(nn.Module):
         bb = model_config.BB.params
         self.num_timesteps = bb.num_timesteps
         self.objective = bb.objective
+        self.loss_type = bb.loss_type
         self.sampler = bb.get("sampler", "euler")
         if self.sampler not in ("euler", "heun"):
             raise NotImplementedError(f"sampler {self.sampler!r}")
@@ -61,6 +70,63 @@ class BrownianBridgeModel(nn.Module):
         self.unet = UNet.from_config(bb.UNetParams, self.condition_key, dtype=dtype,
                                      init_scheme=model_config.get("init_scheme", "reference"),
                                      device=device)
+        # the loss's schedule lookups, fp32 as jnp.asarray gives them to the JAX loss
+        for name in ("m_t", "variance_t"):
+            self.register_buffer(f"_{name}", torch.as_tensor(
+                getattr(self.schedule, name), dtype=torch.float32, device=device),
+                persistent=False)
+
+    def trainable_parameters(self) -> dict:
+        """{state_dict name: parameter} of what the optimizer trains (the JAX
+        ``trainable_mask``): everything, for pixel BBDM."""
+        return dict(self.named_parameters())
+
+    def _m_sigma(self, t, ndim):
+        """m_t and sigma_t of the per-example timesteps t, broadcast over ndim dims."""
+        shape = (-1,) + (1,) * (ndim - 1)
+        return self._m_t[t].reshape(shape), torch.sqrt(self._variance_t[t].reshape(shape))
+
+    def q_sample(self, x0, y, t, noise):
+        """Forward bridge draw and training objective (``bbdm_tpu/models/bridge.py:156-170``)."""
+        m_t, sigma_t = self._m_sigma(t, x0.ndim)
+        x_t = (1.0 - m_t) * x0 + m_t * y + sigma_t * noise
+        if self.objective == "grad":
+            objective = m_t * (y - x0) + sigma_t * noise
+        elif self.objective == "noise":
+            objective = noise
+        elif self.objective == "ysubx":
+            objective = y - x0
+        else:
+            raise NotImplementedError(self.objective)
+        return x_t, objective
+
+    def loss(self, x, y, context=None, *, generator: Optional[torch.Generator] = None,
+             t=None, noise=None):
+        """Training loss (``bbdm_tpu/models/bridge.py:187-223``): returns
+        ``(loss, {"loss", "x0_recon"})``. t ~ U{0..T-1} and the noise are drawn
+        from ``generator`` unless given (``t=`` [B] ints, ``noise=`` x's shape),
+        which lets tests feed the JAX package's draws."""
+        x, y = x.contiguous(), y.contiguous()  # the kernels take NCHW-contiguous activations
+        if self.condition_key == "nocond":
+            context = None
+        elif context is None:
+            context = y
+        B = x.shape[0]
+        if t is None:
+            t = torch.randint(0, self.num_timesteps, (B,), generator=generator, device=x.device)
+        if noise is None:
+            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+        x_t, objective = self.q_sample(x, y, t, noise)
+        pred = self.unet(x_t, t, context).to(x.dtype)
+        if self.loss_type == "l1":
+            recloss = (objective - pred).abs().mean()
+        elif self.loss_type == "l2":
+            recloss = ((objective - pred) ** 2).mean()
+        else:
+            raise NotImplementedError(self.loss_type)
+        m_t, sigma_t = self._m_sigma(t, x.ndim)
+        x0_recon = self.predict_x0_from_objective(x_t, y, pred, m_t=m_t, sigma_t=sigma_t)
+        return recloss, {"loss": recloss, "x0_recon": x0_recon}
 
     def predict_x0_from_objective(self, x_t, y, pred, *, m_t, sigma_t):
         if self.objective == "grad":
@@ -80,9 +146,15 @@ class BrownianBridgeModel(nn.Module):
         return {k: p.to(self.dtype) if p.ndim >= 2 else p for k, p in params.items()}
 
     @contextlib.contextmanager
-    def _hoisted_subpixel(self):
-        """Give every UpsampleConv3x3 its combined phase kernel for this call."""
+    def _sampling_mode(self):
+        """Eval mode (no dropout, the subpixel up-conv), as the JAX sampler runs
+        the UNet with ``train=False``, and every UpsampleConv3x3 given its
+        combined phase kernel for this call; the mode and the kernels are
+        restored after it, so a sample in the middle of training leaves
+        nothing behind for the next step."""
+        was_training = self.training
         mods = [m for m in self.unet.modules() if isinstance(m, UpsampleConv3x3)]
+        self.eval()
         for m in mods:
             m.combined = combine_kernel_2x2(m.weight).to(m.dtype or m.weight.dtype)
         try:
@@ -90,6 +162,7 @@ class BrownianBridgeModel(nn.Module):
         finally:
             for m in mods:
                 m.combined = None
+            self.train(was_training)
 
     def noised_steps(self) -> int:
         """How many noise tensors one ``p_sample_loop`` draws (its ``noise=`` length)."""
@@ -143,7 +216,7 @@ class BrownianBridgeModel(nn.Module):
                 one_step.append(x0)
 
         x_t = y
-        with self._hoisted_subpixel():
+        with self._sampling_mode():
             if self.sampler == "euler":
                 for i in range(len(c.steps)):
                     x0 = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])

@@ -1,4 +1,4 @@
-"""Latent BBDM: the bridge in the latent space of a frozen VQGAN, sampling path
+"""Latent BBDM: the bridge in the latent space of a frozen VQGAN
 (port of ``bbdm_tpu/models/latent.py``).
 
 encode: VQGAN encoder [+ quant_conv unless latent_before_quant_conv], optional
@@ -7,6 +7,12 @@ post_quant_conv + decoder. Latent statistics are [1, C, 1, 1] tensors. The
 UNet's context is none (``nocond``), the condition's latent
 (``first_stage``) or ``cond_stage``, a :class:`SpatialRescaler` of the
 condition image (``SpatialRescaler``).
+
+The VQGAN is frozen: its parameters require no grad, it stays in eval mode,
+and ``encode``/``decode`` run under ``torch.no_grad()`` (the JAX package's
+``stop_gradient``). The cond stage trains with the UNet. Only the sampling
+entry points (:meth:`sample`, ``p_sample_loop``) run under
+``torch.inference_mode()``: an inference tensor cannot be saved for backward.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
         self.latent_before_quant_conv = model_config.get("latent_before_quant_conv", False)
         self.normalize_latent = model_config.get("normalize_latent", False)
         self.vqgan = VQModel.from_config(model_config.VQGAN.params, dtype=dtype, device=device)
+        self.vqgan.requires_grad_(False)
         self.cond_stage = None
         if self.condition_key == "SpatialRescaler":
             self.cond_stage = SpatialRescaler.from_config(model_config.CondStageParams,
@@ -41,12 +48,23 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
         elif self.condition_key not in ("nocond", "first_stage"):
             raise NotImplementedError(f"condition_key {self.condition_key!r} is not ported")
 
+    def train(self, mode: bool = True):
+        """Training mode for the UNet and the cond stage; the VQGAN stays in eval mode."""
+        super().train(mode)
+        self.vqgan.eval()
+        return self
+
+    def trainable_parameters(self) -> dict:
+        """The UNet and the cond stage; the VQGAN is frozen
+        (``bbdm_tpu/models/latent.py:73-78``)."""
+        return {k: p for k, p in self.named_parameters() if not k.startswith("vqgan.")}
+
     def _stats(self, z, latent_stats, cond):
         s = latent_stats if latent_stats is not None else init_latent_stats(z.shape[1], z.device)
         pre = "cond" if cond else "ori"
         return s[f"{pre}_latent_mean"], s[f"{pre}_latent_std"]
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode(self, x, *, cond=True, normalize=None, latent_stats=None):
         """Image [B, 3, H, W] -> bridge latent."""
         normalize = self.normalize_latent if normalize is None else normalize
@@ -58,7 +76,7 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
             z = (z - mean) / std
         return z
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def decode(self, z, *, cond=True, normalize=None, latent_stats=None):
         """Bridge latent -> image: denormalise, [quant_conv], quantise, decode."""
         normalize = self.normalize_latent if normalize is None else normalize
@@ -70,13 +88,23 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
         quant, _ = self.vqgan.quantize_latent(z)
         return self.vqgan.decode_from_quant(quant)
 
-    @torch.inference_mode()
     def get_cond_stage_context(self, x_cond):
+        """The UNet's context; the SpatialRescaler's keeps its graph (it trains)."""
         if self.condition_key == "SpatialRescaler":
             return self.cond_stage(x_cond.contiguous())
         if self.condition_key == "first_stage":
             return self.encode(x_cond, cond=True)
         return None
+
+    def loss(self, x, y, context=None, *, latent_stats=None,
+             generator: Optional[torch.Generator] = None, t=None, noise=None):
+        """Training loss in latent space (``bbdm_tpu/models/latent.py:125-131``):
+        x and y encoded without gradient, the context from the condition image."""
+        x_latent = self.encode(x, cond=False, latent_stats=latent_stats)
+        y_latent = self.encode(y, cond=True, latent_stats=latent_stats)
+        if context is None:
+            context = self.get_cond_stage_context(y)
+        return super().loss(x_latent, y_latent, context, generator=generator, t=t, noise=noise)
 
     @torch.inference_mode()
     def sample(self, x_cond, context=None, *, clip_denoised=False, sample_mid_step=False,

@@ -1,4 +1,4 @@
-"""UNet building blocks, NCHW (port of the sampling subset of ``bbdm_tpu/models/layers.py``).
+"""UNet building blocks, NCHW (port of the BBDM subset of ``bbdm_tpu/models/layers.py``).
 
 Parameters are fp32; each conv/dense casts its input, weight and bias to its
 compute ``dtype`` at use, as flax does (``dtype=None``: the promotion of the
@@ -160,7 +160,11 @@ class UpsampleConv3x3(_Init):
     """``conv3x3(upsample_nearest_2x(x))`` through the subpixel decomposition
     (eval form). ``combined``: the phase kernel in the compute dtype, set by
     the sampler for the length of one call (models/bridge.py) so the combine
-    runs once per call, not per step; None combines in the call."""
+    runs once per call, not per step; None combines in the call.
+
+    In training mode it is the naive upsample + conv + bias, the JAX package's
+    own training form (``bbdm_tpu/models/layers.py:139-148``): the combine
+    cannot be hoisted when the weights change every step."""
 
     def __init__(self, in_ch, out_ch, *, init=normal_init, dtype=None, device=None):
         super().__init__()
@@ -174,6 +178,10 @@ class UpsampleConv3x3(_Init):
         self.bias.zero_()
 
     def forward(self, x):
+        if self.training:
+            dt = _dt(self.dtype, x, self.weight)
+            out = F.conv2d(upsample_nearest_2x(x).to(dt), self.weight.to(dt), padding=1)
+            return out + self.bias.to(out.dtype)[:, None, None]
         return up_ops.upsample2x_conv3x3(x, self.weight, self.bias, dtype=self.dtype,
                                          combined=self.combined)
 
@@ -205,14 +213,16 @@ class ResBlock(nn.Module):
 
     in: GN -> SiLU -> [up: subpixel up-conv | down: avg-pool, conv3x3 | conv3x3];
     emb: SiLU -> Dense (2*out when scale-shift: [scale, shift] into the out GN);
-    out: GN [FiLM] -> SiLU -> conv3x3; skip: identity or 1x1 conv, with the same
-    up (nearest) / down (avg-pool) resampling.
+    out: GN [FiLM] -> SiLU -> dropout (training mode only) -> conv3x3; skip:
+    identity or 1x1 conv, with the same up (nearest) / down (avg-pool)
+    resampling.
     """
 
     def __init__(self, in_ch, out_ch, emb_ch, *, use_scale_shift_norm=False, up=False,
-                 down=False, init_scheme="reference", dtype=None, device=None):
+                 down=False, dropout=0.0, init_scheme="reference", dtype=None, device=None):
         super().__init__()
         self.up, self.down, self.use_scale_shift_norm = up, down, use_scale_shift_norm
+        self.dropout = dropout
         kw = dict(dtype=dtype, device=device)
         self.in_norm = GroupNorm32(in_ch, device=device)
         if up:
@@ -239,6 +249,8 @@ class ResBlock(nn.Module):
         else:
             h = h + emb_out[:, :, None, None].to(h.dtype)
             h = self.out_norm(h, act="silu")
+        if self.dropout > 0.0:
+            h = F.dropout(h, self.dropout, training=self.training)
         h = self.out_conv(h)
         if self.skip is not None:
             x = self.skip(x)

@@ -33,7 +33,7 @@ from bbdm_tpu_torch.models.layers import (
 class UNet(nn.Module):
     def __init__(self, *, in_channels: int, model_channels: int,
                  out_channels: int, num_res_blocks: int,
-                 attention_resolutions: Sequence[int], channel_mult=(1, 2, 4, 8),
+                 attention_resolutions: Sequence[int], dropout=0.0, channel_mult=(1, 2, 4, 8),
                  conv_resample=True, dims=2, num_heads=-1, num_head_channels=-1,
                  num_heads_upsample=-1, use_scale_shift_norm=False,
                  resblock_updown=False, use_spatial_transformer=False,
@@ -58,7 +58,7 @@ class UNet(nn.Module):
 
         def res(name, cin, cout, **kw):
             self.add_module(name, ResBlock(
-                cin, cout, emb_ch, use_scale_shift_norm=use_scale_shift_norm,
+                cin, cout, emb_ch, use_scale_shift_norm=use_scale_shift_norm, dropout=dropout,
                 init_scheme=init_scheme, dtype=dtype, device=device, **kw))
 
         def attention(name, ch, decoder=False):
@@ -165,7 +165,7 @@ class UNet(nn.Module):
             model_channels=p.model_channels, out_channels=p.out_channels,
             num_res_blocks=p.num_res_blocks,
             attention_resolutions=tuple(p.attention_resolutions),
-            channel_mult=tuple(p.channel_mult),
+            dropout=p.get("dropout", 0.0), channel_mult=tuple(p.channel_mult),
             conv_resample=p.get("conv_resample", True), dims=p.get("dims", 2),
             num_heads=p.get("num_heads", -1),
             num_head_channels=p.get("num_head_channels", -1),

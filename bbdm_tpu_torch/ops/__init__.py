@@ -1,7 +1,10 @@
 """Operators with a hand-written Hopper kernel and a plain PyTorch twin.
 
 Each dispatch sends a CUDA tensor to the kernel and a CPU tensor to the twin;
-the twin is never a fallback for a CUDA tensor.
+the twin is never a fallback for a CUDA tensor. Where an input requires grad,
+K1 and K3 launch through an autograd Function whose backward recomputes the
+twin (the JAX package's ``custom_vjp``s recompute through XLA the same way);
+K2 has no backward and refuses such inputs.
 """
 
 import torch
@@ -18,3 +21,21 @@ def use_kernel(x: torch.Tensor) -> bool:
     if x.device.type == "cpu":
         return False
     raise RuntimeError(f"no kernel and no twin for device {x.device}")
+
+
+def needs_grad(*tensors) -> bool:
+    """Grad mode is on and one of ``tensors`` (None skipped) requires grad."""
+    return torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors)
+
+
+def recompute_grads(plain, inputs, needed, grad_out, **kw):
+    """The gradients of ``plain(*inputs, **kw)`` with respect to the ``inputs``
+    flagged in ``needed`` (None elsewhere), recomputed from the saved inputs
+    under grad mode: the backward of the kernels' autograd Functions."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(need) if t is not None else None
+                  for t, need in zip(inputs, needed)]
+        out = plain(*leaves, **kw)
+        wanted = [t for t in leaves if t is not None and t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
+    return tuple(next(grads) if t is not None and t.requires_grad else None for t in leaves)

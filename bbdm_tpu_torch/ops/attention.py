@@ -8,13 +8,15 @@ a CUDA tensor with T >= 1024 and D % 128 == 0 goes to kernel K3
 ``bbdm_tpu/ops/flash_attention.py:flash_attention``); everything else, the
 UNet's middle attention (T=256, 16 heads x 64) included, is the explicit
 matmul + softmax of :func:`attention_plain`, as the JAX package leaves it to XLA.
+Where grad mode is on and q, k or v requires grad, K3 launches through
+:class:`FlashAttentionFunction`, whose backward recomputes the twin.
 """
 
 from __future__ import annotations
 
 import torch
 
-from bbdm_tpu_torch.ops import use_kernel
+from bbdm_tpu_torch.ops import needs_grad, recompute_grads, use_kernel
 
 KERNEL_MIN_SEQ = 1024  # bbdm_tpu/ops/attention.py:_PALLAS_MIN_SEQ
 
@@ -22,8 +24,27 @@ KERNEL_MIN_SEQ = 1024  # bbdm_tpu/ops/attention.py:_PALLAS_MIN_SEQ
 def multi_head_attention(q, k, v):
     """q, k, v: [B, H, T, D] -> [B, H, T, D] in q.dtype."""
     if use_kernel(q) and q.shape[-2] >= KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:
+        if needs_grad(q, k, v):
+            return FlashAttentionFunction.apply(q, k, v)
         return flash_attention_cuda(q, k, v)
     return attention_plain(q, k, v)
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """K3 with a gradient (``bbdm_tpu/ops/flash_attention.py:114-139``): the
+    forward is one launch of :func:`flash_attention_cuda`; the backward
+    recomputes :func:`attention_plain` on the saved q, k, v, as the Pallas
+    kernel's ``custom_vjp`` recomputes ``_xla_attention``."""
+
+    @staticmethod
+    def forward(ctx, q, k, v):
+        ctx.save_for_backward(q, k, v)
+        return flash_attention_cuda(q, k, v)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        return recompute_grads(attention_plain, ctx.saved_tensors, ctx.needs_input_grad,
+                               grad_out)
 
 
 def attention_plain(q, k, v):

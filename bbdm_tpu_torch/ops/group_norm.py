@@ -8,7 +8,9 @@ the input dtype.
 On a CUDA tensor every call is one launch of kernel K1 (``csrc/group_norm.cu``,
 which replaces the Pallas ``bbdm_tpu/ops/group_norm_pallas.py:group_norm_pallas``)
 with the launch shape of :func:`plan_group_norm`; on a CPU tensor it goes to
-:func:`group_norm_plain`.
+:func:`group_norm_plain`. Where grad mode is on and an input requires grad,
+the launch goes through :class:`GroupNormFunction`, whose backward recomputes
+the twin, as the Pallas kernel's ``custom_vjp`` recomputes through XLA.
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from bbdm_tpu_torch.ops import use_kernel
+from bbdm_tpu_torch.ops import needs_grad, recompute_grads, use_kernel
 
 
 def group_norm(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
@@ -33,9 +35,39 @@ def group_norm(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
         raise NotImplementedError(act)
     if (film_scale is None) != (film_shift is None):
         raise ValueError("film_scale and film_shift go together")
-    fn = group_norm_cuda if use_kernel(x) else group_norm_plain
-    return fn(x, weight, bias, num_groups=num_groups, eps=eps, act=act,
-              film_scale=film_scale, film_shift=film_shift)
+    if not use_kernel(x):
+        return group_norm_plain(x, weight, bias, num_groups=num_groups, eps=eps, act=act,
+                                film_scale=film_scale, film_shift=film_shift)
+    if needs_grad(x, weight, bias, film_scale, film_shift):
+        return GroupNormFunction.apply(x, weight, bias, film_scale, film_shift, num_groups,
+                                       eps, act)
+    return group_norm_cuda(x, weight, bias, num_groups=num_groups, eps=eps, act=act,
+                           film_scale=film_scale, film_shift=film_shift)
+
+
+class GroupNormFunction(torch.autograd.Function):
+    """K1 with a gradient (``bbdm_tpu/ops/group_norm_pallas.py:177-216``): the
+    forward is one launch of :func:`group_norm_cuda`; the backward recomputes
+    :func:`group_norm_plain` on the saved inputs (not the output, as the Pallas
+    ``_fwd`` saves them) and returns its gradients for x, weight, bias and the
+    FiLM scale and shift."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, film_scale, film_shift, num_groups, eps, act):
+        ctx.save_for_backward(x, weight, bias, film_scale, film_shift)
+        ctx.kw = dict(num_groups=num_groups, eps=eps, act=act)
+        return group_norm_cuda(x, weight, bias, film_scale=film_scale, film_shift=film_shift,
+                               **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        def plain(x, weight, bias, film_scale, film_shift, **kw):
+            return group_norm_plain(x, weight, bias, film_scale=film_scale,
+                                    film_shift=film_shift, **kw)
+
+        grads = recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:5], grad_out,
+                                **ctx.kw)
+        return (*grads, None, None, None)
 
 
 def group_norm_bytes(x, weight, film_scale=None) -> int:
@@ -62,8 +94,9 @@ def group_norm_plain(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5
     mean_g = gs1 / n_per_group
     var_g = gs2 / n_per_group - mean_g * mean_g
     rstd_g = torch.rsqrt(var_g + eps)
-    rstd_c = rstd_g.repeat_interleave(C // num_groups, dim=1)
-    mean_c = mean_g.repeat_interleave(C // num_groups, dim=1)
+    # per channel by broadcast, whose gradient is a plain (deterministic) sum
+    per_channel = lambda g: g[:, :, None].expand(N, num_groups, C // num_groups).reshape(N, C)
+    rstd_c, mean_c = per_channel(rstd_g), per_channel(mean_g)
     w = rstd_c * weight.float()[None, :]
     b = bias.float()[None, :] - mean_c * w
     shape = (N, C) + (1,) * len(spatial)

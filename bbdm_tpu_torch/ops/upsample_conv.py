@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from bbdm_tpu_torch.ops import use_kernel
+from bbdm_tpu_torch.ops import needs_grad, use_kernel
 
 
 def combine_kernel_2x2(w: torch.Tensor) -> torch.Tensor:
@@ -131,9 +131,15 @@ def upsample_conv_cuda(x, kp, b):
 
     The kernel reads x channels-last, so x is copied once into that layout,
     zero-padded where :func:`plan_upconv` says (the padding is the conv's own;
-    the extra outputs are cut off)."""
+    the extra outputs are cut off). K2 has no backward (the Pallas kernel has
+    no VJP either): it raises where grad mode is on and an input requires
+    grad, so it never cuts a graph."""
     from bbdm_tpu_torch.kernels import build
 
+    if needs_grad(x, kp, b):
+        raise RuntimeError("upsample_conv_cuda (K2) has no backward and refuses inputs that "
+                           "require grad; train with UpsampleConv3x3 in training mode (the "
+                           "naive upsample + conv)")
     if not x.is_cuda or x.dtype != torch.bfloat16 or x.ndim != 4 or not x.is_contiguous():
         raise ValueError("upsample_conv_cuda takes a contiguous bf16 CUDA [N, ci, h, w] tensor")
     N, ci, h, w = x.shape

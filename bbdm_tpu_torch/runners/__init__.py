@@ -1,4 +1,4 @@
-"""Runners: the sampling side of ``bbdm_tpu/runners``."""
+"""Runners: the BBDM side of ``bbdm_tpu/runners``, training and sampling."""
 
 
 def get_runner(name: str, config):
@@ -8,5 +8,5 @@ def get_runner(name: str, config):
     runners = {"BBDMRunner": BBDMRunner}
     if name not in runners:
         raise NotImplementedError(f"runner {name!r} is not ported (ported: {sorted(runners)}; "
-                                  "VQGAN training is ROADMAP.md §1 item 6)")
+                                  "VQGAN training is ROADMAP.md §1 item 7)")
     return runners[name](config)

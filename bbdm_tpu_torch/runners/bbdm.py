@@ -1,11 +1,18 @@
-"""BBDMRunner: sampling with a BBDM or LBBDM (port of the test half of
+"""BBDMRunner: training and sampling with a BBDM or LBBDM (port of
 ``bbdm_tpu/runners/bbdm.py``).
 
 Weights: seeded random, then for an LBBDM the frozen VQGAN from
 ``VQGAN.params.ckpt_path`` (a JAX ``.ckpt`` or an LDM torch checkpoint), then
-``model.model_load_path`` (a JAX ``.ckpt`` or a reference ``.pth``): its EMA
-weights when ``EMA.use_ema`` holds and it has them. Latent statistics come from
-that checkpoint under ``normalize_latent``.
+``model.model_load_path`` (a JAX ``.ckpt`` or a reference ``.pth``). For
+sampling the model takes its EMA weights when ``EMA.use_ema`` holds and it
+has them; for training it takes the ``model`` tree and the EMA state the
+``ema`` tree, and ``model.optim_sche_load_path`` gives the optimizer and
+plateau states. Latent statistics come from that checkpoint under
+``normalize_latent``, or, when training without them, from the two-pass
+dataset mean and std of :meth:`BBDMRunner.get_latent_mean_std`.
+
+The optimizer is ``model.BB.optimizer`` over the UNet (and the cond stage)
+with ``model.BB.lr_scheduler`` as the plateau schedule; the VQGAN is frozen.
 
 ``sample_to_eval`` output contract: ``condition/<x_cond_name>.png``,
 ``ground_truth/<x_name>.png`` and ``<sample_step>/<x_name>.png``, or
@@ -26,15 +33,20 @@ import numpy as np
 import torch
 
 from bbdm_tpu_torch.checkpoints.from_jax import (
+    LATENT_STATS,
     latent_stats_from_jax,
+    latent_stats_to_jax,
     load_model_checkpoint,
+    opt_state_from_jax,
+    plateau_from_jax,
     state_dict_from_jax,
 )
 from bbdm_tpu_torch.checkpoints.io import extract_vqgan_tree, load_checkpoint
 from bbdm_tpu_torch.models import build_model
-from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel
+from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel, init_latent_stats
 from bbdm_tpu_torch.runners.base import BaseRunner
 from bbdm_tpu_torch.runners.utils import make_dir
+from bbdm_tpu_torch.training.optim import Optimizer
 from bbdm_tpu_torch.utils.images import get_image_grid, save_single_image, write_png
 
 
@@ -84,30 +96,104 @@ class BBDMRunner(BaseRunner):
             return convert_reference_checkpoint(path, self.config.model)
         return load_checkpoint(path)
 
+    def initialize_optimizer_scheduler(self, params, config):
+        """``bbdm_tpu/runners/bbdm.py:61-72``: the optimizer over the trainable
+        parameters, the plateau config and the initial lr."""
+        optim_cfg = config.model.BB.optimizer
+        return Optimizer(optim_cfg, params), config.model.BB.lr_scheduler, optim_cfg.lr
+
     def load_model_from_checkpoint(self):
-        """Weights, epoch and step (``bbdm_tpu/runners/base.py:252-268``), and the
-        latent statistics (``bbdm_tpu/runners/bbdm.py:102-124``)."""
+        """Weights, epoch and step (``bbdm_tpu/runners/base.py:252-293``), the
+        optimizer and plateau states when training, and the latent statistics
+        (``bbdm_tpu/runners/bbdm.py:102-124``)."""
         model_cfg = self.config.model
         path = model_cfg.get("model_load_path")
-        if not path:
-            return None
-        states = self._read_states(path)
-        if not model_cfg.get("only_load_latent_mean_std", False):
+        states = self._read_states(path) if path else None
+        if states is not None and not model_cfg.get("only_load_latent_mean_std", False):
             self.logger(f"load model {model_cfg.model_name} from {path}")
-            self.global_epoch, self.global_step = load_model_checkpoint(
-                states, self.model, self.use_ema)
-        if self.is_latent and model_cfg.get("normalize_latent", False) \
-                and "ori_latent_mean" in states:
-            self.latent_stats = latent_stats_from_jax(states, self.device)
+            if self.state is None:
+                self.global_epoch, self.global_step = load_model_checkpoint(
+                    states, self.model, self.use_ema)
+            else:
+                self._resume(states, model_cfg.get("optim_sche_load_path"))
+        if self.is_latent and model_cfg.get("normalize_latent", False):
+            if states is not None and "ori_latent_mean" in states:
+                self.latent_stats = latent_stats_from_jax(states, self.device)
+            elif self.state is not None:
+                self.get_latent_mean_std()
+        if self.state is not None:
+            self.state.latent_stats = self.latent_stats
         return states
+
+    def _resume(self, states, optim_path):
+        """Training resume: the ``model`` tree into the model, the ``ema`` tree
+        into the EMA state (the ``model`` tree where the file has none), the
+        counters, and the optimizer and plateau from ``optim_path``."""
+        self.global_epoch, self.global_step = load_model_checkpoint(states, self.model, False)
+        self.state.step = self.global_step
+        if self.use_ema:
+            ema = state_dict_from_jax(states.get("ema", states["model"]), self.model)
+            with torch.no_grad():
+                for k, t in self.state.ema.items():
+                    t.copy_(ema[k])
+        if optim_path:
+            self.logger(f"load optimizer and scheduler from {optim_path}")
+            osd = load_checkpoint(optim_path)
+            opt_state_from_jax(osd["optimizer"][0], self.state.optimizer)
+            self.state.plateau = plateau_from_jax(osd["scheduler"][0], self.device)
+
+    def get_checkpoint_states(self, stage="epoch_end"):
+        """The base states plus the latent statistics under ``normalize_latent``."""
+        model_states, optim_states = super().get_checkpoint_states(stage)
+        if self.is_latent and self.config.model.get("normalize_latent", False):
+            stats = self.latent_stats or init_latent_stats(
+                self.model.unet.out_conv.weight.shape[0], self.device)
+            model_states.update(latent_stats_to_jax(stats))
+        return model_states, optim_states
+
+    @torch.no_grad()
+    def get_latent_mean_std(self):
+        """The two-pass dataset latent statistics (``bbdm_tpu/runners/bbdm.py:138-217``):
+        the mean of per-batch means over the shuffled train set's full batches,
+        then the mean of per-batch mean squared deviations from it; std is its
+        square root."""
+        from bbdm_tpu_torch.data import DataLoader, get_dataset
+
+        loader = DataLoader(get_dataset(self.config.data)[0], self.config.data.train.batch_size,
+                            shuffle=True, seed=self.config.args.seed)
+        if len(loader) == 0:
+            raise ValueError("latent statistics: the train set has no full batch")
+
+        def latents():
+            for batch in loader:
+                x, y = self._put_batch(batch)
+                yield (self.model.encode(x, cond=False, normalize=False),
+                       self.model.encode(y, cond=True, normalize=False))
+
+        def batch_mean(t):
+            return t.mean(dim=(0, 2, 3), keepdim=True)
+
+        self.logger("start calculating latent mean")
+        tot_o = tot_c = 0.0
+        for xl, yl in latents():
+            tot_o, tot_c = tot_o + batch_mean(xl), tot_c + batch_mean(yl)
+        ori_mean, cond_mean = tot_o / len(loader), tot_c / len(loader)
+        self.logger("start calculating latent std")
+        tot_o = tot_c = 0.0
+        for xl, yl in latents():
+            tot_o = tot_o + batch_mean((xl - ori_mean) ** 2)
+            tot_c = tot_c + batch_mean((yl - cond_mean) ** 2)
+        ori_std, cond_std = torch.sqrt(tot_o / len(loader)), torch.sqrt(tot_c / len(loader))
+        self.latent_stats = dict(zip(LATENT_STATS, (ori_mean, ori_std, cond_mean, cond_std)))
+        for k, v in self.latent_stats.items():
+            self.logger(f"{k}: {v.flatten().cpu().numpy()}")
 
     # ------------------------------------------------------------ sampling
 
     def _sample(self, x_cond: np.ndarray, **kw):
-        cond = torch.from_numpy(np.asarray(x_cond, np.float32)).permute(0, 3, 1, 2)
         if self.is_latent:
             kw["latent_stats"] = self.latent_stats
-        return self.model.sample(cond.to(self.device),
+        return self.model.sample(self._to_device(x_cond),
                                  clip_denoised=self.config.testing.get("clip_denoised", False),
                                  generator=self.generator, **kw)
 
@@ -123,32 +209,41 @@ class BBDMRunner(BaseRunner):
         return self._nhwc(out if n > 1 else out[None])
 
     def sample(self, batch, sample_path, stage="train"):
-        """4-image grids (``bbdm_tpu/runners/bbdm.py:278-327``)."""
+        """4-image grids (``bbdm_tpu/runners/bbdm.py:278-327``), also written to
+        TensorBoard outside the test stage."""
         sample_path = make_dir(os.path.join(sample_path, f"{stage}_sample"))
         to_normal = self.config.data.dataset_config.to_normal
         grid_size = 4
+        log = stage != "test" and self.writer is not None
         x, x_cond = np.asarray(batch["x"])[:4], np.asarray(batch["x_cond"])[:4]
         if self.config.testing.get("sample_mid_step", False):
             every = max(len(self.model.coeffs.steps) // 4, 1)
-            for name, traj in zip(("reverse_sample", "reverse_one_step_samples"),
-                                  self._sample(x_cond, sample_mid_step=True)):
+            for name, tag, traj in zip(("reverse_sample", "reverse_one_step_samples"),
+                                       (f"{stage}_sample", f"{stage}_one_step_sample"),
+                                       self._sample(x_cond, sample_mid_step=True)):
                 self.save_images(self._nhwc(traj), make_dir(os.path.join(sample_path, name)),
-                                 grid_size, save_interval=every)
+                                 grid_size, save_interval=every, writer_tag=tag if log else None)
         sample = self._nhwc(self._sample(x_cond))
         for name, img in (("skip_sample", sample), ("condition", x_cond), ("ground_truth", x)):
-            write_png(os.path.join(sample_path, f"{name}.png"),
-                      get_image_grid(img, grid_size, to_normal=to_normal))
+            grid = get_image_grid(img, grid_size, to_normal=to_normal)
+            write_png(os.path.join(sample_path, f"{name}.png"), grid)
+            if log:
+                self.writer.add_image(f"{stage}_{name}", grid, self.global_step)
 
-    def save_images(self, all_samples, sample_path, grid_size=4, save_interval=100):
+    def save_images(self, all_samples, sample_path, grid_size=4, save_interval=100,
+                    writer_tag=None):
         """``image_<i>.png`` every ``save_interval`` steps of a [S, B, H, W, C]
-        trajectory and ``image_out.png`` of its end
+        trajectory and ``image_out.png`` of its end, which also goes to
+        TensorBoard under ``writer_tag``
         (``bbdm_tpu/runners/diffusion_base.py:21-49``, without the GIF)."""
         to_normal = self.config.data.dataset_config.to_normal
         for i in range(0, len(all_samples), save_interval):
             write_png(os.path.join(sample_path, f"image_{i}.png"),
                       get_image_grid(all_samples[i], grid_size, to_normal=to_normal))
-        write_png(os.path.join(sample_path, "image_out.png"),
-                  get_image_grid(all_samples[-1], grid_size, to_normal=to_normal))
+        final = get_image_grid(all_samples[-1], grid_size, to_normal=to_normal)
+        write_png(os.path.join(sample_path, "image_out.png"), final)
+        if writer_tag is not None:
+            self.writer.add_image(writer_tag, final, self.global_step)
 
     def sample_to_eval(self, test_loader, sample_path: str) -> None:
         """Sample every batch of ``test_loader`` (an iterable of dicts with NHWC

@@ -1,4 +1,5 @@
-"""Runner utilities: the result-directory layout (port of ``bbdm_tpu/runners/utils.py:9-30``)."""
+"""Runner utilities: the result-directory layout and file removal (port of
+``bbdm_tpu/runners/utils.py:9-30``)."""
 
 from __future__ import annotations
 
@@ -9,6 +10,14 @@ from datetime import datetime
 def make_dir(d: str) -> str:
     os.makedirs(d, exist_ok=True)
     return d
+
+
+def remove_file(path: str) -> None:
+    """Remove ``path`` if it exists."""
+    try:
+        os.remove(path)
+    except FileNotFoundError:
+        pass
 
 
 def make_save_dirs(args, prefix: str, suffix: str | None = None, with_time: bool = False):

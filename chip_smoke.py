@@ -31,7 +31,26 @@ Phases, each of which must pass:
    with its kernels' launch counts and output tree; the euler run against an
    in-process ``BBDMRunner`` given the same EMA weights and seed; heun through
    the kernels against heun through the twins (same noise); the card's idle
-   share over one CLI batch; the host's PNG decode time per 256^2 image.
+   share over one CLI batch; the host's PNG decode time per 256^2 image;
+6. training, ``main_torch.main([... "--train"])``, at full width on a
+   synthetic 256^2 ``custom_aligned`` dataset (32 train, 8 val, 8 test pairs)
+   with phase 5's VQGAN checkpoint and a text copy of
+   ``Template-LBBDM-f4.yaml`` (batch 8, ``accumulate_grad_batches`` 4, Adam)
+   cut to ``--max_epoch 4`` (16 microbatches, 4 optimizer updates) with
+   ``normalize_latent`` (the latent statistics pass runs), an EMA from step 0
+   and one mid-training sample: seconds per microbatch and per optimizer
+   update, peak device memory, the kernels' launches, K1's gradient
+   recomputes and their time, the card's idle share over two microbatches
+   and the checkpoint files; then the trained ``last_model.ckpt`` samples
+   through ``--sample_to_eval``, and one microbatch through the kernels is
+   held against the same microbatch through the twins (loss and flattened
+   gradient, bar: twice the twins' bf16-vs-fp32 gap), every trainable
+   gradient finite and present and the VQGAN without one.
+
+Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention)
+through their autograd Functions: the output equal to the kernel's and the
+gradients equal, bit for bit, to the twin's autograd gradients (the backward
+is that recompute), with the backward's time.
 
 Prints the kernels' JSON line, then as its last line
 ``{"ok": true, "device": {...}}``; exits non-zero, without that line, when a
@@ -327,6 +346,63 @@ def kernel_phase(name, counter, pattern, cases):
     return entry
 
 
+def autograd_cases(dev):
+    """{kernel name: (label, inputs requiring grad, call through the dispatcher,
+    the kernel alone, the twin)} for the kernels with an autograd Function:
+    K1 at the UNet's FiLM + SiLU shape (bf16 x and FiLM, fp32 affine), K3 at
+    the VQGAN attention's."""
+    from bbdm_tpu_torch.ops import attention, group_norm
+
+    g = torch.Generator(dev).manual_seed(3)
+    randn = lambda *s, scale=1.0, dtype=torch.bfloat16: (
+        scale * torch.randn(s, generator=g, device=dev)).to(dtype).requires_grad_()
+    x, f = randn(BATCH, 1024, 32, 32, scale=2.0), randn(BATCH, 2048, scale=0.1)
+    w = (1 + 0.1 * torch.randn(1024, generator=g, device=dev)).requires_grad_()
+    b = randn(1024, scale=0.1, dtype=torch.float32)
+
+    def gn(fn):
+        fs, fb = f.chunk(2, dim=1)
+        return fn(x, w, b, act="silu", film_scale=fs, film_shift=fb)
+
+    q, k, v = (randn(BATCH, 1, 4096, 512) for _ in range(3))
+    return {
+        "group_norm": (f"[{BATCH},1024,32,32] FiLM+SiLU", [x, w, b, f],
+                       lambda: gn(group_norm.group_norm), lambda: gn(group_norm.group_norm_cuda),
+                       lambda: gn(group_norm.group_norm_plain)),
+        "flash_attention": (f"[{BATCH},1,4096,512]", [q, k, v],
+                            lambda: attention.multi_head_attention(q, k, v),
+                            lambda: attention.flash_attention_cuda(q, k, v),
+                            lambda: attention.attention_plain(q, k, v)),
+    }
+
+
+def autograd_phase(name, case):
+    """The kernel's autograd Function against the kernel (forward) and the twin
+    (gradients), bit for bit; the backward's CUDA-event time. Returns the
+    entry's ``autograd`` block."""
+    label, inputs, through, kernel, plain = case
+    out = through()
+    if out.grad_fn is None or "Function" not in type(out.grad_fn).__name__:
+        raise AssertionError(f"{name}: grad-requiring inputs did not go through the Function")
+    with torch.no_grad():
+        out_k = kernel()
+    grad_out = torch.randn(out.shape, generator=torch.Generator(out.device).manual_seed(4),
+                           device=out.device).to(out.dtype)
+    grads = torch.autograd.grad(out, inputs, grad_out, retain_graph=True)
+    ref = torch.autograd.grad(plain(), inputs, grad_out)
+    same_out = torch.equal(out, out_k)
+    same_grads = all(torch.equal(a, r) for a, r in zip(grads, ref))
+    backward_ms = cuda_ms(lambda: torch.autograd.grad(out, inputs, grad_out, retain_graph=True),
+                          runs=5)
+    block = {"shape": label, "function_equals_kernel": same_out,
+             "grads_equal_twin_autograd": same_grads, "backward_ms": backward_ms}
+    log(f"  {name} autograd {label}: output == kernel {same_out}, gradients == twin's "
+        f"{same_grads}; backward (the twin's recompute) {backward_ms:.4f} ms")
+    if not (same_out and same_grads):
+        raise AssertionError(f"{name}: autograd Function disagrees")
+    return block
+
+
 # ------------------------------------------------------------------- slice
 
 def slice_phase(dev, counters):
@@ -481,16 +557,16 @@ def timed(cls, attr, store):
         setattr(cls, attr, fn)
 
 
-def write_dataset(root, size, pairs, seed):
+def write_dataset(root, size, pairs, seed, train=2, val=2):
     """A ``custom_aligned`` PNG dataset: ``<stage>/A`` conditions, ``<stage>/B``
-    targets (2 train and 2 val pairs, ``pairs`` test pairs), written by the port."""
+    targets (``train``, ``val`` and ``pairs`` test pairs), written by the port."""
     import numpy as np
 
     from bbdm_tpu_torch.utils.images import to_uint8, write_png
 
     rs = np.random.RandomState(seed)
     yy, xx = np.mgrid[0:size, 0:size] / size
-    for stage, n in (("train", 2), ("val", 2), ("test", pairs)):
+    for stage, n in (("train", train), ("val", val), ("test", pairs)):
         for side in "AB":
             os.makedirs(os.path.join(root, stage, side), exist_ok=True)
         for i in range(n):
@@ -717,6 +793,256 @@ def build_fp32_copy(model_config, model, dev):
     return ref
 
 
+# ------------------------------------------------------------------- train
+
+TRAIN_PAIRS, VAL_PAIRS, TRAIN_EPOCHS, TRAIN_SAMPLE_INTERVAL = 32, 8, 4, 3
+
+
+@contextlib.contextmanager
+def patched(obj, attr, make):
+    """``obj.attr`` replaced by ``make(original)`` for the length of the block."""
+    fn = getattr(obj, attr)
+    setattr(obj, attr, make(fn))
+    try:
+        yield
+    finally:
+        setattr(obj, attr, fn)
+
+
+def recompute_timer(events):
+    """Wrap GroupNormFunction.backward: CUDA events around each call and its
+    host seconds, appended to ``events`` as (start, end, host s); the events
+    are read after a synchronise (the host does not wait here)."""
+    def make(backward):
+        def timed_backward(ctx, grad_out):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            out = backward(ctx, grad_out)
+            end.record()
+            events.append((start, end, time.perf_counter() - t0))
+            return out
+        return staticmethod(timed_backward)
+    return make
+
+
+def microbatch_grads(model, runner, batch, t, noise):
+    """(loss, gradients of the trainable parameters, None where none arrived)
+    of one training microbatch of ``model`` with injected t and noise."""
+    model.train()
+    x, y = runner._put_batch(batch)
+    params = list(model.trainable_parameters().values())
+    loss = model.loss(x, y, latent_stats=runner.latent_stats, t=t, noise=noise)[0]
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    return loss.detach().float(), grads
+
+
+def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=None):
+    """Drive ``main_torch.main --train`` (see the module docstring, phase 6);
+    ``config`` and ``size`` let a CPU rehearsal pass a tiny model."""
+    import statistics as st
+
+    import main_torch
+    from bbdm_tpu_torch.config import load_config, save_config
+    from bbdm_tpu_torch.models.layers import GroupNorm32
+    from bbdm_tpu_torch.ops import group_norm
+    from bbdm_tpu_torch.profile_slice import measure
+    from bbdm_tpu_torch.runners import base
+    from bbdm_tpu_torch.training.step import make_train_step
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = config or load_config(os.path.join(here, "configs", "Template-LBBDM-f4.yaml"))
+    size = size or cfg.data.dataset_config.image_size
+    for name in ("LBBDM-f4.ckpt", "BBDM.ckpt"):  # phase 5's model files: disk for these
+        if os.path.exists(os.path.join(root, name)):
+            os.remove(os.path.join(root, name))
+    data = os.path.join(root, "data-train")
+    write_dataset(data, size, BATCH, seed=5, train=TRAIN_PAIRS, val=VAL_PAIRS)
+    cfg.data.dataset_config.dataset_path = data
+    cfg.model.VQGAN.params.ckpt_path = vqgan_path
+    cfg.model.normalize_latent = True
+    cfg.model.EMA.start_ema_step, cfg.model.EMA.update_ema_interval = 0, 1
+    cfg.model.BB.params.sample_step = SAMPLE_STEP
+    cfg.testing.sample_num = 1
+    t = cfg.training
+    t.sample_interval, t.save_interval = TRAIN_SAMPLE_INTERVAL, TRAIN_EPOCHS
+    t.validation_interval = TRAIN_EPOCHS
+    path = os.path.join(root, "train.yaml")
+    save_config(cfg, path)
+    micro = TRAIN_EPOCHS * TRAIN_PAIRS // cfg.data.train.batch_size
+    log("reduced: " + json.dumps({
+        "n_epochs": {"template": 100, "run": TRAIN_EPOCHS}, "microbatches": micro,
+        "train/val/test pairs": [TRAIN_PAIRS, VAL_PAIRS, BATCH],
+        "EMA": "from step 0, every update", "sample_step": SAMPLE_STEP,
+        "sample_interval": TRAIN_SAMPLE_INTERVAL, "save_interval": TRAIN_EPOCHS,
+        "weights": "random UNet (seed), phase 5's VQGAN"}))
+
+    # the training run, counted and timed: each train step's host start time (no
+    # added synchronise) and the spans of the steps' neighbours
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    starts, spans, events = [], [], []
+
+    def timing_step(make):
+        def wrapped(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed_step(*sa, **skw):
+                starts.append(time.perf_counter())
+                return step(*sa, **skw)
+            return timed_step
+        return wrapped
+
+    def span(fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spans.append((t0, time.perf_counter()))
+            return out
+        return wrapped
+
+    result = os.path.join(root, "results-train")
+    argv = ["-c", path, "--train", "--max_epoch", str(TRAIN_EPOCHS), "-r", result,
+            "-s", str(CLI_SEED), "--gpu_ids", gpu_ids]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(base, "make_train_step", timing_step))
+        for attr in ("sample_step", "validation_step", "validation_epoch", "_save_checkpoints"):
+            stack.enter_context(patched(base.BaseRunner, attr, span))
+        stack.enter_context(patched(group_norm.GroupNormFunction, "backward",
+                                    recompute_timer(events)))
+        runner = main_torch.main(argv)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+    out = {"wall_s": wall, "launches": launches,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    model = runner.model
+    n_norms = sum(isinstance(m, GroupNorm32) for m in model.unet.modules())
+    out["k1_gradient_recomputes"] = len(events)
+    # the span on the card from each recompute's first launch to its last (the
+    # card may wait for the host inside it) and the host's time in them
+    out["k1_recompute_ms_per_microbatch"] = sum(s.elapsed_time(e) for s, e, _ in events) / micro
+    out["k1_recompute_host_ms_per_microbatch"] = sum(h for _, _, h in events) * 1e3 / micro
+    clean = [b - a for a, b in zip(starts, starts[1:])
+             if not any(a <= s0 < b for s0, _ in spans)]
+    out["s_per_microbatch_run"] = st.median(clean[2:]) if len(clean) > 2 else None
+    ckpt = runner.config.result.ckpt_path
+    out["checkpoints"] = {f: os.path.getsize(os.path.join(ckpt, f))
+                          for f in sorted(os.listdir(ckpt))}
+    log(f"  train: {wall:.1f} s in main_torch.main ({micro} microbatches), steps "
+        f"{runner.global_step}, epoch {runner.global_epoch}, stop {runner.stop_reason}; "
+        f"peak device memory {out['peak_memory_gib']:.2f} GiB; launches {launches}; "
+        f"K1 gradient recomputes {len(events)} ({n_norms} UNet GroupNorms x {micro}), "
+        f"{out['k1_recompute_ms_per_microbatch']:.3f} ms on the card (CUDA-event spans) and "
+        f"{out['k1_recompute_host_ms_per_microbatch']:.3f} ms of host time per microbatch; "
+        f"median s per "
+        f"microbatch in the run (after the first two, sample/validation/save steps out) "
+        f"{out['s_per_microbatch_run']}; checkpoints {out['checkpoints']}")
+    if runner.global_step != micro or len(events) != n_norms * micro:
+        raise AssertionError("train: wrong step count or not every UNet GroupNorm went "
+                             "through GroupNormFunction")
+    expected = {"config.yaml", "last_model.ckpt", "last_optim_sche.ckpt",
+                f"latest_model_{TRAIN_EPOCHS}.ckpt", f"latest_optim_sche_{TRAIN_EPOCHS}.ckpt"}
+    if set(out["checkpoints"]) != expected:
+        raise AssertionError(f"train: checkpoint files {sorted(out['checkpoints'])}")
+    if sorted(os.listdir(runner.config.result.image_path)) != [
+            str(TRAIN_SAMPLE_INTERVAL * TRAIN_PAIRS // cfg.data.train.batch_size)]:
+        raise AssertionError("train: not one mid-training sample")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"train: kernels {missing} were not launched")
+
+    # seconds per microbatch and per optimizer update in a loop like the runner's
+    # (the previous loss read after queueing each step), two update cycles
+    acc = int(cfg.training.accumulate_grad_batches)
+    step = make_train_step(model, cfg.training, cfg.model.EMA, runner.lr_scheduler_config)
+    batch = next(iter(runner._build_loaders()[0]))
+    x, y = runner._put_batch(batch)
+    model.train()
+
+    def microbatches(n):
+        prev = None
+        for _ in range(n):
+            metrics = step(runner.state, x, y, runner.train_generator)
+            if prev is not None:
+                float(prev["loss"])
+            prev = metrics
+        float(prev["loss"])
+
+    while runner.state.step % acc:
+        microbatches(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    microbatches(2 * acc)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
+    out["s_per_microbatch"], out["s_per_update"] = loop / (2 * acc), loop / 2
+    wall_ms, busy_ms, _ = measure(lambda: microbatches(2), 1, 2)
+    out["microbatch_wall_ms"], out["microbatch_device_busy_ms"] = wall_ms, busy_ms
+    out["idle_share"] = 1 - busy_ms / wall_ms
+    log(f"  train loop: {out['s_per_microbatch']:.4f} s per microbatch, "
+        f"{out['s_per_update']:.4f} s per optimizer update ({acc} microbatches); over two "
+        f"microbatches wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms per microbatch, "
+        f"idle share {out['idle_share']:.0%}")
+
+    # one microbatch through the kernels against the twins (bf16, fp32), same
+    # weights, batch, t and noise
+    g = torch.Generator(runner.device).manual_seed(6)
+    zshape = model.encode(x).shape
+    tt = torch.randint(0, model.num_timesteps, (x.shape[0],), generator=g, device=x.device)
+    noise = torch.randn(zshape, generator=g, device=x.device)
+    loss_k, grads_k = microbatch_grads(model, runner, batch, tt, noise)
+    absent = [n for n, gr in zip(model.trainable_parameters(), grads_k) if gr is None]
+    finite = all(bool(torch.isfinite(gr).all()) for gr in grads_k if gr is not None)
+    vq_free = all(p.grad is None and not p.requires_grad for p in model.vqgan.parameters())
+    with plain_ops():
+        loss_p, grads_p = microbatch_grads(model, runner, batch, tt, noise)
+        ref32 = build_fp32_copy(cfg.model, model, runner.device)
+        loss_32, grads_32 = microbatch_grads(ref32, runner, batch, tt, noise)
+        del ref32
+    model.eval()
+    flat = lambda gs: torch.cat([gr.float().flatten() for gr in gs])
+    d = lambda a, b: float((a - b).abs().max())
+    gk, gp, g32 = flat(grads_k), flat(grads_p), flat(grads_32)
+    out.update(loss_kernel_vs_plain=d(loss_k, loss_p), loss_bf16_vs_fp32=d(loss_p, loss_32),
+               grad_kernel_vs_plain=d(gk, gp), grad_bf16_vs_fp32=d(gp, g32),
+               grad_max_abs=float(g32.abs().max()), loss=float(loss_k),
+               trainable_grads=len(grads_k), absent_grads=len(absent), finite_grads=finite,
+               vqgan_without_grad=vq_free)
+    log("  train microbatch, kernels vs twins: " + json.dumps(
+        {k: out[k] for k in ("loss", "loss_kernel_vs_plain", "loss_bf16_vs_fp32",
+                             "grad_kernel_vs_plain", "grad_bf16_vs_fp32", "grad_max_abs",
+                             "trainable_grads", "absent_grads", "finite_grads",
+                             "vqgan_without_grad")}))
+    if absent or not finite or not vq_free:
+        raise AssertionError(f"train: gradients absent {absent[:3]}, finite {finite}, "
+                             f"VQGAN without gradient {vq_free}")
+    for what in ("loss", "grad"):
+        if out[f"{what}_kernel_vs_plain"] > 2 * out[f"{what}_bf16_vs_fp32"]:
+            raise AssertionError(f"train: {what} through the kernels farther from the twins "
+                                 "than 2x bf16 error")
+
+    # the trained last_model.ckpt samples through the CLI
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    sampled = main_torch.main(["-c", path, "--sample_to_eval", "--resume_model",
+                               os.path.join(ckpt, "last_model.ckpt"), "-r",
+                               os.path.join(root, "results-trained-sample"), "-s",
+                               str(CLI_SEED), "--gpu_ids", gpu_ids])
+    names = [f"{i:04d}" for i in range(BATCH)]
+    check_tree(sampled.config.result.sample_to_eval_path, names, names, SAMPLE_STEP, 1, size)
+    if (sampled.global_epoch, sampled.global_step) != (TRAIN_EPOCHS, micro):
+        raise AssertionError("trained checkpoint: epoch and step not read")
+    out["sample_launches"] = {short[k]: getattr(mod, attr).launches
+                              for k, (mod, attr) in counters.items()}
+    log(f"  trained last_model.ckpt sampled through --sample_to_eval: {BATCH} PNGs, launches "
+        f"{out['sample_launches']}")
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -772,6 +1098,15 @@ def main() -> int:
         entries.append({"name": name, "route": route, "source": source,
                         "replaces": replaces, "launches": 0, **e})
         torch.cuda.empty_cache()
+    for name, case in autograd_cases(dev).items():
+        try:
+            block = autograd_phase(name, case)
+        except Exception:
+            traceback.print_exc()
+            failed.append(f"{name} autograd")
+            block = {}
+        next(e for e in entries if e["name"] == name)["autograd"] = block
+    torch.cuda.empty_cache()
 
     timings = {}
     try:
@@ -784,21 +1119,33 @@ def main() -> int:
         traceback.print_exc()
         failed.append("slice")
 
-    cli = {}
-    try:
-        t0 = time.time()
-        with tempfile.TemporaryDirectory(prefix="bbdm_smoke_cli_") as root:
+    cli, train = {}, {}
+    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    for e in entries:
+        e["launches_by_path"] = {"slice_sample_to_eval": e["launches"]}
+    with tempfile.TemporaryDirectory(prefix="bbdm_smoke_cli_") as root:
+        try:
+            t0 = time.time()
             by_path, cli = cli_phase(dev, counters, root)
-        short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
-        for e in entries:
-            e["launches_by_path"] = {"slice_sample_to_eval": e["launches"],
-                                     **{p: n[short[e["name"]]] for p, n in by_path.items()}}
-        log(f"cli: ok ({time.time() - t0:.1f} s)")
-    except Exception:
-        traceback.print_exc()
-        failed.append("cli")
+            for e in entries:
+                e["launches_by_path"].update({p: n[short[e["name"]]] for p, n in by_path.items()})
+            log(f"cli: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("cli")
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            train = train_phase(dev, counters, root, os.path.join(root, "LBBDM-f4-vqgan.ckpt"))
+            for e in entries:
+                e["launches_by_path"]["train"] = train["launches"][short[e["name"]]]
+            log(f"train: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("train")
 
-    log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "card": card}))
+    log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
+                    "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

@@ -1,5 +1,7 @@
 """bbdm_tpu_torch CLI: the flags of ``main.py`` on the PyTorch port.
 
+    python main_torch.py -c configs/Template-LBBDM-f4.yaml --train \\
+        [--resume_model last_model.ckpt --resume_optim last_optim_sche.ckpt] [--max_epoch N]
     python main_torch.py -c configs/Template-LBBDM-f4.yaml --sample_to_eval \\
         --resume_model path/to/last_model.ckpt [-r results] [-s 1234]
 
@@ -9,9 +11,11 @@ subset of ``configs/*.yaml`` without PyYAML, model checkpoints written by the
 JAX package (``.ckpt``) or the reference repo (``.pth``), and ``custom_single``
 / ``custom_aligned`` datasets of 8-bit PNG images, and writes the result tree
 of ``main.py``: ``<result_path>/<dataset_name>/<model_name>/{image,log,
-checkpoint,samples,sample_to_eval}``. Without ``--sample_to_eval`` it writes
-the grids of the first test batch. ``--train`` raises (training is not
-ported), as do several ``--gpu_ids``. ``--port`` is accepted and unused.
+checkpoint,samples,sample_to_eval}``. ``--train`` trains (checkpoints in the
+JAX package's layout, ``checkpoint/{latest,last}_{model,optim_sche}*.ckpt``);
+without it, ``--sample_to_eval`` samples the test set and otherwise the grids
+of the first test batch are written. Several ``--gpu_ids`` raise. ``--port``
+is accepted and unused.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ def parse_args(argv=None):
                         help="The directory to save results")
 
     parser.add_argument("-t", "--train", action="store_true", default=False,
-                        help="train the model (not ported: raises)")
+                        help="train the model")
     parser.add_argument("--sample_to_eval", action="store_true", default=False,
                         help="sample for evaluation")
     parser.add_argument("--sample_at_start", action="store_true", default=False,

@@ -120,10 +120,114 @@ def test_cli_writes_the_jax_tree(setup, monkeypatch, mode):
     assert written["model"]["model_load_path"] == str(root / "m.ckpt")
 
 
+def variant(setup, name, **training):
+    """tiny.yaml with ``training`` keys set, written as ``<name>.yaml``."""
+    from bbdm_tpu_torch.config import load_config, save_config
+
+    cfg = load_config(str(setup / "tiny.yaml"))
+    for k, v in training.items():
+        cfg.training[k] = v
+    path = str(setup / f"{name}.yaml")
+    save_config(cfg, path)
+    return path
+
+
+def ckpt_dir(result):
+    return os.path.join(result, "tiny", "tiny-lbbdm", "checkpoint")
+
+
 def test_train_raises(setup):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 4"):
-        main_torch.main(["-c", str(setup / "tiny.yaml"), "--train", "--gpu_ids", "-1",
+    """What training does not port raises, naming its ROADMAP item:
+    ``training.profile_dir`` (the JAX profiler trace)."""
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 9"):
+        main_torch.main(["-c", variant(setup, "profile", profile_dir=str(setup / "prof")),
+                         "--train", "--gpu_ids", "-1", "-r", str(setup / "train")])
+
+
+@pytest.mark.parametrize("key,value", [("model_parallel", 2), ("fsdp", True)])
+def test_sharded_training_raises(setup, key, value):
+    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 6"):
+        main_torch.main(["-c", variant(setup, key, **{key: value}), "--train", "--gpu_ids", "-1",
                          "-r", str(setup / "train")])
+
+
+def test_train_writes_the_checkpoints_the_jax_cli_writes(setup, monkeypatch):
+    """``--train --save_top`` over two epochs (save_interval 1) through both
+    CLIs on the same config: the same checkpoint file names
+    (``bbdm_tpu/runners/base.py:599-625``: the first epoch's ``latest_*_1``
+    removed, ``latest_*_2``, ``last_*``, the top pair), the same counters in
+    them, and each model file's trees of the same structure; then the port
+    resumes from its own ``last_*`` files for a third epoch. (``mesh_devices``
+    1: the JAX runner's mesh of one of the 8 test devices; the port reads no
+    mesh key.)"""
+    path = variant(setup, "train2", mesh_devices=1)
+    argv = ["-c", path, "--train", "--gpu_ids", "-1", "--save_top", "--max_epoch", "2",
+            "--max_steps", "10"]
+    run_jax(monkeypatch, argv + ["-r", str(setup / "jax-train")])
+    runner = main_torch.main(argv + ["-r", str(setup / "port-train")])
+    assert runner.stop_reason is None and runner.global_step == 2
+    jax_ck, port_ck = ckpt_dir(str(setup / "jax-train")), ckpt_dir(str(setup / "port-train"))
+    # the top pair's epoch is the one of the lower val loss, which the two
+    # frameworks' random draws decide differently
+    top = lambda n: n.split("_epoch_")[0] if n.startswith("top_") else n
+    names = sorted(os.listdir(port_ck))
+    assert sorted(map(top, names)) == sorted(map(top, os.listdir(jax_ck)))
+    assert {"latest_model_2.ckpt", "latest_optim_sche_2.ckpt", "last_model.ckpt",
+            "last_optim_sche.ckpt"} <= set(names) and "latest_model_1.ckpt" not in names
+    assert len([n for n in names if n.startswith("top_")]) == 2
+
+    from bbdm_tpu.checkpoints.io import load_checkpoint as jax_load
+
+    def structure(tree):
+        return {k: structure(v) for k, v in tree.items()} if isinstance(tree, dict) else \
+            np.shape(tree)
+
+    for name in ("last_model.ckpt", "latest_model_2.ckpt"):
+        mine, theirs = jax_load(os.path.join(port_ck, name)), jax_load(os.path.join(jax_ck, name))
+        assert (mine["step"], mine["epoch"]) == (theirs["step"], theirs["epoch"]) == (2, 2)
+        assert structure(mine) == structure(theirs)
+    mine = jax_load(os.path.join(port_ck, "last_optim_sche.ckpt"))
+    theirs = jax_load(os.path.join(jax_ck, "last_optim_sche.ckpt"))
+    assert structure(mine) == structure(theirs)
+
+    resumed = main_torch.main(["-c", path, "--train", "--gpu_ids", "-1", "--max_epoch", "3",
+                               "--max_steps", "10", "-r", str(setup / "port-train"),
+                               "--resume_model", os.path.join(port_ck, "last_model.ckpt"),
+                               "--resume_optim", os.path.join(port_ck, "last_optim_sche.ckpt")])
+    assert (resumed.global_epoch, resumed.global_step) == (2, 3)
+    last = jax_load(os.path.join(port_ck, "last_model.ckpt"))
+    assert (last["step"], last["epoch"]) == (3, 3)
+
+
+def test_train_stops_gracefully_on_its_wall_budget(setup):
+    """``training.max_wall_sec`` 0: the first step boundary ends training with a
+    latest + last save that redoes the partial epoch on resume, and a normal
+    return."""
+    result = str(setup / "wall")
+    runner = main_torch.main(["-c", variant(setup, "wall", max_wall_sec=0), "--train",
+                              "--gpu_ids", "-1", "--max_epoch", "2", "-r", result])
+    assert runner.stop_reason.startswith("wall budget")
+    from bbdm_tpu.checkpoints.io import load_checkpoint as jax_load
+
+    last = jax_load(os.path.join(ckpt_dir(result), "last_model.ckpt"))
+    assert (last["step"], last["epoch"]) == (1, 0)
+
+
+def test_train_saves_and_raises_on_an_exception(setup, monkeypatch):
+    """An exception in the loop saves ``last_*`` (the exception save) and
+    propagates, so the process exits non-zero."""
+    from bbdm_tpu_torch.runners.base import BaseRunner
+
+    def broken(self, *a):
+        raise RuntimeError("sample failed")
+
+    monkeypatch.setattr(BaseRunner, "sample_step", broken)
+    result = str(setup / "exc")
+    with pytest.raises(RuntimeError, match="sample failed"):
+        main_torch.main(["-c", str(setup / "tiny.yaml"), "--train", "--gpu_ids", "-1",
+                         "-r", result])
+    assert sorted(os.listdir(ckpt_dir(result))) == ["config.yaml", "last_model.ckpt",
+                                                    "last_optim_sche.ckpt"]
 
 
 def test_several_gpu_ids_raise(setup):
