@@ -6,7 +6,9 @@ The port's module names are the flax names, so the mapping is mechanical:
 codebook ``embedding`` as they are. A reference ``.pth`` loads as
 ``checkpoints/torch_import.py`` composed with this function. Latent
 statistics are NHWC ``[1, 1, 1, C]`` in a checkpoint, ``[1, C, 1, 1]`` in the
-port. The optimizer's moments and the plateau state convert both ways too.
+port. The optimizer's moments and the plateau state convert both ways too,
+and for VQGAN training the discriminator's parameters and BatchNorm
+statistics (``disc_stats``) and the two players' plain ``optax.adam`` states.
 """
 
 from __future__ import annotations
@@ -41,13 +43,13 @@ def state_dict_from_jax(params, model) -> dict:
     for key, arr in _flatten(params):
         mod, leaf = key.rsplit(".", 1) if "." in key else ("", key)
         if leaf == "kernel":
-            name = f"{mod}.weight"
+            name = f"{mod}.weight" if mod else "weight"
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:
                 arr = arr.T
         elif leaf == "scale":
-            name = f"{mod}.weight"
+            name = f"{mod}.weight" if mod else "weight"
         else:
             name = key
         if name not in expected:
@@ -181,3 +183,59 @@ def plateau_from_jax(d, device=None) -> PlateauState:
                         best=torch.tensor(float(d["best"]), **f32),
                         num_bad=torch.tensor(int(d["num_bad"]), **i32),
                         cooldown_count=torch.tensor(int(d["cooldown_count"]), **i32))
+
+
+# ------------------------------------------------------------- VQGAN training
+# A VQGAN model checkpoint holds {"model": {"vqgan", "discriminator",
+# "disc_stats"}, "step", "epoch"} and its optimizer file {"optimizer":
+# [gen_opt, disc_opt], "scheduler": []} (bbdm_tpu/runners/vqgan.py:143-168),
+# each opt state flax's to_state_dict of optax.adam's (ScaleByAdamState,
+# EmptyState): {"0": {"count", "mu", "nu"}, "1": {}}.
+
+def module_trees_to_jax(module: nn.Module) -> tuple:
+    """(parameter tree, buffer tree or None) of ``module``: for the
+    discriminator its params and its ``batch_stats`` (None under ActNorm)."""
+    buffers = dict(module.named_buffers())
+    return (jax_tree_from_state_dict(dict(module.named_parameters())),
+            jax_tree_from_state_dict(buffers) if buffers else None)
+
+
+@torch.no_grad()
+def load_module_trees(module: nn.Module, params, buffers=None) -> None:
+    """Inverse of :func:`module_trees_to_jax`, in place; ``buffers`` None
+    leaves the module's buffers as they are."""
+    for named, tree in ((dict(module.named_parameters()), params),
+                        (dict(module.named_buffers()), buffers)):
+        if tree is None or not named:
+            continue
+        for k, t in state_dict_from_jax(tree, named).items():
+            named[k].copy_(t)
+
+
+def adam_state_to_jax(optimizer) -> dict:
+    """An Adam :class:`~bbdm_tpu_torch.training.optim.Optimizer` as the state of
+    ``optax.adam`` over the tree its parameter names make."""
+    def tree(tensors):
+        return jax_tree_from_state_dict(dict(zip(optimizer.names, tensors)))
+
+    return {"0": {"count": optimizer.state["count"].cpu().numpy(),
+                  "mu": tree(optimizer.state["mu"]), "nu": tree(optimizer.state["nu"])},
+            "1": {}}
+
+
+def adam_state_from_jax(tree, optimizer) -> None:
+    """Load an ``optax.adam`` state tree into an Adam ``optimizer`` (in place).
+    Raises ValueError where it does not fit its parameters."""
+    expected = dict(zip(optimizer.names, optimizer.params))
+    try:
+        node = tree["0"]
+        loaded = {k: state_dict_from_jax(node[k], expected) for k in ("mu", "nu")}
+        count = int(np.asarray(node["count"]))
+    except (KeyError, TypeError, ValueError) as e:
+        raise ValueError(f"the optimizer state does not fit an optax.adam state over "
+                         f"these parameters: {e}") from e
+    with torch.no_grad():
+        for k, sd in loaded.items():
+            for name, t in zip(optimizer.names, optimizer.state[k]):
+                t.copy_(sd[name])
+    optimizer.state["count"].fill_(count)

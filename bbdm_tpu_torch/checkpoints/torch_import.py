@@ -1,9 +1,10 @@
 """Reference PyTorch checkpoints -> the JAX package's parameter trees, in numpy
-(the port's own copy of ``bbdm_tpu/checkpoints/torch_import.py:27-445``).
+(the port's own copy of ``bbdm_tpu/checkpoints/torch_import.py:27-504``).
 
 Covers the BBDM/LBBDM training checkpoints of the reference repo
-(``{'model': state_dict, 'ema': shadow, 'step', 'epoch'[, latent stats]}``)
-and bare LDM VQGAN checkpoints (``{'state_dict': ...}``). The trees these
+(``{'model': state_dict, 'ema': shadow, 'step', 'epoch'[, latent stats]}``),
+bare LDM VQGAN checkpoints (``{'state_dict': ...}``) and full taming/LDM
+VQGAN training checkpoints (the autoencoder with its PatchGAN). The trees these
 functions return load into the port through
 ``checkpoints/from_jax.py:state_dict_from_jax`` (the only name map between
 the flax layout and the port's modules).
@@ -332,6 +333,57 @@ def convert_cond_stage_state_dict(sd: dict, prefix: str = "cond_stage_model.") -
     return out
 
 
+def convert_discriminator_state_dict(sd: dict, *, n_layers: int = 3,
+                                     use_actnorm: bool = False,
+                                     prefix: str = "") -> tuple:
+    """Reference NLayerDiscriminator state_dict -> (params, batch_stats).
+
+    The reference builds one nn.Sequential ``main``: conv at index 0, then per
+    rung n=1..n_layers a (conv, norm, leaky) triple at indices 2+(n-1)*3 /
+    3+(n-1)*3, and the 1-channel patch head at 2+n_layers*3. The flax module
+    names them conv_0..conv_{n_layers}/norm_n/conv_out. ``batch_stats`` is
+    None with ActNorm (whose loc/scale [1,C,1,1] buffers become (C,) params).
+    """
+    conv_names = {"0": "conv_0", str(2 + n_layers * 3): "conv_out"}
+    norm_names = {}
+    for n in range(1, n_layers + 1):
+        conv_names[str(2 + (n - 1) * 3)] = f"conv_{n}"
+        norm_names[str(3 + (n - 1) * 3)] = f"norm_{n}"
+
+    params: dict = {}
+    stats: dict = {}
+    for key, value in sd.items():
+        if not key.startswith(prefix):
+            continue
+        parts = key[len(prefix):].split(".")
+        if parts[0] != "main":
+            continue
+        idx, leaf = parts[1], parts[-1]
+        if idx in conv_names:
+            node = params.setdefault(conv_names[idx], {})
+            if leaf == "weight":
+                node["kernel"] = _t_conv2d(value)
+            elif leaf == "bias":
+                node["bias"] = _ident(value)
+        elif idx in norm_names:
+            name = norm_names[idx]
+            if use_actnorm:
+                # torch ActNorm: h = scale * (x + loc), buffers [1,C,1,1]
+                if leaf in ("loc", "scale"):
+                    params.setdefault(name, {})[leaf] = _ident(value).reshape(-1)
+            else:
+                node = params.setdefault(name, {})
+                if leaf == "weight":
+                    node["scale"] = _ident(value)
+                elif leaf == "bias":
+                    node["bias"] = _ident(value)
+                elif leaf == "running_mean":
+                    stats.setdefault(name, {})["mean"] = _ident(value)
+                elif leaf == "running_var":
+                    stats.setdefault(name, {})["var"] = _ident(value)
+    return params, (None if use_actnorm else stats)
+
+
 def _to_numpy_state_dict(sd):
     out = {}
     for k, v in sd.items():
@@ -386,3 +438,46 @@ def convert_ldm_vqgan_checkpoint(path: str) -> dict:
     raw = load_torch_file(path)
     sd = _to_numpy_state_dict(raw.get("state_dict", raw))
     return convert_vqgan_state_dict(sd)
+
+
+def convert_vqgan_train_checkpoint(path: str) -> tuple:
+    """Full taming/LDM VQGAN training ckpt -> (VQGANRunner resume dict,
+    perceptual-loss state_dict or None).
+
+    Such checkpoints carry the autoencoder, ``loss.discriminator.main.*`` (the
+    taming NLayerDiscriminator) and ``loss.perceptual_loss.*`` (LPIPS). The
+    resume dict follows the VQGAN runner's model checkpoint (step and epoch 0
+    for a fresh fine-tune) with the ``disc_config`` the runner checks at load;
+    discriminator depth and ActNorm use are read from the state_dict. The
+    LPIPS weights come back as their numpy state_dict under their own names:
+    converting them waits for the LPIPS port (``ROADMAP.md`` §1 item 10).
+    """
+    raw = load_torch_file(path)
+    sd = _to_numpy_state_dict(raw.get("state_dict", raw))
+    vq = convert_vqgan_state_dict(sd)
+
+    disc_prefix = "loss.discriminator."
+    idxs = sorted({int(k.split(".")[3]) for k in sd if k.startswith(disc_prefix + "main.")})
+    if not idxs:
+        raise ValueError(
+            f"{path}: no '{disc_prefix}main.*' keys — not a full VQGAN training checkpoint "
+            "(use the plain 'vqgan' conversion for inference-only first stages)")
+    # main = [conv, leaky, (conv, norm, leaky) * n_layers, head]
+    n_layers = (max(idxs) - 2) // 3
+    use_actnorm = any(k.endswith(".loc") for k in sd if k.startswith(disc_prefix + "main."))
+    disc, stats = convert_discriminator_state_dict(
+        sd, n_layers=n_layers, use_actnorm=use_actnorm, prefix=disc_prefix)
+
+    lp_prefix = "loss.perceptual_loss."
+    lpips = {k[len(lp_prefix):]: v for k, v in sd.items() if k.startswith(lp_prefix)} or None
+    resume = {
+        "step": 0,
+        "epoch": 0,
+        "model": {"vqgan": vq, "discriminator": disc, "disc_stats": stats},
+        "disc_config": {
+            "disc_num_layers": n_layers,
+            "use_actnorm": use_actnorm,
+            "disc_ndf": int(disc["conv_0"]["kernel"].shape[-1]),
+        },
+    }
+    return resume, lpips

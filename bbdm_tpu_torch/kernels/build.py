@@ -38,8 +38,12 @@ _SIGNATURES = {
     "group_norm_resident_clusters": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # x, kp, bias, out, plan (24 x uint64, ops/upsample_conv.UpconvPlan.c_values), stream
     "subpixel_upconv_bf16": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64), _P],
+    # x, kp, bias, out, N, ci, co, h, w, stream
+    "subpixel_upconv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # q, k, v, out, BH, T, D, Tm, Dm, smem_bytes, stream
     "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, BH, T, D, stream
+    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

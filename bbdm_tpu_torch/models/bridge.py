@@ -35,7 +35,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
-from bbdm_tpu_torch.models.layers import UpsampleConv3x3
+from bbdm_tpu_torch.models.layers import UpsampleConv3x3, eval_mode
 from bbdm_tpu_torch.models.schedules import (
     make_bridge_schedule,
     make_sampler_coeffs,
@@ -152,17 +152,15 @@ class BrownianBridgeModel(nn.Module):
         combined phase kernel for this call; the mode and the kernels are
         restored after it, so a sample in the middle of training leaves
         nothing behind for the next step."""
-        was_training = self.training
         mods = [m for m in self.unet.modules() if isinstance(m, UpsampleConv3x3)]
-        self.eval()
-        for m in mods:
-            m.combined = combine_kernel_2x2(m.weight).to(m.dtype or m.weight.dtype)
-        try:
-            yield
-        finally:
+        with eval_mode(self):
             for m in mods:
-                m.combined = None
-            self.train(was_training)
+                m.combined = combine_kernel_2x2(m.weight).to(m.dtype or m.weight.dtype)
+            try:
+                yield
+            finally:
+                for m in mods:
+                    m.combined = None
 
     def noised_steps(self) -> int:
         """How many noise tensors one ``p_sample_loop`` draws (its ``noise=`` length)."""

@@ -21,23 +21,30 @@ def resolve_device(device=None) -> torch.device:
 
 def build_model(model_config, *, device=None, dtype=None,
                 generator: Optional[torch.Generator] = None):
-    """BBDM or LBBDM on ``device`` (default: the CUDA card, see
-    :func:`resolve_device`) with seeded random fp32 parameters.
+    """BBDM, LBBDM or, for VQGAN training, the VQ autoencoder with its
+    discriminator (``models/vqgan.VQGANTrainModel``) on ``device`` (default:
+    the CUDA card, see :func:`resolve_device`) with seeded random fp32
+    parameters.
 
-    ``model.mixed_precision`` (default True) selects bf16 compute, else fp32.
+    ``model.mixed_precision`` selects bf16 compute, else fp32; its default is
+    True, and False for ``model_type: VQGAN`` (as the JAX VQGAN runner reads it).
     ``generator`` (on ``device``) draws the initial weights; default seed 0.
     """
     from bbdm_tpu_torch.models.bridge import BrownianBridgeModel
     from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel
+    from bbdm_tpu_torch.models.vqgan import VQGANTrainModel
 
     device = resolve_device(device)
-    if dtype is None:
-        dtype = torch.bfloat16 if model_config.get("mixed_precision", True) else torch.float32
     model_type = model_config.model_type
+    if dtype is None:
+        mixed = model_config.get("mixed_precision", model_type != "VQGAN")
+        dtype = torch.bfloat16 if mixed else torch.float32
     if model_type == "BBDM":
         model = BrownianBridgeModel(model_config, dtype=dtype, device=device)
     elif model_type == "LBBDM":
         model = LatentBrownianBridgeModel(model_config, dtype=dtype, device=device)
+    elif model_type == "VQGAN":
+        model = VQGANTrainModel(model_config, dtype=dtype, device=device)
     else:
         raise NotImplementedError(f"model_type {model_type!r}")
     if generator is None:

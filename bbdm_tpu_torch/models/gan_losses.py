@@ -1,0 +1,52 @@
+"""VQGAN training losses (port of ``bbdm_tpu/models/gan_losses.py``).
+
+generator: nll + d_weight * disc_factor * g_loss + codebook_weight * q_loss,
+the adaptive d_weight = |grad nll| / (|grad g| + 1e-4) at the decoder's last
+layer, clipped to [0, 1e4] and scaled by ``disc_weight``; discriminator: hinge
+or vanilla on the real and fake patch logits; ``adopt_weight`` zeroes the
+adversarial terms before ``disc_start``.
+
+The perceptual (LPIPS) term is not ported yet (``ROADMAP.md`` §1 item 10):
+:func:`reconstruction_loss` raises where it would be added, so no run trains
+without it silently.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+def adopt_weight(weight, global_step, threshold=0, value=0.0):
+    """``value`` before ``threshold`` steps, ``weight`` from then on."""
+    return value if global_step < threshold else weight
+
+
+def hinge_d_loss(logits_real, logits_fake):
+    return 0.5 * (F.relu(1.0 - logits_real).mean() + F.relu(1.0 + logits_fake).mean())
+
+
+def vanilla_d_loss(logits_real, logits_fake):
+    return 0.5 * (F.softplus(-logits_real).mean() + F.softplus(logits_fake).mean())
+
+
+def check_perceptual(lpips_params, perceptual_weight) -> None:
+    """Raise where the JAX package would add the LPIPS term: LPIPS weights given
+    and ``perceptual_weight`` > 0."""
+    if lpips_params is not None and perceptual_weight > 0:
+        raise NotImplementedError("the LPIPS perceptual term is not ported (ROADMAP.md §1 "
+                                  "item 10): unset model.loss.lpips_weights or set "
+                                  "perceptual_weight 0")
+
+
+def reconstruction_loss(x, xrec, *, lpips_params=None, perceptual_weight=1.0):
+    """|x - xrec| per element (see :func:`check_perceptual`)."""
+    check_perceptual(lpips_params, perceptual_weight)
+    return (x - xrec).abs()
+
+
+def adaptive_d_weight(nll_grad_last, g_grad_last, disc_weight=1.0):
+    """Balance the adversarial push against the reconstruction pull at the
+    decoder's last layer (norms over all elements)."""
+    w = torch.linalg.vector_norm(nll_grad_last) / (torch.linalg.vector_norm(g_grad_last) + 1e-4)
+    return w.clamp(0.0, 1e4) * disc_weight

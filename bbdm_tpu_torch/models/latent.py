@@ -85,7 +85,7 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
             z = z * std + mean
         if self.latent_before_quant_conv:
             z = self.vqgan.apply_quant_conv(z)
-        quant, _ = self.vqgan.quantize_latent(z)
+        quant, _, _ = self.vqgan.quantize_latent(z)
         return self.vqgan.decode_from_quant(quant)
 
     def get_cond_stage_context(self, x_cond):

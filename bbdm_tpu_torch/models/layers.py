@@ -9,6 +9,7 @@ softmax stay fp32. Attribute names are the flax module names, so
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -54,6 +55,17 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
         for m in module.modules():
             if isinstance(m, _Init):
                 m.init_from(generator)
+
+
+@contextlib.contextmanager
+def eval_mode(module: nn.Module):
+    """``module`` in eval mode for the block, its earlier mode restored after it."""
+    was_training = module.training
+    module.eval()
+    try:
+        yield
+    finally:
+        module.train(was_training)
 
 
 class _Init(nn.Module):

@@ -1,8 +1,14 @@
-"""VQGAN first stage, inference subset, NCHW (port of ``bbdm_tpu/models/vqgan.py``).
+"""VQGAN first stage, NCHW (port of ``bbdm_tpu/models/vqgan.py``).
 
 GroupNorm eps is 1e-6. The encoder's and decoder's ``conv_out`` run in fp32;
 ``quant_conv``/``post_quant_conv`` take their dtype from their fp32 input; the
-quantizer is fp32: d = |z|^2 + |e|^2 - 2 z e^T, argmin.
+quantizers are fp32: the nearest-neighbour one (d = |z|^2 + |e|^2 - 2 z e^T,
+argmin, straight-through gradient, commitment loss) and the Gumbel-softmax one.
+:meth:`VQModel.forward` is the training roundtrip ``(xrec, qloss)``.
+
+The decoder's up-convs follow the module's mode (``layers.UpsampleConv3x3``):
+in training mode the naive upsample + conv, which has a gradient; in eval mode
+the subpixel decomposition (kernel K2 on the card).
 """
 
 from __future__ import annotations
@@ -13,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bbdm_tpu_torch.models.discriminator import NLayerDiscriminator
 from bbdm_tpu_torch.models.layers import (
     Conv2d,
     GroupNorm32,
@@ -192,37 +199,84 @@ class VQDecoder(nn.Module):
 
 
 class VectorQuantizer(_Init):
-    """Nearest-neighbour codebook lookup (inference forward)."""
+    """Nearest-neighbour codebook quantizer with straight-through gradients and
+    the legacy-beta commitment loss (``bbdm_tpu/models/vqgan.py:181-217``)."""
 
-    def __init__(self, n_e, e_dim, *, device=None):
+    def __init__(self, n_e, e_dim, beta=0.25, *, device=None):
         super().__init__()
-        self.n_e, self.e_dim = n_e, e_dim
+        self.n_e, self.e_dim, self.beta = n_e, e_dim, beta
         self.embedding = nn.Parameter(torch.empty(n_e, e_dim, device=device))
 
     def init_from(self, g):
         self.embedding.uniform_(-1.0 / self.n_e, 1.0 / self.n_e, generator=g)
 
-    def forward(self, z):
-        """z: [B, C, H, W] -> (z_q [B, C, H, W] in z.dtype, indices [B, H, W])."""
-        B, C, H, W = z.shape
-        zf = z.float()
-        flat = zf.permute(0, 2, 3, 1).reshape(-1, self.e_dim)
+    def nearest(self, z):
+        """z: [B, C, H, W] -> the index of each position's nearest code, [B*H*W]."""
+        flat = z.float().permute(0, 2, 3, 1).reshape(-1, self.e_dim)
         e = self.embedding.float()
         d = ((flat * flat).sum(1, keepdim=True) + (e * e).sum(1)[None, :]
              - 2.0 * (flat @ e.T))
-        idx = d.argmin(1)
-        z_q = e[idx].reshape(B, H, W, C).permute(0, 3, 1, 2)
-        # the straight-through expression of the JAX forward, kept for equal rounding
-        z_q = zf + (z_q - zf)
-        return z_q.to(z.dtype), idx.reshape(B, H, W)
+        return d.argmin(1)
+
+    def forward(self, z):
+        """z: [B, C, H, W] -> (z_q [B, C, H, W] in z.dtype, loss, indices [B, H, W])."""
+        B, C, H, W = z.shape
+        zf = z.float()
+        idx = self.nearest(z)
+        z_q = self.embedding.float()[idx].reshape(B, H, W, C).permute(0, 3, 1, 2)
+        loss = ((z_q.detach() - zf) ** 2).mean() + self.beta * ((z_q - zf.detach()) ** 2).mean()
+        z_q = zf + (z_q - zf).detach()  # straight-through
+        return z_q.to(z.dtype), loss, idx.reshape(B, H, W)
+
+
+class GumbelQuantize(_Init):
+    """Gumbel-softmax quantizer (``bbdm_tpu/models/vqgan.py:220-269``): a 1x1
+    ``proj`` to ``n_e`` logits, a (hard straight-through) one-hot over the
+    codebook, z_q = one_hot @ codebook, loss ``kl_weight`` * KL(q || uniform).
+    In training the logits get Gumbel noise -log(-log u), u uniform in
+    [tiny, 1): ``u`` ([B, n_e, H, W]) when given (tests feed the JAX draws),
+    else drawn from ``generator``; outside training no noise (argmax)."""
+
+    def __init__(self, n_e, e_dim, kl_weight=5e-4, straight_through=True, *, device=None):
+        super().__init__()
+        self.n_e, self.e_dim = n_e, e_dim
+        self.kl_weight, self.straight_through = kl_weight, straight_through
+        self.proj = Conv2d(e_dim, n_e, 1, init=_init, device=device)
+        self.embedding = nn.Parameter(torch.empty(n_e, e_dim, device=device))
+
+    def init_from(self, g):
+        self.embedding.normal_(0.0, 1.0, generator=g)
+
+    def forward(self, z, *, temp=1.0, train=False, u=None, generator=None):
+        zf = z.float()
+        logits = self.proj(zf)  # [B, n_e, H, W]
+        if train:
+            if u is None:
+                u = torch.rand(logits.shape, generator=generator, device=logits.device)
+                u = u.clamp_min(torch.finfo(torch.float32).tiny)
+            noisy = logits - torch.log(-torch.log(u))
+        else:
+            noisy = logits
+        soft = torch.softmax(noisy / temp, dim=1)
+        idx = soft.argmax(1)
+        if not train or self.straight_through:
+            hard = F.one_hot(idx, self.n_e).permute(0, 3, 1, 2).float()
+            one_hot = hard + soft - soft.detach()
+        else:
+            one_hot = soft
+        z_q = torch.einsum("bnhw,nd->bdhw", one_hot, self.embedding.float())
+        qy = torch.softmax(logits, dim=1)
+        kl = (qy * torch.log(qy * self.n_e + 1e-10)).sum(1).mean()
+        return z_q.to(z.dtype), self.kl_weight * kl, idx
 
 
 class VQModel(nn.Module):
     """Encoder + quantizer + decoder with the 1x1 quant convs; the piecemeal
-    methods LBBDM calls."""
+    methods LBBDM calls and the training roundtrip :meth:`forward`.
+    ``quantizer_type``: "nearest" or "gumbel"."""
 
-    def __init__(self, ddconfig: dict, n_embed: int, embed_dim: int, *, dtype=None,
-                 device=None):
+    def __init__(self, ddconfig: dict, n_embed: int, embed_dim: int, *,
+                 quantizer_type="nearest", kl_weight=5e-4, dtype=None, device=None):
         super().__init__()
         dd = ddconfig
         common = dict(ch=dd["ch"], ch_mult=tuple(dd["ch_mult"]),
@@ -233,7 +287,14 @@ class VQModel(nn.Module):
         self.encoder = VQEncoder(in_channels=dd["in_channels"],
                                  double_z=dd.get("double_z", False), **common)
         self.decoder = VQDecoder(out_ch=dd["out_ch"], **common)
-        self.quantize = VectorQuantizer(n_embed, embed_dim, device=device)
+        self.quantizer_type = quantizer_type
+        if quantizer_type == "gumbel":
+            self.quantize = GumbelQuantize(n_embed, embed_dim, kl_weight=kl_weight,
+                                           device=device)
+        elif quantizer_type == "nearest":
+            self.quantize = VectorQuantizer(n_embed, embed_dim, device=device)
+        else:
+            raise ValueError(f"unknown quantizer_type {quantizer_type!r}")
         z = dd["z_channels"]
         self.quant_conv = Conv2d(z, embed_dim, 1, init=_init, device=device)
         self.post_quant_conv = Conv2d(embed_dim, z, 1, init=_init, device=device)
@@ -245,7 +306,11 @@ class VQModel(nn.Module):
         """encoder -> quant_conv, no quantisation."""
         return self.quant_conv(self.encoder(x))
 
-    def quantize_latent(self, h):
+    def quantize_latent(self, h, *, temp=1.0, train=False, u=None, generator=None):
+        """(z_q, loss, indices); ``temp``, ``train``, ``u`` and ``generator``
+        reach the Gumbel quantizer only."""
+        if self.quantizer_type == "gumbel":
+            return self.quantize(h, temp=temp, train=train, u=u, generator=generator)
         return self.quantize(h)
 
     def apply_quant_conv(self, h):
@@ -255,16 +320,38 @@ class VQModel(nn.Module):
         """post_quant_conv -> decoder."""
         return self.decoder(self.post_quant_conv(quant))
 
+    def forward(self, x, *, temp=1.0, train=False, u=None, generator=None):
+        """The autoencode roundtrip -> (xrec, quantizer loss)."""
+        quant, qloss, _ = self.quantize_latent(self.encode_latent(x), temp=temp, train=train,
+                                               u=u, generator=generator)
+        return self.decode_from_quant(quant), qloss
+
     @staticmethod
     def from_config(vq_params, *, dtype=None, device=None) -> "VQModel":
         dd = vq_params.ddconfig
-        if vq_params.get("quantizer", "nearest") != "nearest":
-            raise NotImplementedError("only the nearest-neighbour quantizer is ported")
         ddconfig = {
             "ch": dd.ch, "ch_mult": tuple(dd.ch_mult), "num_res_blocks": dd.num_res_blocks,
             "attn_resolutions": tuple(dd.attn_resolutions), "resolution": dd.resolution,
             "z_channels": dd.z_channels, "in_channels": dd.in_channels, "out_ch": dd.out_ch,
             "double_z": dd.get("double_z", False),
         }
-        return VQModel(ddconfig, vq_params.n_embed, vq_params.embed_dim, dtype=dtype,
-                       device=device)
+        return VQModel(ddconfig, vq_params.n_embed, vq_params.embed_dim,
+                       quantizer_type=vq_params.get("quantizer", "nearest"),
+                       kl_weight=vq_params.get("kl_weight", 5e-4), dtype=dtype, device=device)
+
+
+class VQGANTrainModel(nn.Module):
+    """The VQ autoencoder (``vqgan``) with its PatchGAN critic
+    (``discriminator``), built from a ``model_type: VQGAN`` config: the
+    ``VQGAN.params`` autoencoder and the ``loss`` keys ``disc_ndf`` (64),
+    ``disc_num_layers`` (3) and ``use_actnorm`` (False)."""
+
+    def __init__(self, model_config, *, dtype=None, device=None):
+        super().__init__()
+        self.vqgan = VQModel.from_config(model_config.VQGAN.params, dtype=dtype, device=device)
+        loss = model_config.get("loss", None)
+        get = (lambda k, d: loss.get(k, d)) if loss is not None else (lambda k, d: d)
+        self.discriminator = NLayerDiscriminator(
+            model_config.VQGAN.params.ddconfig.in_channels, ndf=get("disc_ndf", 64),
+            n_layers=get("disc_num_layers", 3), use_actnorm=get("use_actnorm", False),
+            dtype=dtype, device=device)

@@ -4,7 +4,8 @@
 q and k are each scaled by D^-1/4 (the reference's symmetric scaling) and the
 softmax runs in float32. Dispatch mirrors ``bbdm_tpu/ops/attention.py:43-48``:
 a CUDA tensor with T >= 1024 and D % 128 == 0 goes to kernel K3
-(``csrc/flash_attention.cu``, which replaces the Pallas
+(``csrc/flash_attention.cu`` for bf16, ``csrc/flash_attention_f32.cu`` for
+fp32; both replace the Pallas
 ``bbdm_tpu/ops/flash_attention.py:flash_attention``); everything else, the
 UNet's middle attention (T=256, 16 heads x 64) included, is the explicit
 matmul + softmax of :func:`attention_plain`, as the JAX package leaves it to XLA.
@@ -73,21 +74,30 @@ def flash_smem_bytes(D):
 
 
 def flash_attention_cuda(q, k, v):
-    """Launch K3 on contiguous bf16 [B, H, T, D] CUDA tensors, D % 16 == 0, D <= 512.
+    """Launch K3 on contiguous [B, H, T, D] CUDA tensors of one dtype: bf16 with
+    D % 16 == 0 (``csrc/flash_attention.cu``) or fp32 with D % 4 == 0
+    (``csrc/flash_attention_f32.cu``), D <= 512. Output in q's dtype."""
+    for t in (q, k, v):
+        if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32) or t.ndim != 4 \
+                or not t.is_contiguous():
+            raise ValueError("flash_attention_cuda takes contiguous bf16 or fp32 CUDA "
+                             "[B, H, T, D]")
+        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("flash_attention_cuda: q, k, v differ in shape, device or dtype")
+    if q.dtype == torch.float32:
+        return _flash_f32(q, k, v)
+    return _flash_bf16(q, k, v)
 
-    A TMA box is 64 rows x 64 columns and must fit inside its tensor, so T or D
-    below 64 is zero-padded to 64 (padded keys are masked, padded rows and
+
+def _flash_bf16(q, k, v):
+    """A TMA box is 64 rows x 64 columns and must fit inside its tensor, so T or
+    D below 64 is zero-padded to 64 (padded keys are masked, padded rows and
     columns not written) and the output cut back."""
     from bbdm_tpu_torch.kernels import build
 
-    for t in (q, k, v):
-        if not t.is_cuda or t.dtype != torch.bfloat16 or t.ndim != 4 or not t.is_contiguous():
-            raise ValueError("flash_attention_cuda takes contiguous bf16 CUDA [B, H, T, D]")
-        if t.shape != q.shape or t.device != q.device:
-            raise ValueError("flash_attention_cuda: q, k, v differ in shape or device")
     B, H, T, D = q.shape
     if D % 16 != 0 or D > 512:
-        raise ValueError(f"flash_attention_cuda takes D % 16 == 0 and D <= 512, got {D}")
+        raise ValueError(f"flash_attention_cuda (bf16) takes D % 16 == 0 and D <= 512, got {D}")
     Tm, Dm = max(T, 64), max(D, 64)
     if (Tm, Dm) != (T, D):
         q, k, v = (torch.nn.functional.pad(t, (0, Dm - D, 0, Tm - T)) for t in (q, k, v))
@@ -99,6 +109,23 @@ def flash_attention_cuda(q, k, v):
     build.check("flash_attention_bf16", rc)
     flash_attention_cuda.launches += 1
     return out[..., :T, :D].contiguous() if (Tm, Dm) != (T, D) else out
+
+
+def _flash_f32(q, k, v):
+    """The fp32 kernel masks keys and rows past T itself: no padding."""
+    from bbdm_tpu_torch.kernels import build
+
+    B, H, T, D = q.shape
+    if D % 4 != 0 or D > 512 or T == 0:
+        raise ValueError(f"flash_attention_cuda (fp32) takes D % 4 == 0, D <= 512 and T > 0, "
+                         f"got D={D}, T={T}")
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = build.library().flash_attention_f32(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D, stream)
+    build.check("flash_attention_f32", rc)
+    flash_attention_cuda.launches += 1
+    return out
 
 
 flash_attention_cuda.launches = 0

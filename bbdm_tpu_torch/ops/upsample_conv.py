@@ -5,9 +5,10 @@ pixels, so ``conv3x3(pad=1)(upsample_nearest_2x(x))`` is exactly four 2x2
 "phase" convolutions whose kernels are fixed sums of the 3x3 taps
 (:func:`combine_kernel_2x2`), interleaved into the 2x output.
 
-On a CUDA tensor every call goes to kernel K2 (``csrc/subpixel_upconv.cu``,
-which replaces the Pallas ``bbdm_tpu/ops/subpixel_pallas.py:subpixel_upconv_pallas``);
-on a CPU tensor to :func:`upsample_conv_plain`.
+On a CUDA tensor every call goes to kernel K2 (``csrc/subpixel_upconv.cu`` for
+bf16, ``csrc/subpixel_upconv_f32.cu`` for fp32; both replace the Pallas
+``bbdm_tpu/ops/subpixel_pallas.py:subpixel_upconv_pallas``); on a CPU tensor
+to :func:`upsample_conv_plain`.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def upsample_conv_plain(x, w, b, *, dtype=None):
     return F.conv2d(up, w.to(dt), b.to(dt), padding=1)
 
 
-# K2's block tile (csrc/subpixel_upconv.cu): BM output channels x BN source
+# bf16 K2's block tile (csrc/subpixel_upconv.cu): BM output channels x BN source
 # pixels, BK input channels per pipeline stage
 BM, BN, BK = 128, 128, 64
 
@@ -127,29 +128,55 @@ def _c_plan(plan: UpconvPlan):
 
 
 def upsample_conv_cuda(x, kp, b):
-    """Launch K2. x [N, ci, h, w] bf16; kp [4, 2, 2, co, ci] bf16; b [co] fp32.
+    """Launch K2. x [N, ci, h, w] bf16 or fp32; kp [4, 2, 2, co, ci] in x's dtype;
+    b [co] fp32. Output in x's dtype.
 
-    The kernel reads x channels-last, so x is copied once into that layout,
-    zero-padded where :func:`plan_upconv` says (the padding is the conv's own;
-    the extra outputs are cut off). K2 has no backward (the Pallas kernel has
-    no VJP either): it raises where grad mode is on and an input requires
-    grad, so it never cuts a graph."""
-    from bbdm_tpu_torch.kernels import build
-
+    K2 has no backward (the Pallas kernel has no VJP either): it raises where
+    grad mode is on and an input requires grad, so it never cuts a graph."""
     if needs_grad(x, kp, b):
         raise RuntimeError("upsample_conv_cuda (K2) has no backward and refuses inputs that "
                            "require grad; train with UpsampleConv3x3 in training mode (the "
                            "naive upsample + conv)")
-    if not x.is_cuda or x.dtype != torch.bfloat16 or x.ndim != 4 or not x.is_contiguous():
-        raise ValueError("upsample_conv_cuda takes a contiguous bf16 CUDA [N, ci, h, w] tensor")
+    if not x.is_cuda or x.dtype not in (torch.bfloat16, torch.float32) or x.ndim != 4 \
+            or not x.is_contiguous():
+        raise ValueError("upsample_conv_cuda takes a contiguous bf16 or fp32 CUDA "
+                         "[N, ci, h, w] tensor")
     N, ci, h, w = x.shape
     co = kp.shape[3]
-    if kp.shape != (4, 2, 2, co, ci) or kp.dtype != torch.bfloat16 \
+    if kp.shape != (4, 2, 2, co, ci) or kp.dtype != x.dtype \
             or not kp.is_contiguous() or kp.device != x.device:
-        raise ValueError(f"phase kernel must be contiguous bf16 [4, 2, 2, co, {ci}]")
+        raise ValueError(f"phase kernel must be contiguous {x.dtype} [4, 2, 2, co, {ci}]")
     if b.shape != (co,) or b.dtype != torch.float32 or not b.is_contiguous() \
             or b.device != x.device:
         raise ValueError("bias must be contiguous fp32 [co]")
+    if x.dtype == torch.float32:
+        return _upconv_f32(x, kp, b)
+    return _upconv_bf16(x, kp, b)
+
+
+def _upconv_f32(x, kp, b):
+    """``csrc/subpixel_upconv_f32.cu``: NCHW in and out, zero padding inside."""
+    from bbdm_tpu_torch.kernels import build
+
+    N, ci, h, w = x.shape
+    co = kp.shape[3]
+    out = torch.empty((N, co, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = build.library().subpixel_upconv_f32(x.data_ptr(), kp.data_ptr(), b.data_ptr(),
+                                             out.data_ptr(), N, ci, co, h, w, stream)
+    build.check("subpixel_upconv_f32", rc)
+    upsample_conv_cuda.launches += 1
+    return out
+
+
+def _upconv_bf16(x, kp, b):
+    """``csrc/subpixel_upconv.cu`` reads x channels-last, so x is copied once into
+    that layout, zero-padded where :func:`plan_upconv` says (the padding is the
+    conv's own; the extra outputs are cut off)."""
+    from bbdm_tpu_torch.kernels import build
+
+    N, ci, h, w = x.shape
+    co = kp.shape[3]
     plan = plan_upconv(N, ci, co, h, w)
     (cip, wp, hp, _), cop = plan.x_dims, plan.k_dims[1]
     padded = (cip, wp, hp, cop) != (ci, w, h, co)

@@ -23,6 +23,7 @@ and transfer optimizations with identical results) are ignored;
 
 from __future__ import annotations
 
+import contextlib
 import os
 import signal
 import time
@@ -107,9 +108,9 @@ class BaseRunner(ABC):
             self.logger("training.fuse_small_leaves is ignored: a TPU launch optimization with "
                         "identical results; the optimizer state keeps the per-leaf layout")
 
-    def build_initial_state(self) -> TrainState:
-        """Optimizer, plateau and EMA over the model's trainable parameters
-        (``bbdm_tpu/runners/base.py:119-135``)."""
+    def build_initial_state(self):
+        """The train state (hook): for the BBDM the optimizer, plateau and EMA
+        over the model's trainable parameters (``bbdm_tpu/runners/base.py:119-135``)."""
         params = self.model.trainable_parameters()
         count = lambda ps: sum(p.numel() for p in ps)
         self.logger("Total Number of parameter: %.2fM" % (count(self.model.parameters()) / 1e6))
@@ -119,6 +120,18 @@ class BaseRunner(ABC):
         return TrainState(step=self.global_step, params=params,
                           ema=ema_init(params) if self.use_ema else None, optimizer=optimizer,
                           plateau=plateau_init(init_lr, self.device))
+
+    def build_train_step(self):
+        """The train step (hook): ``step(state, x, y, generator) -> {"loss", ...}``,
+        one microbatch, updating the state in place."""
+        training = self.config.training
+        return make_train_step(self.model, training,
+                               self.config.model.EMA if "EMA" in self.config.model else None,
+                               self.lr_scheduler_config)
+
+    def build_eval_step(self):
+        """The eval step (hook): ``step(state, x, y, generator) -> loss``."""
+        return make_eval_step(self.model)
 
     @abstractmethod
     def initialize_model(self, config, generator: torch.Generator):
@@ -175,7 +188,7 @@ class BaseRunner(ABC):
 
     def get_checkpoint_states(self, stage="epoch_end"):
         """(model states, optimizer states) as ``bbdm_tpu/runners/base.py:230-250``
-        writes them: an ``epoch_end`` save resumes at the next epoch, an
+        writes them (hook): an ``epoch_end`` save resumes at the next epoch, an
         exception or graceful-stop save redoes the partial epoch."""
         sd = self.model.state_dict()
         model_states = {
@@ -241,7 +254,8 @@ class BaseRunner(ABC):
         """Sample grids with the EMA weights (``bbdm_tpu/runners/base.py:349-355``)."""
         sample_path = make_dir(os.path.join(self.config.result.image_path,
                                             str(self.global_step)))
-        with swapped_in(self.state.params, self.state.ema if self.use_ema else {}):
+        with (swapped_in(self.state.params, self.state.ema) if self.use_ema
+              else contextlib.nullcontext()):
             self.sample(train_batch, sample_path, stage="train")
             self.sample(val_batch, sample_path, stage="val")
 
@@ -258,10 +272,8 @@ class BaseRunner(ABC):
         training = self.config.training
         self.logger(f"start training {self.config.model.model_name} on "
                     f"{self.config.data.dataset_name}, {epoch_length} iters per epoch")
-        train_step = make_train_step(
-            self.model, training, self.config.model.EMA if "EMA" in self.config.model else None,
-            self.lr_scheduler_config)
-        self._eval_step = make_eval_step(self.model)
+        train_step = self.build_train_step()
+        self._eval_step = self.build_eval_step()
         sample_every = max(int(training.sample_interval * epoch_length), 1)
         val_iter = None
 

@@ -25,7 +25,6 @@ grids, and with ``testing.sample_mid_step`` the ``reverse_sample/`` and
 from __future__ import annotations
 
 import os
-import zipfile
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 
@@ -45,15 +44,9 @@ from bbdm_tpu_torch.checkpoints.io import extract_vqgan_tree, load_checkpoint
 from bbdm_tpu_torch.models import build_model
 from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel, init_latent_stats
 from bbdm_tpu_torch.runners.base import BaseRunner
-from bbdm_tpu_torch.runners.utils import make_dir
+from bbdm_tpu_torch.runners.utils import is_torch_file, make_dir
 from bbdm_tpu_torch.training.optim import Optimizer
 from bbdm_tpu_torch.utils.images import get_image_grid, save_single_image, write_png
-
-
-def _is_torch_file(path: str) -> bool:
-    """A ``torch.save`` file (a zip archive, or a ``.pth``/``.pt`` name) rather
-    than a msgpack ``.ckpt``."""
-    return path.endswith((".pth", ".pt")) or zipfile.is_zipfile(path)
 
 
 class BBDMRunner(BaseRunner):
@@ -80,7 +73,7 @@ class BBDMRunner(BaseRunner):
             return
         if not os.path.exists(path):
             raise FileNotFoundError(f"VQGAN checkpoint not found: {path}")
-        if _is_torch_file(path):
+        if is_torch_file(path):
             from bbdm_tpu_torch.checkpoints.torch_import import convert_ldm_vqgan_checkpoint
 
             tree = convert_ldm_vqgan_checkpoint(path)
@@ -90,7 +83,7 @@ class BBDMRunner(BaseRunner):
         self.logger(f"load vqgan from {path}")
 
     def _read_states(self, path):
-        if _is_torch_file(path):
+        if is_torch_file(path):
             from bbdm_tpu_torch.checkpoints.torch_import import convert_reference_checkpoint
 
             return convert_reference_checkpoint(path, self.config.model)

@@ -1,9 +1,10 @@
 """Runner utilities: the result-directory layout and file removal (port of
-``bbdm_tpu/runners/utils.py:9-30``)."""
+``bbdm_tpu/runners/utils.py:9-30``), and telling checkpoint formats apart."""
 
 from __future__ import annotations
 
 import os
+import zipfile
 from datetime import datetime
 
 
@@ -28,3 +29,9 @@ def make_save_dirs(args, prefix: str, suffix: str | None = None, with_time: bool
     return (result_path,
             *(make_dir(os.path.join(result_path, d))
               for d in ("image", "checkpoint", "log", "samples", "sample_to_eval")))
+
+
+def is_torch_file(path: str) -> bool:
+    """A ``torch.save`` file (a zip archive, or a ``.pth``/``.pt`` name) rather
+    than a msgpack ``.ckpt``."""
+    return path.endswith((".pth", ".pt")) or zipfile.is_zipfile(path)

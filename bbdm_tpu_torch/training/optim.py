@@ -8,7 +8,8 @@ trainable parameters it is given are updated and hold state (the JAX
 ``optax.masked`` leaves the frozen VQGAN without moments).
 
 * Adam: L2 weight decay added to the gradient before the moments
-  (``add_decayed_weights`` ahead of ``scale_by_adam``), b2 0.999, eps 1e-8
+  (``add_decayed_weights`` ahead of ``scale_by_adam``), b2 0.999 (the
+  ``b2`` argument: the VQGAN runner gives its players 0.9), eps 1e-8
   outside the sqrt, bias-corrected moments: u = mu_hat / (sqrt(nu_hat) + eps);
 * RMSProp: optional L2 weight decay, then ``scale_by_rms(decay=0.99, eps=1e-8,
   eps_in_sqrt=False)``: u = g / (sqrt(nu) + eps), no bias correction;
@@ -40,7 +41,7 @@ class Optimizer:
     """Adam, RMSProp or SGD over ``params`` ({name: parameter}, the trainable
     ones, in a fixed order) from the ``model.BB.optimizer`` config node."""
 
-    def __init__(self, optim_config, params: dict):
+    def __init__(self, optim_config, params: dict, *, b2: float = 0.999):
         self.name = optim_config.optimizer
         self.names = list(params)
         self.params = list(params.values())
@@ -49,7 +50,8 @@ class Optimizer:
         device = self.params[0].device if self.params else None
         if self.name == "Adam":
             self.weight_decay = optim_config.get("weight_decay", 0.0)
-            self.b1, self.b2, self.eps = optim_config.get("beta1", 0.9), 0.999, 1e-8
+            self.b1, self.b2 = optim_config.get("beta1", 0.9), b2
+            self.eps = 1e-8
             self.state = {"count": torch.zeros((), dtype=torch.int32, device=device),
                           "mu": zeros(), "nu": zeros()}
         elif self.name == "RMSProp":

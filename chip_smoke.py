@@ -9,8 +9,10 @@ Phases, each of which must pass:
    versions, TF32 off;
 2. kernel build: nvcc of ``bbdm_tpu_torch/csrc/*.cu`` for sm_90a;
 3. each hand-written kernel (K1 GroupNorm, K2 subpixel up-conv, K3 flash
-   attention, all CUDA C++) against its plain PyTorch twin on the card at the
-   shapes the LBBDM-f4 path gives it and at edge cases, one launch per call;
+   attention, all CUDA C++; K2 and K3 in bf16 and, from their ``*_f32.cu``
+   sources, in fp32) against its plain PyTorch twin on the card at the shapes
+   the LBBDM-f4 path (bf16) and VQGAN-f4 training (fp32) give it and at edge
+   cases, one launch per call;
    at the path shapes also CUDA-event times of the kernel (wrapper included),
    its twin and one PyTorch library call computing the same function (or, for
    K1, a subset of it), the kernel's own device time from torch.profiler, and
@@ -45,14 +47,32 @@ Phases, each of which must pass:
    through ``--sample_to_eval``, and one microbatch through the kernels is
    held against the same microbatch through the twins (loss and flattened
    gradient, bar: twice the twins' bf16-vs-fp32 gap), every trainable
-   gradient finite and present and the VQGAN without one.
+   gradient finite and present and the VQGAN without one;
+7. VQGAN training, ``main_torch.main([... "--train"])`` with a text copy of
+   ``Template-VQGAN-f4.yaml`` at full width (ch 128 x (1,2,4), 2 res blocks,
+   256^2, n_embed 8192, PatchGAN ndf 64 with 3 layers, batch 8, fp32) with
+   ``disc_start`` 0 (the adversarial terms and the adaptive d_weight live) and
+   no perceptual term, on a synthetic 256^2 ``custom_single`` dataset (16
+   train, 8 val, 8 test images, no flip) cut to 2 epochs (4 steps) with one sample
+   grid, one validation epoch and one save: seconds per step, peak memory,
+   the idle share over two steps, the kernels' launches (K1 and K3 with
+   gradients, K2 in the eval-mode validation and sample); one step through
+   the kernels against the twins with the kernels' codes (reconstruction,
+   generator loss, generator and discriminator gradients against the fixed
+   ``VQ_STEP_BARS``, which the twins run twice must pass and the twins with
+   TF32 must fail; d_weight and the discriminator loss printed), every
+   parameter of both players with a finite gradient; then
+   ``--sample_to_eval`` from its ``last_model.ckpt`` and that file as an
+   LBBDM-f4 first stage for one encode and decode.
 
-Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention)
-through their autograd Functions: the output equal to the kernel's and the
+Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
+bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
 gradients equal, bit for bit, to the twin's autograd gradients (the backward
 is that recompute), with the backward's time.
 
-Prints the kernels' JSON line, then as its last line
+Prints the kernels' JSON line (each kernel's errors and sums over its timed
+shapes for the 16-bit cases at the top of its entry, for the fp32 cases in
+its ``fp32`` block), then as its last line
 ``{"ok": true, "device": {...}}``; exits non-zero, without that line, when a
 phase fails, when there is no CUDA card, or when run outside a checkout.
 """
@@ -171,8 +191,9 @@ def sdpa_backends(q, k, v):
 
 
 def kernel_cases(dev):
-    """(name, route, source, replaces, counter, kernel-name fragment, cases); each
-    case is (label, run_kernel, run_plain, rtol, atol, work): work None marks an
+    """(name, route, sources, replaces, counter, kernel-name fragments, cases); each
+    case (bf16, and for K2 and K3 also fp32, whose kernels are the second
+    source) is (label, run_kernel, run_plain, rtol, atol, work): work None marks an
     edge case that is checked but not timed, else a dict with the case's
     ``flops`` at ``peak`` FLOP/s, its ``bytes`` (each input read once, each output
     written once) and its ``library`` call (or None)."""
@@ -191,7 +212,8 @@ def kernel_cases(dev):
     # (C=1024 at 32^2), VQGAN decoder up_0_block_0.norm1 (C=256 at 256^2); then
     # the edge cases of the gpu-marked tests: a span that overflows a cluster of 8
     # (fp32 at 256^2), a ragged span (C=96 at 7x5), fp16 with FiLM, a cluster of
-    # 4, and a ragged span split over a cluster of 2
+    # 4, and a ragged span split over a cluster of 2; then timed fp32 at VQGAN
+    # training's three widths (encoder and decoder norms at 256^2, 128^2, 64^2)
     for shape, film, eps, dtype, timed in (
             ((BATCH, 640, 64, 64), False, 1e-5, torch.bfloat16, True),
             ((BATCH, 1024, 32, 32), True, 1e-5, torch.bfloat16, True),
@@ -200,7 +222,10 @@ def kernel_cases(dev):
             ((2, 96, 7, 5), False, 1e-5, torch.bfloat16, False),
             ((2, 320, 24, 24), True, 1e-5, torch.float16, False),
             ((2, 256, 128, 128), False, 1e-6, torch.bfloat16, False),
-            ((2, 32, 255, 255), True, 1e-6, torch.bfloat16, False)):
+            ((2, 32, 255, 255), True, 1e-6, torch.bfloat16, False),
+            ((BATCH, 128, 256, 256), False, 1e-6, torch.float32, True),
+            ((BATCH, 256, 128, 128), False, 1e-6, torch.float32, True),
+            ((BATCH, 512, 64, 64), False, 1e-6, torch.float32, True)):
         N, C, H, W = shape
         x = randn(*shape, scale=2.0, dtype=dtype)
         w, b = 1 + randn(C, scale=0.1, dtype=torch.float32), randn(C, scale=0.1,
@@ -229,76 +254,106 @@ def kernel_cases(dev):
     up = []
     # UNet up_2_us / up_1_us in_conv, VQGAN decoder up_2_upsample / up_1_upsample; then
     # the edge cases of the gpu-marked tests (ragged co, ci < 64, w = 40, h = 24) and
-    # one that pads every dimension (ci % 8, co < 128, h < one tile of rows, w % 4)
-    for (n, ci, h, wd), co, timed in (((BATCH, 1024, 16, 16), 1024, True),
-                                      ((BATCH, 512, 32, 32), 512, True),
-                                      ((BATCH, 512, 64, 64), 512, True),
-                                      ((BATCH, 256, 128, 128), 256, True),
-                                      ((1, 32, 24, 40), 96, False),
-                                      ((2, 64, 16, 16), 64, False),
-                                      ((1, 20, 5, 7), 30, False)):
-        x = randn(n, ci, h, wd)
+    # one that pads every dimension (ci % 8, co < 128, h < one tile of rows, w % 4);
+    # then fp32 (VQGAN training's eval-mode reconstructions) at the decoder's two
+    # shapes and the same edge cases
+    for (n, ci, h, wd), co, dtype, timed in (
+            ((BATCH, 1024, 16, 16), 1024, torch.bfloat16, True),
+            ((BATCH, 512, 32, 32), 512, torch.bfloat16, True),
+            ((BATCH, 512, 64, 64), 512, torch.bfloat16, True),
+            ((BATCH, 256, 128, 128), 256, torch.bfloat16, True),
+            ((1, 32, 24, 40), 96, torch.bfloat16, False),
+            ((2, 64, 16, 16), 64, torch.bfloat16, False),
+            ((1, 20, 5, 7), 30, torch.bfloat16, False),
+            ((BATCH, 512, 64, 64), 512, torch.float32, True),
+            ((BATCH, 256, 128, 128), 256, torch.float32, True),
+            ((1, 32, 24, 40), 96, torch.float32, False),
+            ((2, 64, 16, 16), 64, torch.float32, False),
+            ((1, 20, 5, 7), 30, torch.float32, False)):
+        f32 = dtype == torch.float32
+        x = randn(n, ci, h, wd, dtype=dtype)
         w = randn(co, ci, 3, 3, scale=0.02, dtype=torch.float32)
         b = randn(co, scale=0.1, dtype=torch.float32)
-        kp = upsample_conv.combine_kernel_2x2(w).to(torch.bfloat16)
-        w4, bl = upconv_transposed_kernel(w).to(torch.bfloat16), b.to(torch.bfloat16)
-        work = dict(flops=2 * n * h * wd * 16 * ci * co, peak=PEAK_BF16_FLOPS,
-                    bytes=2 * (x.numel() + kp.numel() + 4 * n * h * wd * co) + 4 * co,
+        kp = upsample_conv.combine_kernel_2x2(w).to(dtype)
+        w4, bl = upconv_transposed_kernel(w).to(dtype), b.to(dtype)
+        size = x.element_size()
+        work = dict(flops=2 * n * h * wd * 16 * ci * co,
+                    peak=PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS,
+                    bytes=size * (x.numel() + kp.numel() + 4 * n * h * wd * co) + 4 * co,
                     library=lambda x=x, w4=w4, bl=bl: F.conv_transpose2d(
                         x, w4, bl, stride=2, padding=1),
                     library_call="F.conv_transpose2d(x, W4, b, stride=2, padding=1)")
-        up.append((f"{[n, ci, h, wd]}->{co}",
+        up.append((f"{[n, ci, h, wd]}->{co}{' fp32' if f32 else ''}",
                    lambda x=x, kp=kp, b=b: upsample_conv.upsample_conv_cuda(x, kp, b),
-                   lambda x=x, w=w, b=b: upsample_conv.upsample_conv_plain(
-                       x, w, b, dtype=torch.bfloat16),
-                   # the kernel's phase taps are fp32 sums rounded to bf16 once, the
-                   # twin's 3x3 taps are rounded one by one: 2^-8 relative per tap,
-                   # plus one output rounding each
-                   2 ** -5, 2 ** -5, work if timed else None))
+                   lambda x=x, w=w, b=b, dtype=dtype: upsample_conv.upsample_conv_plain(
+                       x, w, b, dtype=dtype),
+                   # bf16: the kernel's phase taps are fp32 sums rounded to bf16 once,
+                   # the twin's 3x3 taps are rounded one by one: 2^-8 relative per tap,
+                   # plus one output rounding each; fp32: fp32 FMAs on both sides (TF32
+                   # off) summed in another order
+                   *((1e-4, 1e-4) if f32 else (2 ** -5, 2 ** -5)), work if timed else None))
 
     fa = []
     # VQGAN encoder / decoder mid_attn_1: H=1, T=64^2, D=512; then the edge cases of
     # the gpu-marked tests: ragged T (keys masked, rows not written) and D=128; then
-    # T and D below one 64 x 64 box
-    for shape, timed in (((BATCH, 1, 4096, 512), True), ((1, 2, 1100, 128), False),
-                         ((2, 1, 1024, 512), False), ((1, 1, 50, 48), False)):
-        q, k, v = (randn(*shape) for _ in range(3))
+    # T and D below one 64 x 64 box; then the same in fp32 (VQGAN training)
+    for shape, dtype, timed in (((BATCH, 1, 4096, 512), torch.bfloat16, True),
+                                ((1, 2, 1100, 128), torch.bfloat16, False),
+                                ((2, 1, 1024, 512), torch.bfloat16, False),
+                                ((1, 1, 50, 48), torch.bfloat16, False),
+                                ((BATCH, 1, 4096, 512), torch.float32, True),
+                                ((1, 2, 1100, 128), torch.float32, False),
+                                ((2, 1, 1024, 512), torch.float32, False),
+                                ((1, 1, 50, 48), torch.float32, False)):
+        f32 = dtype == torch.float32
+        q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
         B, H, T, D = shape
-        work = dict(flops=4 * B * H * T * T * D, peak=PEAK_BF16_FLOPS, bytes=4 * q.numel() * 2,
+        work = dict(flops=4 * B * H * T * T * D, peak=PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS,
+                    bytes=4 * q.numel() * q.element_size(),
                     library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                         q, k, v, scale=q.shape[-1] ** -0.5),
                     library_call="F.scaled_dot_product_attention(q, k, v, scale=D**-0.5)",
                     backends=lambda q=q, k=k, v=v: sdpa_backends(q, k, v))
-        fa.append((f"{list(shape)}",
+        fa.append((f"{list(shape)}{' fp32' if f32 else ''}",
                    lambda q=q, k=k, v=v: attention.flash_attention_cuda(q, k, v),
                    lambda q=q, k=k, v=v: attention.attention_plain(q, k, v),
-                   # the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as _xla_attention
-                   # does; the kernel scales the fp32 scores), and both round the
-                   # probabilities to bf16: 2^-8 relative each, over T keys
-                   2 ** -6, 2 ** -7, work if timed else None))
+                   # bf16: the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as
+                   # _xla_attention does; the kernel scales the fp32 scores), and both
+                   # round the probabilities to bf16: 2^-8 relative each, over T keys;
+                   # fp32: fp32 products on both sides (TF32 off), an online softmax
+                   # against one pass
+                   *((1e-4, 1e-5) if f32 else (2 ** -6, 2 ** -7)), work if timed else None))
 
     return [
-        ("group_norm", "cuda", "bbdm_tpu_torch/csrc/group_norm.cu",
+        ("group_norm", "cuda", ["bbdm_tpu_torch/csrc/group_norm.cu"],
          "bbdm_tpu/ops/group_norm_pallas.py:178", (group_norm, "group_norm_cuda"),
-         "group_norm_kernel", gn),
-        ("subpixel_upconv", "cuda", "bbdm_tpu_torch/csrc/subpixel_upconv.cu",
+         {None: "group_norm_kernel", "fp32": "group_norm_kernel"}, gn),
+        ("subpixel_upconv", "cuda", ["bbdm_tpu_torch/csrc/subpixel_upconv.cu",
+                                     "bbdm_tpu_torch/csrc/subpixel_upconv_f32.cu"],
          "bbdm_tpu/ops/subpixel_pallas.py:133", (upsample_conv, "upsample_conv_cuda"),
-         "subpixel_upconv_kernel", up),
-        ("flash_attention", "cuda", "bbdm_tpu_torch/csrc/flash_attention.cu",
+         {None: "subpixel_upconv_kernel", "fp32": "subpixel_upconv_f32_kernel"}, up),
+        ("flash_attention", "cuda", ["bbdm_tpu_torch/csrc/flash_attention.cu",
+                                     "bbdm_tpu_torch/csrc/flash_attention_f32.cu"],
          "bbdm_tpu/ops/flash_attention.py:115", (attention, "flash_attention_cuda"),
-         "flash_attention_kernel", fa),
+         {None: "flash_attention_kernel", "fp32": "flash_attention_f32_kernel"}, fa),
     ]
 
 
-def kernel_phase(name, counter, pattern, cases):
+def kernel_phase(name, counter, patterns, cases):
     """Check each case against the twin (and that it is one launch); time the
-    path shapes; returns the kernel's JSON entry (sums over the timed shapes)."""
+    path shapes; returns the kernel's JSON entry: errors and sums over the
+    timed shapes of the 16-bit cases at its top level, those of the fp32 cases
+    in its ``fp32`` block (``patterns``: the device kernel's name fragment of
+    each, keyed None and "fp32")."""
     from bbdm_tpu_torch.ops import PEAK_BYTES_S
 
     mod, attr = counter
-    entry = {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
-             "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0, "shapes": []}
-    ops_s = bytes_s = 0.0
+    blocks = {key: {"max_abs_err": 0.0, "max_rel_err": 0.0, "ms": 0.0, "plain_ms": 0.0,
+                    "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
+              for key in (None, "fp32")}
+    seconds = {key: [0.0, 0.0] for key in blocks}  # ops, bytes
+    entry = {**blocks[None], "fp32": blocks["fp32"], "shapes": []}
+    blocks[None] = entry
     ok = True
     for label, run, plain, rtol, atol, work in cases:
         before = getattr(mod, attr).launches
@@ -306,6 +361,8 @@ def kernel_phase(name, counter, pattern, cases):
         launched = getattr(mod, attr).launches - before
         ref = plain()
         torch.cuda.synchronize()
+        key = "fp32" if out.dtype == torch.float32 else None
+        block = blocks[key]
         abs_err, rel_err, good = compare(out, ref, rtol, atol)
         good &= launched == 1
         line = (f"  {name} {label}: max_abs_err={abs_err:.3e} max_rel_err={rel_err:.3e} "
@@ -316,10 +373,11 @@ def kernel_phase(name, counter, pattern, cases):
             line += "; edge case, not timed"
         else:
             ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(work["library"])
-            dev = sum(v for k, v in kernel_times_us(run).items() if pattern in k)
+            dev = sum(v for k, v in kernel_times_us(run).items() if patterns[key] in k)
             t_ops, t_bytes = work["flops"] / work["peak"], work["bytes"] / PEAK_BYTES_S
             bound_us = max(t_ops, t_bytes) * 1e6
-            ops_s, bytes_s = ops_s + t_ops, bytes_s + t_bytes
+            seconds[key][0] += t_ops
+            seconds[key][1] += t_bytes
             shape.update(ms=ms, plain_ms=plain_ms, device_us=dev or None, bound_us=bound_us,
                          bound_by="operations" if t_ops > t_bytes else "bytes",
                          library_ms=lib_ms, library_call=work["library_call"])
@@ -330,27 +388,28 @@ def kernel_phase(name, counter, pattern, cases):
             if "backends" in work:
                 shape["library_backends"] = work["backends"]()
                 line += f"; sdpa backends {shape['library_backends']}"
-            entry["ms"] += ms
-            entry["plain_ms"] += plain_ms
-            entry["library_ms"] += lib_ms
+            block["ms"] += ms
+            block["plain_ms"] += plain_ms
+            block["library_ms"] += lib_ms
         log(line)
         entry["shapes"].append(shape)
-        entry["max_abs_err"] = max(entry["max_abs_err"], abs_err)
-        entry["max_rel_err"] = max(entry["max_rel_err"], rel_err)
+        block["max_abs_err"] = max(block["max_abs_err"], abs_err)
+        block["max_rel_err"] = max(block["max_rel_err"], rel_err)
         ok &= good
         del out, ref
-    entry["bound_ms"] = max(ops_s, bytes_s) * 1e3
-    entry["bound_by"] = "operations" if ops_s > bytes_s else "bytes"
+    for key, (ops_s, bytes_s) in seconds.items():
+        blocks[key]["bound_ms"] = max(ops_s, bytes_s) * 1e3
+        blocks[key]["bound_by"] = "operations" if ops_s > bytes_s else "bytes"
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
     return entry
 
 
 def autograd_cases(dev):
-    """{kernel name: (label, inputs requiring grad, call through the dispatcher,
-    the kernel alone, the twin)} for the kernels with an autograd Function:
-    K1 at the UNet's FiLM + SiLU shape (bf16 x and FiLM, fp32 affine), K3 at
-    the VQGAN attention's."""
+    """[(kernel name, block key, (label, inputs requiring grad, call through the
+    dispatcher, the kernel alone, the twin))] for the kernels with an autograd
+    Function: K1 at the UNet's FiLM + SiLU shape (bf16 x and FiLM, fp32 affine),
+    K3 at the VQGAN attention's in bf16 and in fp32 (VQGAN training)."""
     from bbdm_tpu_torch.ops import attention, group_norm
 
     g = torch.Generator(dev).manual_seed(3)
@@ -364,16 +423,20 @@ def autograd_cases(dev):
         fs, fb = f.chunk(2, dim=1)
         return fn(x, w, b, act="silu", film_scale=fs, film_shift=fb)
 
-    q, k, v = (randn(BATCH, 1, 4096, 512) for _ in range(3))
-    return {
-        "group_norm": (f"[{BATCH},1024,32,32] FiLM+SiLU", [x, w, b, f],
-                       lambda: gn(group_norm.group_norm), lambda: gn(group_norm.group_norm_cuda),
-                       lambda: gn(group_norm.group_norm_plain)),
-        "flash_attention": (f"[{BATCH},1,4096,512]", [q, k, v],
-                            lambda: attention.multi_head_attention(q, k, v),
-                            lambda: attention.flash_attention_cuda(q, k, v),
-                            lambda: attention.attention_plain(q, k, v)),
-    }
+    def fa(dtype):
+        q, k, v = (randn(BATCH, 1, 4096, 512, dtype=dtype) for _ in range(3))
+        return (f"[{BATCH},1,4096,512]{' fp32' if dtype == torch.float32 else ''}", [q, k, v],
+                lambda: attention.multi_head_attention(q, k, v),
+                lambda: attention.flash_attention_cuda(q, k, v),
+                lambda: attention.attention_plain(q, k, v))
+
+    return [
+        ("group_norm", "autograd",
+         (f"[{BATCH},1024,32,32] FiLM+SiLU", [x, w, b, f], lambda: gn(group_norm.group_norm),
+          lambda: gn(group_norm.group_norm_cuda), lambda: gn(group_norm.group_norm_plain))),
+        ("flash_attention", "autograd", fa(torch.bfloat16)),
+        ("flash_attention", "autograd_fp32", fa(torch.float32)),
+    ]
 
 
 def autograd_phase(name, case):
@@ -1043,6 +1106,311 @@ def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=
     return out
 
 
+# -------------------------------------------------------------- VQGAN train
+
+VQ_COUNTS, VQ_EPOCHS, VQ_SAMPLE_INTERVAL = (16, 8, 8), 2, 1.5
+# phase 7's bars on the kernels-vs-twins distance of one VQGAN step, each near
+# the geometric mean of the largest distance the kernels gave and the smallest
+# TF32 gave over five runs on an H100 (PERF.md §6, VQGAN training), about 3x from
+# either; the twins' own run-to-run distance is 0 forward and < 1e-6 in the
+# gradients. d_weight and disc_loss are printed with no bar: TF32 moved them
+# no more than the kernels did in some runs (d_weight 9.7e-5 against 7.3e-5),
+# and what they do to the step is in gen_grad and disc_grad
+VQ_STEP_BARS = {"norm_rel": {"xrec": 6e-5, "gen_loss": 1e-5, "gen_grad": 7e-4,
+                             "disc_grad": 3.5e-3}}
+
+
+def write_single_dataset(root, size, counts, seed):
+    """A ``custom_single`` PNG dataset: ``<stage>/<i>.png`` for the (train, val,
+    test) ``counts``, written by the port."""
+    import numpy as np
+
+    from bbdm_tpu_torch.utils.images import to_uint8, write_png
+
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    for stage, n in zip(("train", "val", "test"), counts):
+        os.makedirs(os.path.join(root, stage), exist_ok=True)
+        for i in range(n):
+            smooth = np.sin(6 * yy[..., None] + 4 * xx[..., None] + rs.uniform(0, 2 * np.pi, 3))
+            img = smooth + rs.uniform(-0.2, 0.2, (size, size, 3))
+            write_png(os.path.join(root, stage, f"{i:04d}.png"), to_uint8(np.clip(img, -1, 1)))
+
+
+@contextlib.contextmanager
+def tf32():
+    """TF32 in cuDNN convolutions and cuBLAS matmuls for the length of the block."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def gan_step_grads(runner, x, loss_config):
+    """One VQGAN step without an update: ({"xrec", "gen_loss", "d_weight",
+    "disc_loss", "gen_grad", "disc_grad"}, the gradients flattened, and the
+    gradients of both players' parameters, None where none reached one); the
+    BatchNorm statistics the discriminator term moves are put back."""
+    from bbdm_tpu_torch.training.gan import make_vqgan_losses
+
+    vq, disc = runner.model.vqgan, runner.model.discriminator
+    saved = {k: b.clone() for k, b in disc.named_buffers()}
+    gen_loss, disc_loss = make_vqgan_losses(vq, disc, loss_config)
+    step = runner.state.step + 1
+    total, aux = gen_loss(x, step)
+    g = torch.autograd.grad(total, list(vq.parameters()), allow_unused=True)
+    d = disc_loss(x, aux["xrec"].detach(), step)
+    dg = torch.autograd.grad(d, list(disc.parameters()), allow_unused=True)
+    with torch.no_grad():
+        for k, b in disc.named_buffers():
+            b.copy_(saved[k])
+    flat = lambda gs: torch.cat([gr.float().flatten() for gr in gs if gr is not None])
+    values = {"xrec": aux["xrec"].detach(), "gen_loss": total.detach(),
+              "d_weight": aux["d_weight"], "disc_loss": d.detach(), "gen_grad": flat(g),
+              "disc_grad": flat(dg)}
+    return values, list(g) + list(dg)
+
+
+def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_config=None):
+    """Drive ``main_torch.main --train`` with ``runner: VQGANRunner`` (see the
+    module docstring, phase 7); ``config`` and ``lbbdm_config`` let a CPU
+    rehearsal pass tiny models."""
+    import statistics as st
+
+    import main_torch
+    from bbdm_tpu_torch.config import load_config, save_config
+    from bbdm_tpu_torch.profile_slice import measure
+    from bbdm_tpu_torch.runners import base
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+    from bbdm_tpu_torch.runners.vqgan import VQGANRunner
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = config or load_config(os.path.join(here, "configs", "Template-VQGAN-f4.yaml"))
+    size = cfg.data.dataset_config.image_size
+    data = os.path.join(root, "data-vqgan")
+    write_single_dataset(data, size, VQ_COUNTS, seed=7)
+    cfg.data.dataset_config.dataset_path = data
+    cfg.data.dataset_config.flip = False  # flip doubles the train set: 4 steps, not 8
+    loss = cfg.model.loss
+    loss.disc_start, loss.perceptual_weight, loss.lpips_weights = 0, 0.0, None
+    t = cfg.training
+    t.save_interval = t.validation_interval = VQ_EPOCHS
+    t.sample_interval = VQ_SAMPLE_INTERVAL
+    path = os.path.join(root, "vqgan.yaml")
+    save_config(cfg, path)
+    steps = VQ_EPOCHS * VQ_COUNTS[0] // cfg.data.train.batch_size
+    log("reduced: " + json.dumps({
+        "n_epochs": {"template": 100, "run": VQ_EPOCHS}, "steps": steps,
+        "train/val/test images": list(VQ_COUNTS), "flip": {"template": True, "run": False},
+        "disc_start": {"template": 30000, "run": 0},
+        "perceptual_weight": {"template": 1.0, "run": 0.0, "lpips_weights": None},
+        "sample_interval": VQ_SAMPLE_INTERVAL, "save_interval": VQ_EPOCHS,
+        "weights": "random (seed)"}))
+
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    starts, spans = [], []
+
+    def timing_build(build):
+        def wrapped(self):
+            step = build(self)
+
+            def timed_step(*a, **kw):
+                starts.append(time.perf_counter())
+                return step(*a, **kw)
+            return timed_step
+        return wrapped
+
+    def span(fn):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            spans.append((t0, time.perf_counter()))
+            return out
+        return wrapped
+
+    argv = ["-c", path, "--train", "--max_epoch", str(VQ_EPOCHS), "-r",
+            os.path.join(root, "results-vqgan"), "-s", str(CLI_SEED), "--gpu_ids", gpu_ids]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(VQGANRunner, "build_train_step", timing_build))
+        for attr in ("sample_step", "validation_step", "validation_epoch", "_save_checkpoints"):
+            stack.enter_context(patched(base.BaseRunner, attr, span))
+        runner = main_torch.main(argv)
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+    ckpt = runner.config.result.ckpt_path
+    clean = [b - a for a, b in zip(starts, starts[1:])
+             if not any(a <= s0 < b for s0, _ in spans)]
+    out = {"wall_s": wall, "launches": launches, "steps": runner.global_step,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "s_per_step_run": st.median(clean) if clean else None,
+           "checkpoints": {f: os.path.getsize(os.path.join(ckpt, f))
+                           for f in sorted(os.listdir(ckpt))}}
+    count = lambda m: sum(p.numel() for p in m.parameters())
+    out["params"] = {"vqgan": count(runner.model.vqgan),
+                     "discriminator": count(runner.model.discriminator)}
+    log(f"  vqgan train: {wall:.1f} s in main_torch.main ({steps} steps), steps "
+        f"{runner.global_step}, epoch {runner.global_epoch}; parameters {out['params']}; peak "
+        f"device memory {out['peak_memory_gib']:.2f} GiB; launches {launches}; median s per "
+        f"step between plain steps {out['s_per_step_run']}; checkpoints {out['checkpoints']}")
+    if runner.global_step != steps:
+        raise AssertionError("vqgan train: wrong step count")
+    expected = {"config.yaml", "last_model.ckpt", "last_optim_sche.ckpt",
+                f"latest_model_{VQ_EPOCHS}.ckpt", f"latest_optim_sche_{VQ_EPOCHS}.ckpt"}
+    if set(out["checkpoints"]) != expected:
+        raise AssertionError(f"vqgan train: checkpoint files {sorted(out['checkpoints'])}")
+    grids = os.listdir(runner.config.result.image_path)
+    if len(grids) != 1 or sorted(os.listdir(os.path.join(
+            runner.config.result.image_path, grids[0], "train_sample"))) != [
+            "input.png", "reconstruction.png"]:
+        raise AssertionError(f"vqgan train: not one sample grid ({grids})")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"vqgan train: kernels {missing} were not launched")
+
+    # seconds per step in a loop like the runner's (the previous loss read
+    # after queueing each step); the idle share over two steps
+    step = runner.build_train_step()
+    x, _ = runner._put_batch(next(iter(runner._build_loaders()[0])))
+    runner.model.train()
+
+    def run_steps(n):
+        prev = None
+        for _ in range(n):
+            metrics = step(runner.state, x, x, runner.train_generator)
+            if prev is not None:
+                float(prev["loss"])
+            prev = metrics
+        float(prev["loss"])
+
+    run_steps(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(4)
+    torch.cuda.synchronize()
+    out["s_per_step"] = (time.perf_counter() - t0) / 4
+    wall_ms, busy_ms, dev_ms = measure(lambda: run_steps(2), 1, 2)
+    out["step_wall_ms"], out["step_device_busy_ms"] = wall_ms, busy_ms
+    out["idle_share"] = 1 - busy_ms / wall_ms
+    out["step_device_ms_top"] = dict(sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8])
+    log(f"  vqgan train loop: {out['s_per_step']:.4f} s per step (batch "
+        f"{x.shape[0]}, both players); over two steps wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms per step, idle share {out['idle_share']:.0%}; top device ms "
+        + json.dumps({k[:60]: round(v, 3) for k, v in out["step_device_ms_top"].items()}))
+
+    # one step through the kernels against the same step through the twins
+    # (fp32 both, same weights, batch and BatchNorm statistics); the twins once
+    # more as they were (the floor: how far two runs of the same fp32 code
+    # differ on the card) and once with TF32 convolutions and matmuls (10 bits
+    # of mantissa), which each bar must refuse. The twins' runs take the codes
+    # the kernels' run chose: a near tie between two codes that another
+    # summation order breaks the other way moves the reconstruction there by
+    # the distance between the two codes, far beyond any rounding, so the codes
+    # that differ are counted and the bars hold what the kernels compute
+    quantize = runner.model.vqgan.quantize
+    codes, code_flips = [], []
+
+    def record(nearest):
+        return lambda z: codes.append(nearest(z)) or codes[0]
+
+    def pin(nearest):
+        return lambda z: code_flips.append(int((nearest(z) != codes[0]).sum())) or codes[0]
+
+    with patched(quantize, "nearest", record):
+        kern, grads = gan_step_grads(runner, x, loss)
+    with plain_ops(), patched(quantize, "nearest", pin):
+        twin, _ = gan_step_grads(runner, x, loss)
+        twin2, _ = gan_step_grads(runner, x, loss)
+        with tf32():
+            twin_tf32, _ = gan_step_grads(runner, x, loss)
+    del quantize.nearest  # the class's method again
+    out["code_flips"] = dict(zip(("twin", "twin2", "tf32"), code_flips), of=codes[0].numel())
+    runner.model.eval()
+    params = list(runner.model.vqgan.named_parameters()) + list(
+        runner.model.discriminator.named_parameters())
+    absent = [n for (n, _), gr in zip(params, grads) if gr is None]
+    finite = all(bool(torch.isfinite(gr).all()) for gr in grads if gr is not None) and all(
+        bool(torch.isfinite(p).all()) for _, p in params)
+    out.update(gen_loss=float(kern["gen_loss"]), d_weight=float(kern["d_weight"]),
+               disc_loss=float(kern["disc_loss"]), trainable=len(params),
+               absent_grads=len(absent), finite=finite)
+    # each as the largest difference over the twins' largest element, and as
+    # the norm of the difference over the twins' norm
+    metrics = {"max_rel": lambda a, b: float((a - b).abs().max() / b.abs().max()),
+               "norm_rel": lambda a, b: float((a - b).norm() / b.norm())}
+    dist = lambda a: {m: {k: f(a[k], twin[k]) for k in twin} for m, f in metrics.items()}
+    out["kernel_vs_twin"], out["twin_vs_twin"], out["tf32_vs_twin"] = (
+        dist(kern), dist(twin2), dist(twin_tf32))
+    out["bar"] = VQ_STEP_BARS
+    log("  vqgan step, kernels vs twins: " + json.dumps(
+        {k: out[k] for k in ("gen_loss", "d_weight", "disc_loss", "code_flips",
+                             "kernel_vs_twin", "twin_vs_twin", "tf32_vs_twin", "bar",
+                             "trainable", "absent_grads", "finite")}))
+    if absent or not finite:
+        raise AssertionError(f"vqgan step: gradients absent {absent[:3]}, finite {finite}")
+    if out["d_weight"] <= 0:
+        raise AssertionError("vqgan step: the adaptive d_weight is not live")
+    bars = [(m, k, b) for m, per in VQ_STEP_BARS.items() for k, b in per.items()]
+    checks = {"the twins' floor above the bar": [
+                  f"{m} {k}" for m, k, b in bars if not out["twin_vs_twin"][m][k] <= b],
+              "TF32 within the bar": [
+                  f"{m} {k}" for m, k, b in bars if not out["tf32_vs_twin"][m][k] > b],
+              "kernels farther from the twins than the bar": [
+                  f"{m} {k}" for m, k, b in bars if not out["kernel_vs_twin"][m][k] <= b]}
+    failed = {what: keys for what, keys in checks.items() if keys}
+    if failed:
+        raise AssertionError(f"vqgan step: {failed}")
+
+    # the trained checkpoint reconstructs the test set through --sample_to_eval
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    last = os.path.join(ckpt, "last_model.ckpt")
+    sampled = main_torch.main(["-c", path, "--sample_to_eval", "--resume_model", last, "-r",
+                               os.path.join(root, "results-vqgan-sample"), "-s",
+                               str(CLI_SEED), "--gpu_ids", gpu_ids])
+    out["sample_launches"] = {short[k]: getattr(mod, attr).launches
+                              for k, (mod, attr) in counters.items()}
+    tree = sampled.config.result.sample_to_eval_path
+    names = sorted(f"{i:04d}.png" for i in range(VQ_COUNTS[2]))
+    for sub in ("reconstruction", "ground_truth"):
+        if sorted(os.listdir(os.path.join(tree, sub))) != names:
+            raise AssertionError(f"vqgan sample_to_eval: {sub} holds "
+                                 f"{sorted(os.listdir(os.path.join(tree, sub)))}")
+    check_png(os.path.join(tree, "reconstruction", names[0]), size, size)
+    if (sampled.global_epoch, sampled.global_step) != (VQ_EPOCHS, steps):
+        raise AssertionError("vqgan checkpoint: epoch and step not read")
+    if out["sample_launches"]["K2"] <= 0:
+        raise AssertionError("vqgan sample_to_eval: K2 (fp32) was not launched")
+    log(f"  trained VQGAN last_model.ckpt reconstructed through --sample_to_eval: "
+        f"{len(names)} PNGs, launches {out['sample_launches']}")
+
+    # that checkpoint as an LBBDM-f4 first stage: one encode and decode
+    lcfg = lbbdm_config or load_config(os.path.join(here, "configs",
+                                                    "Template-LBBDM-f4.yaml"))
+    lcfg.model.VQGAN.params.ckpt_path = last
+    lb = BBDMRunner(lcfg, device=runner.device, seed=0)
+    same = all(torch.equal(a, b) for a, b in zip(lb.model.vqgan.state_dict().values(),
+                                                   sampled.model.vqgan.state_dict().values()))
+    z = lb.model.encode(x)
+    img = lb.model.decode(z)
+    torch.cuda.synchronize()
+    out["lbbdm_first_stage"] = {"weights_equal": same, "latent": list(z.shape),
+                                "image": list(img.shape),
+                                "finite": bool(torch.isfinite(img).all())}
+    log(f"  as an LBBDM first stage: {json.dumps(out['lbbdm_first_stage'])}")
+    if not (same and out["lbbdm_first_stage"]["finite"]
+            and tuple(img.shape) == tuple(x.shape)):
+        raise AssertionError("the trained VQGAN does not load as an LBBDM first stage")
+    del lb, runner, sampled
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -1085,28 +1453,28 @@ def main() -> int:
         return 1
 
     entries, counters = [], {}
-    for name, route, source, replaces, counter, pattern, cases in kernel_cases(dev):
+    for name, route, sources, replaces, counter, patterns, cases in kernel_cases(dev):
         counters[name] = counter
         try:
             t0 = time.time()
-            e = kernel_phase(name, counter, pattern, cases)
+            e = kernel_phase(name, counter, patterns, cases)
             log(f"kernel {name}: ok ({time.time() - t0:.1f} s)")
         except Exception:
             traceback.print_exc()
             failed.append(name)
             e = {}
-        entries.append({"name": name, "route": route, "source": source,
-                        "replaces": replaces, "launches": 0, **e})
+        entries.append({"name": name, "route": route, "source": sources[0],
+                        "sources": sources, "replaces": replaces, "launches": 0, **e})
         torch.cuda.empty_cache()
-    for name, case in autograd_cases(dev).items():
+    for name, key, case in autograd_cases(dev):
         try:
             block = autograd_phase(name, case)
         except Exception:
             traceback.print_exc()
-            failed.append(f"{name} autograd")
+            failed.append(f"{name} {key}")
             block = {}
-        next(e for e in entries if e["name"] == name)["autograd"] = block
-    torch.cuda.empty_cache()
+        next(e for e in entries if e["name"] == name)[key] = block
+        torch.cuda.empty_cache()
 
     timings = {}
     try:
@@ -1119,7 +1487,7 @@ def main() -> int:
         traceback.print_exc()
         failed.append("slice")
 
-    cli, train = {}, {}
+    cli, train, vqgan = {}, {}, {}
     short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
     for e in entries:
         e["launches_by_path"] = {"slice_sample_to_eval": e["launches"]}
@@ -1143,9 +1511,21 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failed.append("train")
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            vqgan = vqgan_train_phase(dev, counters, root)
+            for e in entries:
+                e["launches_by_path"]["vqgan_train"] = vqgan["launches"][short[e["name"]]]
+                e["launches_by_path"]["vqgan_sample_to_eval"] = \
+                    vqgan["sample_launches"][short[e["name"]]]
+            log(f"vqgan train: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("vqgan train")
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
-                    "card": card}))
+                    "vqgan_train": vqgan, "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

@@ -4,6 +4,7 @@
         [--resume_model last_model.ckpt --resume_optim last_optim_sche.ckpt] [--max_epoch N]
     python main_torch.py -c configs/Template-LBBDM-f4.yaml --sample_to_eval \\
         --resume_model path/to/last_model.ckpt [-r results] [-s 1234]
+    python main_torch.py -c configs/Template-VQGAN-f4.yaml --train   # the first stage
 
 Runs on the CUDA card (``--gpu_ids N`` picks card N, default 0) and raises
 where there is none; ``--gpu_ids -1`` runs on the CPU. It reads the YAML
@@ -13,9 +14,9 @@ JAX package (``.ckpt``) or the reference repo (``.pth``), and ``custom_single``
 of ``main.py``: ``<result_path>/<dataset_name>/<model_name>/{image,log,
 checkpoint,samples,sample_to_eval}``. ``--train`` trains (checkpoints in the
 JAX package's layout, ``checkpoint/{latest,last}_{model,optim_sche}*.ckpt``);
-without it, ``--sample_to_eval`` samples the test set and otherwise the grids
-of the first test batch are written. Several ``--gpu_ids`` raise. ``--port``
-is accepted and unused.
+without it, ``--sample_to_eval`` samples the test set (a VQGAN config:
+reconstructs it) and otherwise the grids of the first test batch are written.
+Several ``--gpu_ids`` raise. ``--port`` is accepted and unused.
 """
 
 from __future__ import annotations

@@ -141,7 +141,7 @@ def test_vq_quantize_and_decoder_match_flax(vq_pair):
     z = (rs.randn(2, 8, 8, 3) * 0.05).astype(np.float32)
     zq, _, idx = jax.jit(lambda p, z: flax_vq.apply(
         {"params": p}, z, method=jv.VQModel.quantize_latent))(params, z)
-    pzq, pidx = port.quantize_latent(nchw(z))
+    pzq, _, pidx = port.quantize_latent(nchw(z))
     np.testing.assert_array_equal(pidx.numpy(), np.asarray(idx))
     close(pzq, zq, atol=0)
     ref = jax.jit(lambda p, q: flax_vq.apply(

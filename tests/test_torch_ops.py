@@ -5,7 +5,8 @@ it themselves off-TPU) on numpy-seeded fp32 inputs and is held against the
 port's plain twin; inputs are transposed NHWC <-> NCHW at the boundary.
 
 GPU cases (marker ``gpu``, skipped without a card): each hand-written kernel
-against its twin on the card in bf16, with its launch counter. They import no
+against its twin on the card in bf16 (K2 and K3 also in fp32), with its launch
+counter. They import no
 jax, so on a machine without jax they run with
 ``python -m pytest tests/test_torch_ops.py -m gpu --noconftest``.
 """
@@ -123,6 +124,106 @@ def test_transposed_conv_yardstick_computes_the_upconv():
     torch.testing.assert_close(out, ref, rtol=FP32_RTOL, atol=FP32_ATOL)
 
 
+def phase_conv(x, kp, b):
+    """The formula of K2's kernels, written out: out[n, o, 2i+py, 2j+px] =
+    b[o] + sum_{r,s,c} kp[2py+px, r, s, o, c] * x[n, c, i+py-1+r, j+px-1+s],
+    zero outside x."""
+    N, ci, h, w = x.shape
+    xp = torch.nn.functional.pad(x, (1, 1, 1, 1))
+    out = torch.zeros(N, kp.shape[3], 2 * h, 2 * w)
+    for py in (0, 1):
+        for px in (0, 1):
+            acc = b[None, :, None, None].expand(N, -1, h, w).clone()
+            for r in (0, 1):
+                for s in (0, 1):
+                    win = xp[:, :, py + r:py + r + h, px + s:px + s + w]
+                    acc += torch.einsum("oc,nchw->nohw", kp[2 * py + px, r, s], win)
+            out[:, :, py::2, px::2] = acc
+    return out
+
+
+@pytest.mark.parametrize("shape,co", [((2, 8, 5, 7), 6), ((1, 3, 4, 4), 130)])
+def test_phase_formula_of_the_kernels_is_the_upconv(shape, co):
+    """The kernels' contract on the CPU: the phase kernel of
+    ``combine_kernel_2x2`` in the [4, 2, 2, co, ci] layout the wrapper hands
+    them, read at source offsets (py-1+r, px-1+s), is the nearest-2x + 3x3 conv
+    (fp32 sums in another order)."""
+    rs = np.random.RandomState(7)
+    x = torch.from_numpy(rs.randn(*shape).astype(np.float32))
+    w = torch.from_numpy(rs.randn(co, shape[1], 3, 3).astype(np.float32))
+    b = torch.from_numpy(rs.randn(co).astype(np.float32))
+    out = phase_conv(x, upsample_conv.combine_kernel_2x2(w), b)
+    torch.testing.assert_close(out, upsample_conv.upsample_conv_plain(x, w, b),
+                               rtol=FP32_RTOL, atol=FP32_ATOL)
+
+
+@pytest.fixture
+def kernels_as_twins(monkeypatch):
+    """Both dispatchers take their kernel branch on the CPU; the "kernels"
+    record the tensors they are handed and compute the twin."""
+    calls = []
+
+    def k2(x, kp, b):
+        calls.append(("K2", x, kp, b))
+        return phase_conv(x, kp, b)
+
+    def k3(q, k, v):
+        calls.append(("K3", q, k, v))
+        return attention.attention_plain(q, k, v)
+
+    for mod in (attention, upsample_conv):
+        monkeypatch.setattr(mod, "use_kernel", lambda x: True)
+    monkeypatch.setattr(upsample_conv, "upsample_conv_cuda", k2)
+    monkeypatch.setattr(attention, "flash_attention_cuda", k3)
+    return calls
+
+
+def test_fp32_goes_to_the_kernels(kernels_as_twins):
+    """An fp32 model hands K2 fp32 x, phase kernel and bias (no bf16 cast), and
+    K3 its fp32 q, k, v at T >= 1024, D % 128 == 0; with grad through the
+    Function, whose backward is the twin's."""
+    rs = np.random.RandomState(8)
+    x = torch.from_numpy(rs.randn(1, 16, 6, 6).astype(np.float32))
+    w = torch.from_numpy(rs.randn(8, 16, 3, 3).astype(np.float32))
+    b = torch.from_numpy(rs.randn(8).astype(np.float32))
+    out = upsample_conv.upsample2x_conv3x3(x, w, b)
+    name, xk, kp, bk = kernels_as_twins[-1]
+    assert name == "K2" and {xk.dtype, kp.dtype, bk.dtype} == {torch.float32}
+    assert kp.shape == (4, 2, 2, 8, 16) and kp.is_contiguous() and xk.is_contiguous()
+    torch.testing.assert_close(out, upsample_conv.upsample_conv_plain(x, w, b),
+                               rtol=FP32_RTOL, atol=FP32_ATOL)
+
+    q, k, v = (torch.from_numpy(rs.randn(1, 1, 1024, 128).astype(np.float32)).requires_grad_()
+               for _ in range(3))
+    out = attention.multi_head_attention(q, k, v)
+    assert kernels_as_twins[-1][0] == "K3" and kernels_as_twins[-1][1].dtype == torch.float32
+    assert type(out.grad_fn).__name__ == "FlashAttentionFunctionBackward"
+    g = torch.from_numpy(rs.randn(*out.shape).astype(np.float32))
+    got = torch.autograd.grad(out, (q, k, v), g)
+    want = torch.autograd.grad(attention.attention_plain(q, k, v), (q, k, v), g)
+    assert all(torch.equal(a, r) for a, r in zip(got, want))
+    assert len(kernels_as_twins) == 2
+
+
+@pytest.mark.parametrize("case", ["k2-grad", "k2-cpu", "k2-kernel-dtype", "k3-cpu",
+                                  "k3-mixed"])
+def test_kernel_wrappers_refuse_what_they_do_not_take(case):
+    """They raise before any launch: K2 on inputs that require grad (it has no
+    backward), a tensor off the card, or a phase kernel not in x's dtype; K3 off
+    the card or with q, k, v of mixed dtypes."""
+    x, kp, b = torch.zeros(1, 8, 4, 4), torch.zeros(4, 2, 2, 8, 8), torch.zeros(8)
+    q = torch.zeros(1, 1, 64, 64)
+    run = {
+        "k2-grad": lambda: upsample_conv.upsample_conv_cuda(x.requires_grad_(), kp, b),
+        "k2-cpu": lambda: upsample_conv.upsample_conv_cuda(x, kp, b),
+        "k2-kernel-dtype": lambda: upsample_conv.upsample_conv_cuda(x, kp.bfloat16(), b),
+        "k3-cpu": lambda: attention.flash_attention_cuda(q, q, q),
+        "k3-mixed": lambda: attention.flash_attention_cuda(q, q.bfloat16(), q),
+    }[case]
+    with pytest.raises(RuntimeError if case == "k2-grad" else ValueError):
+        run()
+
+
 # ------------------------------------------------------ flash attention (K3)
 
 def test_flash_attention_pallas_matches_twin():
@@ -232,3 +333,34 @@ def test_flash_attention_kernel_pads_shapes_below_one_box(cuda):
     torch.cuda.synchronize()
     assert out.shape == q.shape
     torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,co", [((2, 64, 16, 16), 64), ((1, 32, 24, 40), 96),
+                                      ((1, 20, 5, 7), 30), ((1, 512, 16, 16), 512)])
+def test_upsample_conv_kernel_matches_twin_fp32(cuda, shape, co):
+    g = torch.Generator(cuda).manual_seed(4)
+    x = torch.randn(shape, generator=g, device=cuda)
+    w = 0.05 * torch.randn(co, shape[1], 3, 3, generator=g, device=cuda)
+    b = torch.randn(co, generator=g, device=cuda)
+    before = upsample_conv.upsample_conv_cuda.launches
+    out = upsample_conv.upsample2x_conv3x3(x, w, b)
+    ref = upsample_conv.upsample_conv_plain(x, w, b)
+    torch.cuda.synchronize()
+    assert upsample_conv.upsample_conv_cuda.launches == before + 1 and out.dtype == torch.float32
+    # fp32 FMAs on both sides (TF32 off), summed in another order
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 1, 1024, 512), (1, 2, 1100, 128), (1, 1, 50, 48)])
+def test_flash_attention_kernel_matches_twin_fp32(cuda, shape):
+    g = torch.Generator(cuda).manual_seed(5)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda) for _ in range(3))
+    before = attention.flash_attention_cuda.launches
+    out = attention.flash_attention_cuda(q, k, v)
+    ref = attention.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == before + 1 and out.dtype == torch.float32
+    # fp32 products and softmax on both sides (TF32 off), an online softmax vs one pass
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)

@@ -122,7 +122,7 @@ def test_fp32_eta0_sample_matches_jax(params, x_cond):
     d = np.sort(((flat[:, None, :] - e[None]) ** 2).sum(-1), axis=1)
     bound = 2 * np.abs(e[:, None] - e[None]).sum(-1).max() * ATOL
     tie = (d[:, 1] - d[:, 0] < bound).reshape(np.asarray(idx).shape)
-    _, pidx = port.vqgan.quantize_latent(pz)
+    _, _, pidx = port.vqgan.quantize_latent(pz)
     np.testing.assert_array_equal(pidx.numpy()[~tie], np.asarray(idx)[~tie])
     np.testing.assert_array_equal(pidx.numpy(), np.asarray(idx))
 
