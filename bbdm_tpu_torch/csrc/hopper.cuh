@@ -1,6 +1,7 @@
 // Shared Hopper (sm_90a) building blocks for the port's CUDA kernels, in raw PTX:
-// mbarriers, TMA tensor loads, wgmma descriptors and instructions, named barriers,
-// setmaxnreg, and the host-side tensor-map encoder.
+// mbarriers, TMA tensor loads, wgmma descriptors and instructions (bf16 and TF32),
+// the 3xTF32 split and the TF32 mma.sync, named barriers, setmaxnreg, and the
+// host-side tensor-map encoder.
 //
 // The tensor-map encoder (cuTensorMapEncodeTiled) lives in libcuda; it is looked
 // up at run time with cudaGetDriverEntryPoint, so the library links only cudart
@@ -63,6 +64,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
     if (done) return;
     if (clock64() - t0 > (1LL << 34)) __trap();
   }
+}
+
+// order this thread's generic-proxy accesses to shared memory before later
+// async-proxy (TMA) writes to the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // ---------------------------------------------------------------------------- TMA
@@ -285,6 +292,73 @@ __device__ __forceinline__ void wgmma_rs_n256(float (&d)[128], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d), "n"(TB));
 }
 
+// ---------------------------------------------------------------------- 3xTF32
+
+// x rounded to TF32 (10 mantissa bits), to nearest with ties away from zero, as
+// an fp32 bit pattern whose low 13 bits are zero: what cvt.rna.tf32.f32 gives
+// for a finite x (a carry out of the mantissa steps the exponent, up to inf),
+// in two integer instructions, where ptxas expands the cvt into a compare and
+// select around them
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// x = hi + lo with hi = tf32(x) and lo = tf32(x - hi): hi*hi + hi*lo + lo*hi on
+// the tensor cores keeps ~2^-22 of each product (the dropped lo*lo and the
+// rounding of lo), where one TF32 pass keeps 2^-11
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(x);
+  lo = tf32_rna(x - __uint_as_float(hi));
+}
+
+// D[16 x 8] += A[16 x 8] B[8 x 8], TF32 in, fp32 accumulators. With g = lane / 4
+// and t = lane % 4: a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]},
+// b = {B[t][g], B[t+4][g]}, d = {D[g][2t], D[g][2t+1], D[g+8][2t], D[g+8][2t+1]}.
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// D[64 x 128] (+)= A[64 x 8] B[8 x 128], TF32 from shared memory, fp32
+// accumulators in registers (the layout of the bf16 forms above). TF32 wgmma
+// takes K-major A and B only (no transpose immediates). With the 128-byte
+// swizzle a K-major tile of fp32 is 32 values (128 bytes) per row, 8-row groups
+// 1024 bytes apart, and the k = 8 of one instruction is 32 bytes: the same
+// descriptors as a bf16 k16 step (make_desc(base + 32 * k, 16, 1024)).
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                                int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// The float at (row, col) of a [rows x 32] fp32 tile written by TMA with the
+// 128-byte swizzle (1024-byte aligned): 16-byte chunk col / 4 of each 128-byte
+// row is stored at chunk (col / 4) ^ (row % 8).
+__device__ __forceinline__ uint32_t swz128_f32(int row, int col) {
+  return row * 128 + ((((col >> 2) ^ row) & 7) << 4) + ((col & 3) << 2);
+}
+
 // ------------------------------------------------------------- warp specialisation
 
 // bar.sync on a named barrier among `threads` threads (id 0 is __syncthreads)
@@ -328,12 +402,13 @@ inline int allow_dynamic_smem(Kernel kernel, int bytes, std::atomic<uint64_t>& d
   return static_cast<int>(err);
 }
 
-// A bf16 tensor map of rank `rank` with the 128-byte swizzle: dims and box
-// innermost first, strides in bytes for dims 1..rank-1. Out-of-bounds elements of
-// a box read as zero. Returns a cudaError_t as int (cudaErrorInvalidValue if the
-// encoder refuses the map, e.g. for a box larger than the tensor).
-inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                           const uint64_t* strides, const uint64_t* box) {
+// A tensor map of rank `rank` over elements of `type` with the 128-byte swizzle:
+// dims and box innermost first, strides in bytes for dims 1..rank-1. Out-of-bounds
+// elements of a box read as zero. Returns a cudaError_t as int
+// (cudaErrorInvalidValue if the encoder refuses the map, e.g. for a box larger
+// than the tensor).
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base, int rank,
+                      const uint64_t* dims, const uint64_t* strides, const uint64_t* box) {
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
     void* fn = nullptr;
@@ -352,11 +427,22 @@ inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const u
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, (cuuint32_t)rank,
-                            const_cast<void*>(base), d, s, b, e, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  const CUresult r = encode(map, type, (cuuint32_t)rank, const_cast<void*>(base), d, s, b, e,
+                            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+inline int encode_bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                           const uint64_t* strides, const uint64_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box);
+}
+
+// fp32 elements, copied bit for bit (the 3xTF32 kernels stage fp32 values and
+// their split halves)
+inline int encode_f32_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
+                          const uint64_t* strides, const uint64_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, base, rank, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -38,12 +38,14 @@ _SIGNATURES = {
     "group_norm_resident_clusters": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # x, kp, bias, out, plan (24 x uint64, ops/upsample_conv.UpconvPlan.c_values), stream
     "subpixel_upconv_bf16": [_P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64), _P],
-    # x, kp, bias, out, N, ci, co, h, w, stream
-    "subpixel_upconv_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x, kp, bias, out, x_hi, x_lo, k_hi, k_lo, half0, N, ci, co, h, w, plan (24 x
+    # uint64, UpconvPlan.c_values for 4-byte elements), stream
+    "subpixel_upconv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            ctypes.POINTER(ctypes.c_uint64), _P],
     # q, k, v, out, BH, T, D, Tm, Dm, smem_bytes, stream
     "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, out, BH, T, D, stream
-    "flash_attention_f32": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # q, k, v, out, qs, ks, vs, BH, T, D, Tm, Dm, smem_bytes, stream
+    "flash_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -9,9 +9,10 @@ K2 has no backward and refuses such inputs.
 
 import torch
 
-# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 tensor-core and fp32 rates;
-# the kernels' bounds divide their bytes and operations by these
+# NVIDIA H100 SXM data sheet: HBM3 bandwidth, dense bf16 and TF32 tensor-core and
+# fp32 rates; the kernels' bounds divide their bytes and operations by these
 PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_FP32_FLOPS = 3.35e12, 989e12, 67e12
+PEAK_TF32_FLOPS = 495e12
 
 
 def use_kernel(x: torch.Tensor) -> bool:
@@ -39,3 +40,18 @@ def recompute_grads(plain, inputs, needed, grad_out, **kw):
         wanted = [t for t in leaves if t is not None and t.requires_grad]
         grads = iter(torch.autograd.grad(out, wanted, grad_out) if wanted else ())
     return tuple(next(grads) if t is not None and t.requires_grad else None for t in leaves)
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 ``x`` rounded to TF32 (10 mantissa bits) to nearest, ties away from
+    zero, as ``cvt.rna.tf32.f32`` does: the low 13 bits of the result are zero."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """(hi, lo) with hi = tf32(x), lo = tf32(x - hi): the split of the fp32 K2 and
+    K3 kernels (``csrc/hopper.cuh:split_tf32``), whose 3xTF32 products are
+    hi*hi + hi*lo + lo*hi."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)

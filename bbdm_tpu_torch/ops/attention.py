@@ -5,7 +5,7 @@ q and k are each scaled by D^-1/4 (the reference's symmetric scaling) and the
 softmax runs in float32. Dispatch mirrors ``bbdm_tpu/ops/attention.py:43-48``:
 a CUDA tensor with T >= 1024 and D % 128 == 0 goes to kernel K3
 (``csrc/flash_attention.cu`` for bf16, ``csrc/flash_attention_f32.cu`` for
-fp32; both replace the Pallas
+fp32 in 3xTF32; both replace the Pallas
 ``bbdm_tpu/ops/flash_attention.py:flash_attention``); everything else, the
 UNet's middle attention (T=256, 16 heads x 64) included, is the explicit
 matmul + softmax of :func:`attention_plain`, as the JAX package leaves it to XLA.
@@ -111,18 +111,35 @@ def _flash_bf16(q, k, v):
     return out[..., :T, :D].contiguous() if (Tm, Dm) != (T, D) else out
 
 
+def flash_f32_smem_bytes(D):
+    """The fp32 K3's dynamic shared memory at head dim D
+    (csrc/flash_attention_f32.cu smem_bytes): Q (64 rows x DP fp32), a 3-slot
+    ring of 16-key K or V tiles (16 x DP fp32, at least the 16 KB of score
+    partials each slot also holds), 7 mbarriers and 1 KB of alignment slack."""
+    dp = flash_padded_dim(D)
+    return 64 * dp * 4 + 3 * max(16 * dp * 4, 16384) + 7 * 8 + 1024
+
+
 def _flash_f32(q, k, v):
-    """The fp32 kernel masks keys and rows past T itself: no padding."""
+    """The fp32 kernel masks keys and rows past T itself. Its pre-pass writes
+    q and k times D^-1/4 into scratch allocated here, zero-padded to at least
+    64 rows and 32 columns (one TMA box), and a padded copy of v only where
+    that padding is needed."""
     from bbdm_tpu_torch.kernels import build
 
     B, H, T, D = q.shape
     if D % 4 != 0 or D > 512 or T == 0:
         raise ValueError(f"flash_attention_cuda (fp32) takes D % 4 == 0, D <= 512 and T > 0, "
                          f"got D={D}, T={T}")
+    Tm, Dm = max(T, 64), max(D, 32)
+    qs, ks = (q.new_empty((B * H, Tm, Dm)) for _ in range(2))
+    vs = q.new_empty((B * H, Tm, Dm)) if (Tm, Dm) != (T, D) else None
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = build.library().flash_attention_f32(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D, stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        None if vs is None else vs.data_ptr(), B * H, T, D, Tm, Dm, flash_f32_smem_bytes(Dm),
+        stream)
     build.check("flash_attention_f32", rc)
     flash_attention_cuda.launches += 1
     return out

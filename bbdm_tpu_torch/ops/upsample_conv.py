@@ -6,9 +6,9 @@ pixels, so ``conv3x3(pad=1)(upsample_nearest_2x(x))`` is exactly four 2x2
 (:func:`combine_kernel_2x2`), interleaved into the 2x output.
 
 On a CUDA tensor every call goes to kernel K2 (``csrc/subpixel_upconv.cu`` for
-bf16, ``csrc/subpixel_upconv_f32.cu`` for fp32; both replace the Pallas
-``bbdm_tpu/ops/subpixel_pallas.py:subpixel_upconv_pallas``); on a CPU tensor
-to :func:`upsample_conv_plain`.
+bf16, ``csrc/subpixel_upconv_f32.cu`` for fp32 in 3xTF32; both replace the
+Pallas ``bbdm_tpu/ops/subpixel_pallas.py:subpixel_upconv_pallas``); on a CPU
+tensor to :func:`upsample_conv_plain`.
 """
 
 from __future__ import annotations
@@ -68,8 +68,9 @@ def upsample_conv_plain(x, w, b, *, dtype=None):
     return F.conv2d(up, w.to(dt), b.to(dt), padding=1)
 
 
-# bf16 K2's block tile (csrc/subpixel_upconv.cu): BM output channels x BN source
-# pixels, BK input channels per pipeline stage
+# K2's block tile (csrc/subpixel_upconv{,_f32}.cu): BM output channels x BN source
+# pixels, BK bf16 input channels per pipeline stage (one 128-byte swizzle row;
+# 32 channels in fp32)
 BM, BN, BK = 128, 128, 64
 
 
@@ -104,21 +105,25 @@ class UpconvPlan(NamedTuple):
 
 
 @functools.lru_cache(maxsize=None)
-def plan_upconv(N, ci, co, h, w) -> UpconvPlan:
+def plan_upconv(N, ci, co, h, w, esize=2) -> UpconvPlan:
     """The widest power-of-two row segment (8 ... 128 pixels) that ``w`` fills;
-    rows of it make up the BN pixels of a block. Pads ci to a multiple of 8 and
-    at least BK, co to at least BM, h to at least one tile of rows and w to 8."""
+    rows of it make up the BN pixels of a block. For elements of ``esize``
+    bytes (2: bf16, 4: fp32), a stage takes bk = 128 / esize input channels;
+    ci is padded to a multiple of 16 bytes and at least bk, co to at least BM, h
+    to at least one tile of rows and w to 8."""
+    bk, align = BK * 2 // esize, 16 // esize
     wp = max(w, 8)
     w_box = min(128, 1 << (wp.bit_length() - 1))
     rows = BN // w_box
-    hp, cip, cop = max(h, rows), max(BK, -(-ci // 8) * 8), max(BM, co)
+    hp, cip, cop = max(h, rows), max(bk, -(-ci // align) * align), max(BM, co)
     row_tiles, segs = -(-hp // rows), -(-wp // w_box)
     return UpconvPlan(
         w_box=w_box, rows=rows, row_tiles=row_tiles, segs=segs,
         grid=(N * row_tiles * segs, -(-cop // BM), 2),
-        x_dims=(cip, wp, hp, N), x_strides=(2 * cip, 2 * wp * cip, 2 * hp * wp * cip),
-        x_box=(BK, w_box, rows, 1),
-        k_dims=(cip, cop, 16), k_strides=(2 * cip, 2 * cop * cip), k_box=(BK, BM, 1))
+        x_dims=(cip, wp, hp, N),
+        x_strides=(esize * cip, esize * wp * cip, esize * hp * wp * cip),
+        x_box=(bk, w_box, rows, 1),
+        k_dims=(cip, cop, 16), k_strides=(esize * cip, esize * cop * cip), k_box=(bk, BM, 1))
 
 
 @functools.lru_cache(maxsize=None)
@@ -155,15 +160,25 @@ def upsample_conv_cuda(x, kp, b):
 
 
 def _upconv_f32(x, kp, b):
-    """``csrc/subpixel_upconv_f32.cu``: NCHW in and out, zero padding inside."""
+    """``csrc/subpixel_upconv_f32.cu``: NCHW in and out. Its pre-passes write
+    the split halves of x (channels-last, zero-padded as :func:`plan_upconv`
+    says) and of the phase kernel into scratch allocated here, in the same
+    call; the kernel parks its px = 0 results in a third."""
     from bbdm_tpu_torch.kernels import build
 
     N, ci, h, w = x.shape
     co = kp.shape[3]
+    plan = plan_upconv(N, ci, co, h, w, esize=4)
+    (cip, wp, hp, _), cop = plan.x_dims, plan.k_dims[1]
+    x_hi, x_lo = (x.new_empty((N, hp, wp, cip)) for _ in range(2))
+    k_hi, k_lo = (x.new_empty((16, cop, cip)) for _ in range(2))
+    half0 = x.new_empty((2, N, co, h, w))  # the px = 0 results of each py until px = 1
     out = torch.empty((N, co, 2 * h, 2 * w), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = build.library().subpixel_upconv_f32(x.data_ptr(), kp.data_ptr(), b.data_ptr(),
-                                             out.data_ptr(), N, ci, co, h, w, stream)
+    rc = build.library().subpixel_upconv_f32(
+        x.data_ptr(), kp.data_ptr(), b.data_ptr(), out.data_ptr(), x_hi.data_ptr(),
+        x_lo.data_ptr(), k_hi.data_ptr(), k_lo.data_ptr(), half0.data_ptr(), N, ci, co, h, w,
+        _c_plan(plan), stream)
     build.check("subpixel_upconv_f32", rc)
     upsample_conv_cuda.launches += 1
     return out

@@ -17,7 +17,11 @@ Phases, each of which must pass:
    its twin and one PyTorch library call computing the same function (or, for
    K1, a subset of it), the kernel's own device time from torch.profiler, and
    its bound: the larger of its bytes over 3.35 TB/s and its operations over
-   the peak rate for their type (H100 SXM data sheet);
+   the peak rate for their type (H100 SXM data sheet). The fp32 K2 and K3
+   compute in 3xTF32: their bound takes three TF32 passes at 495 TFLOP/s, and
+   the bound of the same work as fp32 FMAs (67 TFLOP/s) is printed beside it;
+   at each of their path shapes the function with one TF32 pass
+   (``ops.tf32_round`` inputs) must miss the bar the kernel meets;
 4. the LBBDM-f4 slice at full width (VQGAN ch 128 x (1,2,4) at 256^2, UNet
    mc 128 x (1,4,8) at 64^2, bf16, batch 8, seeded random weights), cut to
    20 sampling steps and 2 draws per condition: the sampled latent through
@@ -60,8 +64,10 @@ Phases, each of which must pass:
    the kernels against the twins with the kernels' codes (reconstruction,
    generator loss, generator and discriminator gradients against the fixed
    ``VQ_STEP_BARS``, which the twins run twice must pass and the twins with
-   TF32 must fail; d_weight and the discriminator loss printed), every
-   parameter of both players with a finite gradient; then
+   TF32 must fail, each reading printed against its bar with the number of
+   codes the kernels pick differently; d_weight and the discriminator loss
+   printed), every parameter of both players with a finite gradient; K3's
+   device ms per step; then
    ``--sample_to_eval`` from its ``last_model.ckpt`` and that file as an
    LBBDM-f4 first stage for one encode and decode.
 
@@ -155,6 +161,29 @@ def upconv_transposed_kernel(w):
     return torch.einsum("ar,bs,oirs->ioab", m, m, w.float()).to(w.dtype)
 
 
+def attention_one_tf32_pass(q, k, v):
+    """K3 fp32's function with one TF32 pass where the kernel makes three: q*D^-1/4,
+    k*D^-1/4, the softmax weights and v rounded to TF32 (``ops.tf32_round``),
+    products of TF32 values exact in fp32 (TF32 off), fp32 sums."""
+    from bbdm_tpu_torch.ops import tf32_round
+
+    scale = q.shape[-1] ** -0.25
+    logits = tf32_round(q * scale) @ tf32_round(k * scale).transpose(-1, -2)
+    return tf32_round(torch.softmax(logits, dim=-1)) @ tf32_round(v)
+
+
+def upconv_one_tf32_pass(x, w, b):
+    """K2 fp32's function on x and the 3x3 taps rounded to TF32 (one pass)."""
+    from bbdm_tpu_torch.ops import tf32_round, upsample_conv
+
+    return upsample_conv.upsample_conv_plain(tf32_round(x), tf32_round(w), b)
+
+
+def bar_excess(out, ref, rtol, atol):
+    """max |out - ref| / (atol + rtol |ref|): <= 1 within the bar."""
+    return float(((out.float() - ref.float()).abs() / (atol + rtol * ref.float().abs())).max())
+
+
 def kernel_times_us(fn, calls=5):
     """{device kernel name: microseconds per call} of fn() from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -195,12 +224,15 @@ def kernel_cases(dev):
     case (bf16, and for K2 and K3 also fp32, whose kernels are the second
     source) is (label, run_kernel, run_plain, rtol, atol, work): work None marks an
     edge case that is checked but not timed, else a dict with the case's
-    ``flops`` at ``peak`` FLOP/s, its ``bytes`` (each input read once, each output
-    written once) and its ``library`` call (or None)."""
+    ``flops``, done ``passes`` times at ``peak`` FLOP/s (the fp32 K2 and K3: 3
+    TF32 passes, and ``fma_peak`` for the bound of the same work as fp32 FMAs),
+    its ``bytes`` (each input read once, each output written once), its
+    ``library`` call (or None) and, for the fp32 K2 and K3, ``one_pass``: the
+    function with one TF32 pass, which must miss the bar the kernel meets."""
     import torch.nn.functional as F
 
-    from bbdm_tpu_torch.ops import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, attention, group_norm,
-                                    upsample_conv)
+    from bbdm_tpu_torch.ops import (PEAK_BF16_FLOPS, PEAK_FP32_FLOPS, PEAK_TF32_FLOPS, attention,
+                                    group_norm, upsample_conv)
 
     g = torch.Generator(dev).manual_seed(0)
 
@@ -278,19 +310,22 @@ def kernel_cases(dev):
         w4, bl = upconv_transposed_kernel(w).to(dtype), b.to(dtype)
         size = x.element_size()
         work = dict(flops=2 * n * h * wd * 16 * ci * co,
-                    peak=PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS,
+                    peak=PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS, passes=3 if f32 else 1,
                     bytes=size * (x.numel() + kp.numel() + 4 * n * h * wd * co) + 4 * co,
                     library=lambda x=x, w4=w4, bl=bl: F.conv_transpose2d(
                         x, w4, bl, stride=2, padding=1),
                     library_call="F.conv_transpose2d(x, W4, b, stride=2, padding=1)")
+        if f32:
+            work.update(fma_peak=PEAK_FP32_FLOPS,
+                        one_pass=lambda x=x, w=w, b=b: upconv_one_tf32_pass(x, w, b))
         up.append((f"{[n, ci, h, wd]}->{co}{' fp32' if f32 else ''}",
                    lambda x=x, kp=kp, b=b: upsample_conv.upsample_conv_cuda(x, kp, b),
                    lambda x=x, w=w, b=b, dtype=dtype: upsample_conv.upsample_conv_plain(
                        x, w, b, dtype=dtype),
                    # bf16: the kernel's phase taps are fp32 sums rounded to bf16 once,
                    # the twin's 3x3 taps are rounded one by one: 2^-8 relative per tap,
-                   # plus one output rounding each; fp32: fp32 FMAs on both sides (TF32
-                   # off) summed in another order
+                   # plus one output rounding each; fp32: 3xTF32 (~2^-22 per product)
+                   # against fp32 FMAs (TF32 off), summed in another order
                    *((1e-4, 1e-4) if f32 else (2 ** -5, 2 ** -5)), work if timed else None))
 
     fa = []
@@ -308,20 +343,23 @@ def kernel_cases(dev):
         f32 = dtype == torch.float32
         q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
         B, H, T, D = shape
-        work = dict(flops=4 * B * H * T * T * D, peak=PEAK_FP32_FLOPS if f32 else PEAK_BF16_FLOPS,
-                    bytes=4 * q.numel() * q.element_size(),
+        work = dict(flops=4 * B * H * T * T * D, peak=PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS,
+                    passes=3 if f32 else 1, bytes=4 * q.numel() * q.element_size(),
                     library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
                         q, k, v, scale=q.shape[-1] ** -0.5),
                     library_call="F.scaled_dot_product_attention(q, k, v, scale=D**-0.5)",
                     backends=lambda q=q, k=k, v=v: sdpa_backends(q, k, v))
+        if f32:
+            work.update(fma_peak=PEAK_FP32_FLOPS,
+                        one_pass=lambda q=q, k=k, v=v: attention_one_tf32_pass(q, k, v))
         fa.append((f"{list(shape)}{' fp32' if f32 else ''}",
                    lambda q=q, k=k, v=v: attention.flash_attention_cuda(q, k, v),
                    lambda q=q, k=k, v=v: attention.attention_plain(q, k, v),
                    # bf16: the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as
                    # _xla_attention does; the kernel scales the fp32 scores), and both
                    # round the probabilities to bf16: 2^-8 relative each, over T keys;
-                   # fp32: fp32 products on both sides (TF32 off), an online softmax
-                   # against one pass
+                   # fp32: 3xTF32 products (~2^-22 each) against fp32 FMAs (TF32 off),
+                   # an online softmax against one pass
                    *((1e-4, 1e-5) if f32 else (2 ** -6, 2 ** -7)), work if timed else None))
 
     return [
@@ -341,10 +379,13 @@ def kernel_cases(dev):
 
 def kernel_phase(name, counter, patterns, cases):
     """Check each case against the twin (and that it is one launch); time the
-    path shapes; returns the kernel's JSON entry: errors and sums over the
-    timed shapes of the 16-bit cases at its top level, those of the fp32 cases
-    in its ``fp32`` block (``patterns``: the device kernel's name fragment of
-    each, keyed None and "fp32")."""
+    path shapes; where the case has a one-TF32-pass control, check that it
+    misses the bar the kernel meets; returns the kernel's JSON entry: errors
+    and sums over the timed shapes of the 16-bit cases at its top level, those
+    of the fp32 cases in its ``fp32`` block (``patterns``: the device kernel's
+    name fragment of each, keyed None and "fp32"; every kernel of a call,
+    pre-passes included, carries it). The fp32 block also sums the bound of
+    the same work as fp32 FMAs (``bound_fma_ms``) where the cases give one."""
     from bbdm_tpu_torch.ops import PEAK_BYTES_S
 
     mod, attr = counter
@@ -352,6 +393,7 @@ def kernel_phase(name, counter, patterns, cases):
                     "bound_ms": 0.0, "bound_by": None, "library_ms": 0.0}
               for key in (None, "fp32")}
     seconds = {key: [0.0, 0.0] for key in blocks}  # ops, bytes
+    fma_s = {key: 0.0 for key in blocks}
     entry = {**blocks[None], "fp32": blocks["fp32"], "shapes": []}
     blocks[None] = entry
     ok = True
@@ -372,9 +414,20 @@ def kernel_phase(name, counter, patterns, cases):
         if work is None:
             line += "; edge case, not timed"
         else:
+            if "one_pass" in work:
+                control = work["one_pass"]()
+                shape["excess"] = bar_excess(out, ref, rtol, atol)
+                shape["one_pass_excess"] = bar_excess(control, ref, rtol, atol)
+                missed = not compare(control, ref, rtol, atol)[2]
+                good &= missed
+                line += (f"; |d|/bar kernel {shape['excess']:.3f}, one TF32 pass "
+                         f"{shape['one_pass_excess']:.2f} ({'misses' if missed else 'MEETS'} "
+                         f"the bar)")
+                del control
             ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(work["library"])
             dev = sum(v for k, v in kernel_times_us(run).items() if patterns[key] in k)
-            t_ops, t_bytes = work["flops"] / work["peak"], work["bytes"] / PEAK_BYTES_S
+            t_ops = work.get("passes", 1) * work["flops"] / work["peak"]
+            t_bytes = work["bytes"] / PEAK_BYTES_S
             bound_us = max(t_ops, t_bytes) * 1e6
             seconds[key][0] += t_ops
             seconds[key][1] += t_bytes
@@ -385,6 +438,12 @@ def kernel_phase(name, counter, patterns, cases):
                      f"library {lib_ms:.4f} ms; bound {bound_us:.1f} us "
                      f"({shape['bound_by']}), {bound_us / dev:.0%} of it" if dev else
                      "; device time not measured")
+            if "fma_peak" in work:
+                t_fma = work["flops"] / work["fma_peak"]
+                fma_s[key] += max(t_fma, t_bytes)
+                shape["bound_fma_us"] = max(t_fma, t_bytes) * 1e6
+                line += (f"; as fp32 FMAs bound {shape['bound_fma_us']:.1f} us"
+                         + (f", {shape['bound_fma_us'] / dev:.0%} of it" if dev else ""))
             if "backends" in work:
                 shape["library_backends"] = work["backends"]()
                 line += f"; sdpa backends {shape['library_backends']}"
@@ -400,6 +459,8 @@ def kernel_phase(name, counter, patterns, cases):
     for key, (ops_s, bytes_s) in seconds.items():
         blocks[key]["bound_ms"] = max(ops_s, bytes_s) * 1e3
         blocks[key]["bound_by"] = "operations" if ops_s > bytes_s else "bytes"
+        if fma_s[key]:
+            blocks[key]["bound_fma_ms"] = fma_s[key] * 1e3
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain twin")
     return entry
@@ -1299,10 +1360,16 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
     out["step_wall_ms"], out["step_device_busy_ms"] = wall_ms, busy_ms
     out["idle_share"] = 1 - busy_ms / wall_ms
     out["step_device_ms_top"] = dict(sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8])
+    out["k3_device_ms_per_step"] = sum(v for k, v in dev_ms.items()
+                                       if "flash_attention_f32_kernel" in k)
     log(f"  vqgan train loop: {out['s_per_step']:.4f} s per step (batch "
         f"{x.shape[0]}, both players); over two steps wall {wall_ms:.1f} ms, device busy "
         f"{busy_ms:.1f} ms per step, idle share {out['idle_share']:.0%}; top device ms "
         + json.dumps({k[:60]: round(v, 3) for k, v in out["step_device_ms_top"].items()}))
+    log(f"  vqgan step summary: {out['s_per_step']:.4f} s per step, device busy "
+        f"{busy_ms:.1f} ms, idle share {out['idle_share']:.1%}, peak device memory "
+        f"{out['peak_memory_gib']:.2f} GiB, K3 fp32 (3xTF32, pre-pass included) "
+        f"{out['k3_device_ms_per_step']:.3f} device ms per step")
 
     # one step through the kernels against the same step through the twins
     # (fp32 both, same weights, batch and BatchNorm statistics); the twins once
@@ -1357,6 +1424,13 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
     if out["d_weight"] <= 0:
         raise AssertionError("vqgan step: the adaptive d_weight is not live")
     bars = [(m, k, b) for m, per in VQ_STEP_BARS.items() for k, b in per.items()]
+    log(f"  vqgan step: codes the kernels pick differently from the twins: "
+        f"{out['code_flips']['twin']} of {out['code_flips']['of']}")
+    for m, k, b in bars:
+        log(f"  vqgan step {m} {k}: kernels {out['kernel_vs_twin'][m][k]:.3e}, twins again "
+            f"{out['twin_vs_twin'][m][k]:.3e}, TF32 {out['tf32_vs_twin'][m][k]:.3e}; bar {b:g} "
+            f"(kernels at {out['kernel_vs_twin'][m][k] / b:.2f} of it, TF32 at "
+            f"{out['tf32_vs_twin'][m][k] / b:.1f}x)")
     checks = {"the twins' floor above the bar": [
                   f"{m} {k}" for m, k, b in bars if not out["twin_vs_twin"][m][k] <= b],
               "TF32 within the bar": [

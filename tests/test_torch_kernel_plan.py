@@ -15,7 +15,8 @@ plan that breaks one is refused at encode time or faults at run time, so the
 plans are held to them here, at every shape the LBBDM-f4 path and the
 ``gpu``-marked tests give the kernels. K2's C entry encodes and launches the
 plan's values as they are, so the plan tested here is the one launched. K3's shared-memory layout must fit the
-232,448 bytes a block may have.
+232,448 bytes a block may have. The fp32 entries (``csrc/*_f32.cu``) load fp32
+boxes of 32 values (one 128-byte swizzle row) under the same limits.
 """
 
 import os
@@ -26,7 +27,7 @@ import pytest
 import torch
 
 from bbdm_tpu_torch.ops import group_norm as gn
-from bbdm_tpu_torch.ops.attention import flash_padded_dim, flash_smem_bytes
+from bbdm_tpu_torch.ops.attention import flash_f32_smem_bytes, flash_padded_dim, flash_smem_bytes
 from bbdm_tpu_torch.ops.upsample_conv import BK, BM, BN, plan_upconv
 
 H100_BLOCK_SMEM = 232_448
@@ -124,6 +125,62 @@ def test_upconv_c_values_match_the_c_entry_layout():
         assert plan.c_values()[at:at + len(value)] == tuple(value)
         at += len(value)
     assert at == len(plan.c_values()) == 24
+
+
+def _c_offsets(name):
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "bbdm_tpu_torch", "csrc", name)
+    with open(src) as f:
+        text = f.read()
+    offsets = {n: int(off or 0) for n, off in re.findall(r"\*(\w+) = plan(?: \+ (\d+))?[,;]", text)}
+    offsets.update({n: int(off) for n, off in re.findall(r"(\w+) = \(int\)plan\[(\d+)\]", text)})
+    return offsets
+
+
+@pytest.mark.parametrize("shape", UPCONV_SHAPES)
+def test_upconv_f32_plan_fits_tma_and_covers_each_pixel_once(shape):
+    """fp32 K2: boxes of 32 channels (128 bytes, the swizzle span) inside their
+    tensors, dense 16-byte multiple strides, ci padded to a multiple of 4 and at
+    least 32, and the bf16 plan's tiling of pixels and channels."""
+    N, ci, co, h, w = shape
+    plan = plan_upconv(*shape, esize=4)
+    bf16 = plan_upconv(*shape)
+    for dims, strides, box in _maps(plan):
+        assert all(1 <= b <= 256 for b in box) and all(b <= d for b, d in zip(box, dims))
+        assert box[0] * 4 == plan.swizzle
+        row = dims[0] * 4
+        for d, st in zip(dims[1:], strides):
+            assert st == row and st % 16 == 0
+            row *= d
+    cip = plan.x_dims[0]
+    assert cip == max(32, -(-ci // 4) * 4)
+    assert plan.x_box == (32, bf16.w_box, bf16.rows, 1) and plan.k_box == (32, BM, 1)
+    assert (plan.grid, plan.row_tiles, plan.segs, plan.x_dims[1:]) == (
+        bf16.grid, bf16.row_tiles, bf16.segs, bf16.x_dims[1:])
+
+
+def test_upconv_f32_c_values_match_the_c_entry_layout():
+    offsets = _c_offsets("subpixel_upconv_f32.cu")
+    plan = plan_upconv(*UPCONV_SHAPES[3], esize=4)
+    fields = [("xd", plan.x_dims), ("xs", plan.x_strides), ("xb", plan.x_box),
+              ("kd", plan.k_dims), ("ks", plan.k_strides), ("kb", plan.k_box),
+              ("grid", plan.grid), ("row_tiles", (plan.row_tiles,)), ("segs", (plan.segs,))]
+    at = 0
+    for name, value in fields:
+        assert offsets[name] == at, (name, offsets)
+        assert plan.c_values()[at:at + len(value)] == tuple(value)
+        at += len(value)
+    assert at == len(plan.c_values()) == 24
+
+
+@pytest.mark.parametrize("D", [16, 48, 128, 200, 256, 512])
+def test_flash_attention_f32_smem_fits_a_block(D):
+    """fp32 K3: Q of 64 rows x DP fp32, a 3-slot ring of 16-key tiles x DP fp32, 7
+    mbarriers, 1 KB of alignment slack; the score exchange borrows a K slot, which
+    must hold 8 warps x 32 rows x 16 keys of fp32."""
+    DP = flash_padded_dim(D)
+    slot = max(16 * DP * 4, 8 * 32 * 16 * 4)
+    assert flash_f32_smem_bytes(D) == 64 * DP * 4 + 3 * slot + 7 * 8 + 1024
+    assert flash_f32_smem_bytes(D) <= H100_BLOCK_SMEM
 
 
 @pytest.mark.parametrize("D", [128, 256, 512])

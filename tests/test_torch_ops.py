@@ -348,7 +348,8 @@ def test_upsample_conv_kernel_matches_twin_fp32(cuda, shape, co):
     ref = upsample_conv.upsample_conv_plain(x, w, b)
     torch.cuda.synchronize()
     assert upsample_conv.upsample_conv_cuda.launches == before + 1 and out.dtype == torch.float32
-    # fp32 FMAs on both sides (TF32 off), summed in another order
+    # 3xTF32 products (~2^-22 each) against fp32 FMAs (TF32 off), summed in
+    # another order
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
 
 
@@ -362,5 +363,37 @@ def test_flash_attention_kernel_matches_twin_fp32(cuda, shape):
     ref = attention.attention_plain(q, k, v)
     torch.cuda.synchronize()
     assert attention.flash_attention_cuda.launches == before + 1 and out.dtype == torch.float32
-    # fp32 products and softmax on both sides (TF32 off), an online softmax vs one pass
+    # 3xTF32 products against fp32 FMAs (TF32 off), fp32 softmax on both sides,
+    # an online softmax vs one pass
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [1e-3, 1e2])
+def test_upsample_conv_kernel_fp32_keeps_both_halves_at_any_scale(cuda, scale):
+    """x and the bias scaled: the output scales with them, and so must the
+    kernel's agreement with the twin. A split that lost lo would miss here."""
+    g = torch.Generator(cuda).manual_seed(6)
+    x = scale * torch.randn((2, 256, 16, 16), generator=g, device=cuda)
+    w = 0.02 * torch.randn(256, 256, 3, 3, generator=g, device=cuda)
+    b = scale * torch.randn(256, generator=g, device=cuda)
+    out = upsample_conv.upsample2x_conv3x3(x, w, b)
+    ref = upsample_conv.upsample_conv_plain(x, w, b)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scale", [1e-3, 1e2])
+def test_flash_attention_kernel_fp32_keeps_both_halves_at_any_scale(cuda, scale):
+    """q, k and v scaled by 1e-3 (flat logits), or v by 1e2 (q and k scaled by
+    1e2 would put the logits near 1e4, where the softmax turns on near ties
+    that fp32 itself rounds either way): the output scales with v."""
+    g = torch.Generator(cuda).manual_seed(7)
+    qk = min(scale, 1.0)
+    q, k = (qk * torch.randn((1, 2, 1024, 512), generator=g, device=cuda) for _ in range(2))
+    v = scale * torch.randn((1, 2, 1024, 512), generator=g, device=cuda)
+    out = attention.flash_attention_cuda(q, k, v)
+    ref = attention.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
