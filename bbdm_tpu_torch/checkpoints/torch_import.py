@@ -441,16 +441,17 @@ def convert_ldm_vqgan_checkpoint(path: str) -> dict:
 
 
 def convert_vqgan_train_checkpoint(path: str) -> tuple:
-    """Full taming/LDM VQGAN training ckpt -> (VQGANRunner resume dict,
-    perceptual-loss state_dict or None).
+    """Full taming/LDM VQGAN training ckpt -> (VQGANRunner resume dict, LPIPS
+    tree or None).
 
     Such checkpoints carry the autoencoder, ``loss.discriminator.main.*`` (the
-    taming NLayerDiscriminator) and ``loss.perceptual_loss.*`` (LPIPS). The
+    taming NLayerDiscriminator) and ``loss.perceptual_loss.*`` (LPIPS-VGG). The
     resume dict follows the VQGAN runner's model checkpoint (step and epoch 0
     for a fresh fine-tune) with the ``disc_config`` the runner checks at load;
     discriminator depth and ActNorm use are read from the state_dict. The
-    LPIPS weights come back as their numpy state_dict under their own names:
-    converting them waits for the LPIPS port (``ROADMAP.md`` §1 item 10).
+    LPIPS weights come back in the JAX package's layout
+    (``evaluation.lpips.lpips_tree_from_state_dict``; ``state_dict_from_lpips_tree``
+    takes it to ``LPIPS("vgg")``), None where the checkpoint has none.
     """
     raw = load_torch_file(path)
     sd = _to_numpy_state_dict(raw.get("state_dict", raw))
@@ -469,7 +470,12 @@ def convert_vqgan_train_checkpoint(path: str) -> tuple:
         sd, n_layers=n_layers, use_actnorm=use_actnorm, prefix=disc_prefix)
 
     lp_prefix = "loss.perceptual_loss."
-    lpips = {k[len(lp_prefix):]: v for k, v in sd.items() if k.startswith(lp_prefix)} or None
+    lp_sd = {k[len(lp_prefix):]: v for k, v in sd.items() if k.startswith(lp_prefix)}
+    lpips = None
+    if lp_sd:
+        from bbdm_tpu_torch.evaluation.lpips import lpips_tree_from_state_dict
+
+        lpips = lpips_tree_from_state_dict(lp_sd)
     resume = {
         "step": 0,
         "epoch": 0,

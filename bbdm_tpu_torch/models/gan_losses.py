@@ -4,11 +4,8 @@ generator: nll + d_weight * disc_factor * g_loss + codebook_weight * q_loss,
 the adaptive d_weight = |grad nll| / (|grad g| + 1e-4) at the decoder's last
 layer, clipped to [0, 1e4] and scaled by ``disc_weight``; discriminator: hinge
 or vanilla on the real and fake patch logits; ``adopt_weight`` zeroes the
-adversarial terms before ``disc_start``.
-
-The perceptual (LPIPS) term is not ported yet (``ROADMAP.md`` §1 item 10):
-:func:`reconstruction_loss` raises where it would be added, so no run trains
-without it silently.
+adversarial terms before ``disc_start``. The reconstruction term adds the
+LPIPS-VGG perceptual distance (``evaluation/lpips.py``) when a network is given.
 """
 
 from __future__ import annotations
@@ -30,19 +27,13 @@ def vanilla_d_loss(logits_real, logits_fake):
     return 0.5 * (F.softplus(-logits_real).mean() + F.softplus(logits_fake).mean())
 
 
-def check_perceptual(lpips_params, perceptual_weight) -> None:
-    """Raise where the JAX package would add the LPIPS term: LPIPS weights given
-    and ``perceptual_weight`` > 0."""
-    if lpips_params is not None and perceptual_weight > 0:
-        raise NotImplementedError("the LPIPS perceptual term is not ported (ROADMAP.md §1 "
-                                  "item 10): unset model.loss.lpips_weights or set "
-                                  "perceptual_weight 0")
-
-
-def reconstruction_loss(x, xrec, *, lpips_params=None, perceptual_weight=1.0):
-    """|x - xrec| per element (see :func:`check_perceptual`)."""
-    check_perceptual(lpips_params, perceptual_weight)
-    return (x - xrec).abs()
+def reconstruction_loss(x, xrec, *, lpips=None, perceptual_weight=1.0):
+    """|x - xrec| per element, plus ``perceptual_weight * lpips(x, xrec)`` per
+    image where an LPIPS network is given (NCHW images in [-1, 1])."""
+    rec = (x - xrec).abs()
+    if lpips is not None and perceptual_weight > 0:
+        rec = rec + perceptual_weight * lpips(x, xrec).view(-1, 1, 1, 1)
+    return rec
 
 
 def adaptive_d_weight(nll_grad_last, g_grad_last, disc_weight=1.0):

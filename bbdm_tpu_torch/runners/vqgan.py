@@ -6,7 +6,9 @@ autoencoder under ``model.VQGAN.params``, the adversarial loss and the
 discriminator's geometry under ``model.loss``, Adam's ``lr`` and ``beta1``
 under ``model.optimizer``. Both players train with Adam at that lr, the
 generator with betas (beta1, 0.9), the discriminator with (0.5, 0.9); no
-plateau schedule and no EMA (``training/gan.py`` has the step).
+plateau schedule and no EMA (``training/gan.py`` has the step). With
+``model.loss.lpips_weights`` the reconstruction term adds LPIPS-VGG
+(``evaluation/lpips.py``), as the JAX runner does.
 
 Checkpoints use the JAX runner's layout: the model file ``{"model":
 {"vqgan", "discriminator", "disc_stats"}, "step", "epoch"}``, the optimizer
@@ -78,12 +80,21 @@ class VQGANRunner(BaseRunner):
                              lr=torch.tensor(lr, dtype=torch.float32, device=self.device))
 
     def build_train_step(self):
+        """The GAN step; with ``model.loss.lpips_weights`` the perceptual term runs
+        LPIPS-VGG with those weights on the runner's device (frozen: in no
+        optimizer, checkpoint or EMA)."""
         loss_cfg = self.config.model.loss
-        lpips = loss_cfg.get("lpips_weights", None) or None
-        if lpips is None and loss_cfg.get("perceptual_weight", 1.0) > 0:
+        lpips = None
+        lp = loss_cfg.get("lpips_weights", None)
+        if lp:
+            from bbdm_tpu_torch.evaluation.lpips import load_lpips
+
+            lpips = load_lpips(lp, net="vgg", device=self.device)
+            self.logger(f"perceptual loss enabled (LPIPS weights: {lp})")
+        elif loss_cfg.get("perceptual_weight", 1.0) > 0:
             self.logger("no lpips_weights configured: training with pixel L1 only")
         step = make_vqgan_train_step(self.model.vqgan, self.model.discriminator, loss_cfg,
-                                     lpips_params=lpips)
+                                     lpips=lpips)
         return lambda state, x, y, generator=None: step(state, x, generator)
 
     def build_eval_step(self):

@@ -3,6 +3,7 @@
 One call per batch updates both players, each with its own Adam:
 
   generator:     nll + d_weight * disc_factor * (-E[D(xrec)]) + codebook_weight * q_loss
+                 with nll = mean(|x - xrec| + perceptual_weight * LPIPS-VGG(x, xrec))
   discriminator: hinge or vanilla on D(x), D(xrec.detach())
 
 The generator term runs the discriminator on its running statistics; its
@@ -28,7 +29,6 @@ import torch
 from bbdm_tpu_torch.models.gan_losses import (
     adaptive_d_weight,
     adopt_weight,
-    check_perceptual,
     hinge_d_loss,
     reconstruction_loss,
     vanilla_d_loss,
@@ -46,8 +46,9 @@ class GANTrainState:
     lr: torch.Tensor  # 0-d fp32 on the device, both players' learning rate
 
 
-def make_vqgan_losses(vq_model, disc_model, loss_config, *, lpips_params=None):
-    """``(gen_loss, disc_loss)``:
+def make_vqgan_losses(vq_model, disc_model, loss_config, *, lpips=None):
+    """``(gen_loss, disc_loss)``; ``lpips``: the frozen LPIPS-VGG network of the
+    perceptual term (``evaluation.lpips.LPIPS``) or None:
 
     * ``gen_loss(x, step, *, temp=1.0, u=None, generator=None) -> (total, aux)``
       with aux ``xrec``, ``nll``, ``g_loss``, ``q_loss``, ``d_weight``; ``u`` and
@@ -63,7 +64,6 @@ def make_vqgan_losses(vq_model, disc_model, loss_config, *, lpips_params=None):
     adaptive = loss_config.get("adaptive_disc_weight", True)
     d_loss_fn = hinge_d_loss if loss_config.get("disc_loss", "hinge") == "hinge" \
         else vanilla_d_loss
-    check_perceptual(lpips_params, perceptual_weight)
 
     def factor(step, device):
         # fp32, as the JAX jnp.where gives it
@@ -73,7 +73,7 @@ def make_vqgan_losses(vq_model, disc_model, loss_config, *, lpips_params=None):
     def gen_loss(x, step, *, temp=1.0, u=None, generator=None):
         disc_factor = factor(step, x.device)
         xrec, qloss = vq_model(x, temp=temp, train=is_gumbel, u=u, generator=generator)
-        nll = reconstruction_loss(x, xrec, lpips_params=lpips_params,
+        nll = reconstruction_loss(x, xrec, lpips=lpips,
                                   perceptual_weight=perceptual_weight).mean()
         g = -disc_model(xrec, train=False).mean()
         if adaptive:
@@ -114,14 +114,14 @@ def _grads(loss, params: dict, who: str):
     return list(grads)
 
 
-def make_vqgan_train_step(vq_model, disc_model, loss_config, *, lpips_params=None):
+def make_vqgan_train_step(vq_model, disc_model, loss_config, *, lpips=None):
     """``train_step(state, x, generator=None, *, u=None) -> metrics`` (0-d
     tensors: loss, d_loss, nll, g_loss, q_loss, d_weight, and temperature for
     the Gumbel quantizer), updating ``state`` in place. ``u``: the Gumbel
     uniforms (tests feed the JAX draws)."""
     is_gumbel = getattr(vq_model, "quantizer_type", "nearest") == "gumbel"
     gen_loss_fn, disc_loss_fn = make_vqgan_losses(vq_model, disc_model, loss_config,
-                                                  lpips_params=lpips_params)
+                                                  lpips=lpips)
 
     def train_step(state: GANTrainState, x, generator=None, *, u=None):
         step = state.step + 1

@@ -69,7 +69,26 @@ Phases, each of which must pass:
    printed), every parameter of both players with a finite gradient; K3's
    device ms per step; then
    ``--sample_to_eval`` from its ``last_model.ckpt`` and that file as an
-   LBBDM-f4 first stage for one encode and decode.
+   LBBDM-f4 first stage for one encode and decode. A second run trains the same
+   model for 2 steps (one epoch, one sample, validation and save) with
+   ``perceptual_weight`` 1.0 and seeded random LPIPS-VGG weights the smoke writes
+   as a ``.pth`` state dict: seconds per step, device busy and idle share,
+   peak memory, the kernels' launches, the LPIPS term at the step's
+   [8,3,256,256] on the card against the same module on the CPU (1e-4
+   relative), every gradient of a step present and finite and none reaching
+   the LPIPS weights, which the checkpoint does not hold;
+8. evaluation, ``preprocess_and_evaluation_torch.py`` (in process, and once as
+   its own process) over phase 5's LBBDM-f4 euler ``sample_to_eval`` tree (2
+   draws) and its ground truth with smoke-made random InceptionV3 (He init) and
+   LPIPS alex and vgg weights: every ``-f`` mode (rename_samples,
+   copy_samples, LPIPS, max_min_LPIPS, diversity, FID, psnr_ssim) on the card
+   against ``--cpu`` (the same files; LPIPS within 1e-5 relative; FID
+   finite; diversity and PSNR/SSIM printed alike), the pool3 features within
+   1e-4 of their norm and per-pair LPIPS alex and vgg distances within 1e-5
+   relative; then InceptionV3 at batch 32 (299^2, and 256^2 resized) and
+   LPIPS alex and vgg at batch 32 at 256^2 (CUDA-event ms, images or pairs per
+   second), and one ``-f FID`` run split into its wall, the host's PNG decode
+   and Fréchet (scipy sqrtm) seconds and its device busy ms.
 
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
@@ -88,6 +107,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import random
 import statistics
 import subprocess
 import sys
@@ -831,6 +851,8 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
             check_png(os.path.join(tree, "skip_sample.png"), size + 4, cols * (size + 2) + 2)
         batches = pairs // cfg.data.test.batch_size
         entry = {"launches": launches[label], "wall_s": total}
+        if to_eval:
+            entry["tree"] = tree
         if sweeps:
             entry["sample_to_eval_batch_s"] = sweeps[0] / batches
         log(f"  {label}: {total:.1f} s in main_torch.main"
@@ -1169,6 +1191,47 @@ def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=
 
 # -------------------------------------------------------------- VQGAN train
 
+def gan_loop_timing(runner, x, label):
+    """Seconds per step in a loop like the runner's (the previous loss read after
+    queueing each step) over 4 steps after one, then over two steps the wall,
+    device busy, idle share and top device kernels per step, and K3's device ms."""
+    from bbdm_tpu_torch.profile_slice import measure
+
+    step = runner.build_train_step()
+    runner.model.train()
+
+    def run_steps(n):
+        prev = None
+        for _ in range(n):
+            metrics = step(runner.state, x, x, runner.train_generator)
+            if prev is not None:
+                float(prev["loss"])
+            prev = metrics
+        float(prev["loss"])
+
+    run_steps(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_steps(4)
+    torch.cuda.synchronize()
+    out = {"s_per_step": (time.perf_counter() - t0) / 4}
+    wall_ms, busy_ms, dev_ms = measure(lambda: run_steps(2), 1, 2)
+    out["step_wall_ms"], out["step_device_busy_ms"] = wall_ms, busy_ms
+    out["idle_share"] = 1 - busy_ms / wall_ms
+    out["step_device_ms_top"] = dict(sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8])
+    out["k3_device_ms_per_step"] = sum(v for k, v in dev_ms.items()
+                                       if "flash_attention_f32_kernel" in k)
+    log(f"  {label} train loop: {out['s_per_step']:.4f} s per step (batch "
+        f"{x.shape[0]}, both players); over two steps wall {wall_ms:.1f} ms, device busy "
+        f"{busy_ms:.1f} ms per step, idle share {out['idle_share']:.0%}; top device ms "
+        + json.dumps({k[:60]: round(v, 3) for k, v in out["step_device_ms_top"].items()}))
+    log(f"  {label} step summary: {out['s_per_step']:.4f} s per step, device busy "
+        f"{busy_ms:.1f} ms, idle share {out['idle_share']:.1%}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, K3 fp32 (3xTF32, pre-pass "
+        f"included) {out['k3_device_ms_per_step']:.3f} device ms per step")
+    return out
+
+
 VQ_COUNTS, VQ_EPOCHS, VQ_SAMPLE_INTERVAL = (16, 8, 8), 2, 1.5
 # phase 7's bars on the kernels-vs-twins distance of one VQGAN step, each near
 # the geometric mean of the largest distance the kernels gave and the smallest
@@ -1209,16 +1272,17 @@ def tf32():
         torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
-def gan_step_grads(runner, x, loss_config):
+def gan_step_grads(runner, x, loss_config, lpips=None):
     """One VQGAN step without an update: ({"xrec", "gen_loss", "d_weight",
     "disc_loss", "gen_grad", "disc_grad"}, the gradients flattened, and the
     gradients of both players' parameters, None where none reached one); the
-    BatchNorm statistics the discriminator term moves are put back."""
+    BatchNorm statistics the discriminator term moves are put back. ``lpips``:
+    the perceptual term's network."""
     from bbdm_tpu_torch.training.gan import make_vqgan_losses
 
     vq, disc = runner.model.vqgan, runner.model.discriminator
     saved = {k: b.clone() for k, b in disc.named_buffers()}
-    gen_loss, disc_loss = make_vqgan_losses(vq, disc, loss_config)
+    gen_loss, disc_loss = make_vqgan_losses(vq, disc, loss_config, lpips=lpips)
     step = runner.state.step + 1
     total, aux = gen_loss(x, step)
     g = torch.autograd.grad(total, list(vq.parameters()), allow_unused=True)
@@ -1242,7 +1306,6 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
 
     import main_torch
     from bbdm_tpu_torch.config import load_config, save_config
-    from bbdm_tpu_torch.profile_slice import measure
     from bbdm_tpu_torch.runners import base
     from bbdm_tpu_torch.runners.bbdm import BBDMRunner
     from bbdm_tpu_torch.runners.vqgan import VQGANRunner
@@ -1335,41 +1398,8 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
     if missing:
         raise AssertionError(f"vqgan train: kernels {missing} were not launched")
 
-    # seconds per step in a loop like the runner's (the previous loss read
-    # after queueing each step); the idle share over two steps
-    step = runner.build_train_step()
     x, _ = runner._put_batch(next(iter(runner._build_loaders()[0])))
-    runner.model.train()
-
-    def run_steps(n):
-        prev = None
-        for _ in range(n):
-            metrics = step(runner.state, x, x, runner.train_generator)
-            if prev is not None:
-                float(prev["loss"])
-            prev = metrics
-        float(prev["loss"])
-
-    run_steps(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_steps(4)
-    torch.cuda.synchronize()
-    out["s_per_step"] = (time.perf_counter() - t0) / 4
-    wall_ms, busy_ms, dev_ms = measure(lambda: run_steps(2), 1, 2)
-    out["step_wall_ms"], out["step_device_busy_ms"] = wall_ms, busy_ms
-    out["idle_share"] = 1 - busy_ms / wall_ms
-    out["step_device_ms_top"] = dict(sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8])
-    out["k3_device_ms_per_step"] = sum(v for k, v in dev_ms.items()
-                                       if "flash_attention_f32_kernel" in k)
-    log(f"  vqgan train loop: {out['s_per_step']:.4f} s per step (batch "
-        f"{x.shape[0]}, both players); over two steps wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms per step, idle share {out['idle_share']:.0%}; top device ms "
-        + json.dumps({k[:60]: round(v, 3) for k, v in out["step_device_ms_top"].items()}))
-    log(f"  vqgan step summary: {out['s_per_step']:.4f} s per step, device busy "
-        f"{busy_ms:.1f} ms, idle share {out['idle_share']:.1%}, peak device memory "
-        f"{out['peak_memory_gib']:.2f} GiB, K3 fp32 (3xTF32, pre-pass included) "
-        f"{out['k3_device_ms_per_step']:.3f} device ms per step")
+    out.update(gan_loop_timing(runner, x, "vqgan"))
 
     # one step through the kernels against the same step through the twins
     # (fp32 both, same weights, batch and BatchNorm statistics); the twins once
@@ -1485,6 +1515,347 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
     return out
 
 
+# ------------------------------------------------------ VQGAN, perceptual
+
+LPIPS_SEED, INCEPTION_SEED = 21, 22
+LPIPS_TERM_RTOL = 1e-4  # the LPIPS term on the card against the CPU, relative
+
+
+def random_lpips_state_dict(net, seed):
+    """``LPIPS(net)`` weights from ``seed``: He-normal conv kernels, biases in
+    [0, 0.1), heads uniform in [0, C^-1/2) (lpips trains them non-negative)."""
+    from bbdm_tpu_torch.evaluation.lpips import LPIPS
+
+    g = torch.Generator().manual_seed(seed)
+    sd = LPIPS(net).state_dict()
+    with torch.no_grad():
+        for k, v in sd.items():
+            if k.startswith("net.") and k.endswith(".weight"):
+                torch.nn.init.kaiming_normal_(v, nonlinearity="relu", generator=g)
+            elif k.startswith("net."):
+                v.uniform_(0.0, 0.1, generator=g)
+            elif k.startswith("lin"):
+                v.uniform_(0.0, v.shape[1] ** -0.5, generator=g)
+    return sd
+
+
+def random_inception_state_dict(seed):
+    """``FIDInceptionV3`` weights from ``seed``: He-normal conv kernels, BatchNorm
+    at identity (as ``scripts/make_random_inception.py``: the pool3 features
+    neither vanish nor overflow over ~90 convolutions)."""
+    from bbdm_tpu_torch.evaluation.inception import FIDInceptionV3
+
+    g = torch.Generator().manual_seed(seed)
+    sd = FIDInceptionV3().state_dict()
+    with torch.no_grad():
+        for k, v in sd.items():
+            if k.endswith("conv.weight"):
+                torch.nn.init.kaiming_normal_(v, nonlinearity="relu", generator=g)
+    return sd
+
+
+def vqgan_perceptual_phase(dev, counters, root, gpu_ids="0", config=None):
+    """Phase 7's second run (see the module docstring): ``main_torch.main --train``
+    for 2 steps with ``perceptual_weight`` 1.0 and seeded random LPIPS-VGG
+    weights; ``config`` lets a CPU rehearsal pass a tiny model."""
+    import main_torch
+    from bbdm_tpu_torch.checkpoints.io import load_checkpoint
+    from bbdm_tpu_torch.config import load_config, save_config
+    from bbdm_tpu_torch.evaluation.lpips import load_lpips
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    cfg = config or load_config(os.path.join(here, "configs", "Template-VQGAN-f4.yaml"))
+    size = cfg.data.dataset_config.image_size
+    data = os.path.join(root, "data-vqgan-lpips")
+    write_single_dataset(data, size, VQ_COUNTS, seed=8)
+    cfg.data.dataset_config.dataset_path = data
+    cfg.data.dataset_config.flip = False
+    weights = os.path.join(root, "lpips_vgg.pth")
+    torch.save(random_lpips_state_dict("vgg", LPIPS_SEED), weights)
+    loss = cfg.model.loss
+    loss.disc_start, loss.perceptual_weight, loss.lpips_weights = 0, 1.0, weights
+    t = cfg.training
+    t.save_interval = t.validation_interval = t.sample_interval = 1
+    path = os.path.join(root, "vqgan-lpips.yaml")
+    save_config(cfg, path)
+    steps = VQ_COUNTS[0] // cfg.data.train.batch_size
+    log("reduced: " + json.dumps({
+        "n_epochs": {"template": 100, "run": 1}, "steps": steps,
+        "train/val/test images": list(VQ_COUNTS), "flip": {"template": True, "run": False},
+        "disc_start": {"template": 30000, "run": 0},
+        "perceptual_weight": 1.0, "lpips_weights": "random LPIPS-VGG (seed), .pth",
+        "sample_interval": 1, "save_interval": 1, "weights": "random (seed)"}))
+
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    runner = main_torch.main(["-c", path, "--train", "--max_epoch", "1", "-r",
+                              os.path.join(root, "results-vqgan-lpips"), "-s", str(CLI_SEED),
+                              "--gpu_ids", gpu_ids])
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+    out = {"wall_s": wall, "launches": launches, "steps": runner.global_step,
+           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    log(f"  vqgan perceptual train: {wall:.1f} s in main_torch.main ({steps} steps, one "
+        f"sample, validation and save), steps {runner.global_step}; peak device memory "
+        f"{out['peak_memory_gib']:.2f} GiB; launches {launches}")
+    if runner.global_step != steps:
+        raise AssertionError("vqgan perceptual train: wrong step count")
+    missing = [k for k, n in launches.items() if n <= 0]
+    if missing:
+        raise AssertionError(f"vqgan perceptual train: kernels {missing} were not launched")
+    saved = sorted(load_checkpoint(os.path.join(runner.config.result.ckpt_path,
+                                                "last_model.ckpt"))["model"])
+    if saved != ["disc_stats", "discriminator", "vqgan"]:
+        raise AssertionError(f"vqgan perceptual checkpoint holds {saved}")
+
+    x, _ = runner._put_batch(next(iter(runner._build_loaders()[0])))
+    out.update(gan_loop_timing(runner, x, "vqgan perceptual"))
+
+    lp = load_lpips(weights, net="vgg", device=dev)
+
+    # every gradient of one step with the term: present and finite
+    runner.model.train()
+    values, grads = gan_step_grads(runner, x, loss, lpips=lp)
+    params = list(runner.model.vqgan.named_parameters()) + list(
+        runner.model.discriminator.named_parameters())
+    absent = [n for (n, _), gr in zip(params, grads) if gr is None]
+    finite = all(bool(torch.isfinite(gr).all()) for gr in grads if gr is not None)
+    out.update(gen_loss=float(values["gen_loss"]), d_weight=float(values["d_weight"]),
+               absent_grads=len(absent), finite=finite,
+               lpips_grads=sum(p.grad is not None for p in lp.parameters()))
+    log(f"  vqgan perceptual step: generator loss {out['gen_loss']:.5f}, d_weight "
+        f"{out['d_weight']:.5f}, {len(params)} parameters, {len(absent)} without a gradient, "
+        f"finite {finite}, LPIPS parameters with a gradient {out['lpips_grads']}")
+    if absent or not finite or out["lpips_grads"]:
+        raise AssertionError(f"vqgan perceptual step: gradients absent {absent[:3]}, "
+                             f"finite {finite}, LPIPS gradients {out['lpips_grads']}")
+    del grads, values
+
+    # the LPIPS term at the step's shape on the card against the same module on the CPU
+    runner.model.eval()
+    with torch.no_grad():
+        xrec, _ = runner.model.vqgan(x)
+        d_card = lp(x, xrec).float().cpu()
+        d_cpu = load_lpips(weights, net="vgg", device="cpu")(x.cpu(), xrec.cpu())
+    out["lpips_term"] = {"shape": list(x.shape), "card": d_card.tolist(),
+                         "max_rel": float((d_card - d_cpu).abs().max() / d_cpu.abs().max())}
+    log(f"  LPIPS-VGG term at {list(x.shape)}, card vs CPU: {json.dumps(out['lpips_term'])}")
+    if not (torch.isfinite(d_card).all() and out["lpips_term"]["max_rel"] <= LPIPS_TERM_RTOL):
+        raise AssertionError(f"LPIPS term: card vs CPU beyond {LPIPS_TERM_RTOL} relative")
+
+    # the memory the term alone takes: one forward and backward through xrec,
+    # and the activations its graph saves for the backward (each storage once,
+    # the LPIPS weights left out)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    xr = xrec.detach().requires_grad_(True)
+    saved, weights_at = {}, {w.untyped_storage().data_ptr() for w in lp.state_dict().values()}
+
+    def pack(t):
+        if t.untyped_storage().data_ptr() not in weights_at:
+            saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
+        return t
+
+    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+        d = lp(x, xr).mean()
+    d.backward()
+    torch.cuda.synchronize()
+    out["lpips_term_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    out["lpips_term_saved_gib"] = sum(saved.values()) / 2 ** 30
+    log(f"  LPIPS-VGG forward and backward at {list(x.shape)}: peak "
+        f"{out['lpips_term_peak_gib']:.2f} GiB above what was allocated before it, of which "
+        f"the graph saves {out['lpips_term_saved_gib']:.2f} GiB (the rest: gradients in "
+        f"flight and cuDNN workspaces)")
+    del runner, lp
+    return out
+
+
+# ------------------------------------------------------------- evaluation
+
+EVAL_FEATURE_RTOL, EVAL_DISTANCE_RTOL = 1e-4, 1e-5
+
+
+def eval_phase(dev, root, tree, step=SAMPLE_STEP, draws=SAMPLE_NUM):
+    """Phase 8 (see the module docstring): ``preprocess_and_evaluation_torch.py``
+    over phase 5's f4 euler ``sample_to_eval`` tree, every mode on the card
+    against ``--cpu``; then the metric networks' rates. On a CPU ``dev`` (a
+    rehearsal) both sides run on the CPU."""
+    import io
+
+    import numpy as np
+
+    import preprocess_and_evaluation_torch as pe
+    from bbdm_tpu_torch.evaluation import fid, lpips
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    card = dev.type == "cuda"
+    work = os.path.join(root, "eval")
+    os.makedirs(work, exist_ok=True)
+    weights = {"inception": os.path.join(work, "inception_he.pth"),
+               "alex": os.path.join(work, "lpips_alex.pth"),
+               "vgg": os.path.join(work, "lpips_vgg.pth")}
+    torch.save(random_inception_state_dict(INCEPTION_SEED), weights["inception"])
+    for net in ("alex", "vgg"):
+        torch.save(random_lpips_state_dict(net, LPIPS_SEED), weights[net])
+
+    def run(argv, on_cpu):
+        """(value, stdout, wall s) of one in-process CLI run."""
+        random.seed(0)  # max_min_LPIPS draws with the module-level random
+        text = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            value = pe.main(argv + (["--cpu"] if on_cpu or not card else []))
+        return value, text.getvalue(), time.perf_counter() - t0
+
+    def files(d):
+        out = {}
+        for p, _, fs in os.walk(d):
+            for f in fs:
+                with open(os.path.join(p, f), "rb") as fh:
+                    out[os.path.relpath(os.path.join(p, f), d)] = fh.read()
+        return out
+
+    out = {"tree": tree, "modes": {}}
+    # the reference protocol: numeric names for LPIPS and diversity, the first
+    # draws flat (by dataset name) for FID and PSNR/SSIM
+    prep = {"rename_samples": [("renamed", str(step)), ("gt_renamed", "ground_truth")],
+            "copy_samples": [("flat", str(step))]}
+    for mode, jobs in prep.items():
+        for dst, src in jobs:
+            for side in ("card", "cpu"):
+                run(["-f", mode, "-r", tree, "-s", src, "-t", os.path.join(work, f"{dst}-{side}")],
+                    side == "cpu")
+            same = files(os.path.join(work, f"{dst}-card")) == files(
+                os.path.join(work, f"{dst}-cpu"))
+            count = len(files(os.path.join(work, f"{dst}-card")))
+            out["modes"].setdefault(mode, {})[dst] = {"files": count, "equal": same}
+            if not same or not count:
+                raise AssertionError(f"{mode} {src}: card and --cpu wrote different files")
+    renamed, gt_renamed = (os.path.join(work, f"{d}-card") for d in ("renamed", "gt_renamed"))
+    flat, gt = os.path.join(work, "flat-card"), os.path.join(tree, "ground_truth")
+    metric = {
+        "LPIPS": ["-s", renamed, "-t", gt_renamed, "-n", str(draws), "--weights",
+                  weights["alex"]],
+        "max_min_LPIPS": ["-s", renamed, "-t", gt_renamed, "-n", str(draws), "--weights",
+                          weights["alex"]],
+        "diversity": ["-s", renamed, "-n", str(draws)],
+        "FID": ["-s", flat, "-t", gt, "--weights", weights["inception"]],
+        "psnr_ssim": ["-s", flat, "-t", gt]}
+    for mode, args in metric.items():
+        (a, text_a, wall_a), (b, text_b, wall_b) = (run(["-f", mode] + args, c)
+                                                    for c in (False, True))
+        va, vb = (np.asarray(list(v.values()) if isinstance(v, dict) else v, np.float64)
+                  for v in (a, b))
+        rel = float(np.abs(va - vb).max() / max(np.abs(vb).max(), 1e-30))
+        out["modes"][mode] = {"card": a, "cpu": b, "max_rel": rel, "card_s": wall_a,
+                              "cpu_s": wall_b}
+        log(f"  {mode}: card {a} ({wall_a:.2f} s), --cpu {b} ({wall_b:.2f} s), "
+            f"max relative difference {rel:.3e}")
+        if not np.isfinite(va).all():
+            raise AssertionError(f"{mode}: not finite on the card")
+        if mode in ("LPIPS", "max_min_LPIPS") and rel > EVAL_DISTANCE_RTOL:
+            raise AssertionError(f"{mode}: card vs --cpu beyond {EVAL_DISTANCE_RTOL}")
+        if mode in ("diversity", "psnr_ssim") and text_a != text_b:
+            raise AssertionError(f"{mode}: card and --cpu print differently")
+
+    # the script itself, in its own process (on the card unless rehearsing)
+    proc = subprocess.run([sys.executable, os.path.join(here, "preprocess_and_evaluation_torch.py"),
+                           "-f", "LPIPS"] + metric["LPIPS"] + ([] if card else ["--cpu"]),
+                          capture_output=True, text=True, timeout=300, cwd=here)
+    printed = [float(line.split(":")[1]) for line in proc.stdout.splitlines()
+               if line.startswith("lpips_distance:")]
+    out["script_lpips"] = printed
+    log(f"  preprocess_and_evaluation_torch.py -f LPIPS in its own process: rc "
+        f"{proc.returncode}, {printed}")
+    if proc.returncode or len(printed) != 1 or abs(
+            printed[0] - out["modes"]["LPIPS"]["card"]) > EVAL_DISTANCE_RTOL * abs(printed[0]):
+        raise AssertionError(f"the script's LPIPS differs or failed: {proc.stderr[-2000:]}")
+
+    # features and per-pair distances, card against CPU
+    models = {d: fid.load_fid_model(weights["inception"], d) for d in (dev, "cpu")}
+    feats = [fid.compute_features_for_path(flat, m) for m in models.values()]
+    rel = np.linalg.norm(feats[0] - feats[1], axis=1) / np.linalg.norm(feats[1], axis=1)
+    out["features"] = {"shape": list(feats[0].shape), "max_rel": float(rel.max())}
+    pairs = [(os.path.join(gt, n), os.path.join(flat, n)) for n in sorted(os.listdir(flat))]
+    for net in ("alex", "vgg"):
+        d = [lpips.batched_distances(lpips.load_lpips(weights[net], net, dv), pairs)
+             for dv in (dev, "cpu")]
+        out[f"distances_{net}"] = {"pairs": len(pairs), "mean": float(d[0].mean()),
+                                   "max_rel": float((np.abs(d[0] - d[1]) / np.abs(d[1])).max())}
+    log("  card vs CPU: " + json.dumps({k: out[k] for k in ("features", "distances_alex",
+                                                             "distances_vgg")}))
+    if out["features"]["max_rel"] > EVAL_FEATURE_RTOL:
+        raise AssertionError(f"Inception features: card vs CPU beyond {EVAL_FEATURE_RTOL}")
+    for net in ("alex", "vgg"):
+        if out[f"distances_{net}"]["max_rel"] > EVAL_DISTANCE_RTOL:
+            raise AssertionError(f"LPIPS {net}: card vs CPU beyond {EVAL_DISTANCE_RTOL}")
+    if card:
+        out["rates"] = eval_rates(dev, models[dev], weights)
+        out["fid_cli_split"] = fid_cli_split(run, ["-f", "FID"] + metric["FID"])
+    return out
+
+
+def eval_rates(dev, inception, weights):
+    """Device ms (CUDA events) and rates of the metric networks at batch 32."""
+    from bbdm_tpu_torch.evaluation import lpips
+
+    g = torch.Generator(dev).manual_seed(3)
+    out = {}
+    with torch.inference_mode():
+        for size in (299, 256):  # 256: resized to 299 inside, as a sample_to_eval tree is
+            x = torch.rand(32, 3, size, size, generator=g, device=dev)
+            ms = cuda_ms(lambda: inception(x))
+            out[f"inception_b32_{size}"] = {"ms": ms, "images_per_s": 32e3 / ms}
+        for net in ("alex", "vgg"):
+            m = lpips.load_lpips(weights[net], net, dev)
+            a, b = (torch.rand(32, 3, 256, 256, generator=g, device=dev) * 2 - 1
+                    for _ in range(2))
+            ms = cuda_ms(lambda: m(a, b))
+            out[f"lpips_{net}_b32_256"] = {"ms": ms, "pairs_per_s": 32e3 / ms}
+    log("  metric networks, fp32 (TF32 off), CUDA events: " + json.dumps(out))
+    return out
+
+
+def fid_cli_split(run, argv):
+    """One ``-f FID`` run on the card: its wall, the host's PNG decode and Fréchet
+    (scipy sqrtm) seconds in it, and its device busy ms (torch.profiler)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from bbdm_tpu_torch.evaluation import fid
+
+    spans = {"decode_s": [], "frechet_s": []}
+
+    def timer(key):
+        def make(fn):
+            def wrapped(*a, **kw):
+                t0 = time.perf_counter()
+                result = fn(*a, **kw)
+                spans[key].append(time.perf_counter() - t0)
+                return result
+            return wrapped
+        return make
+
+    with patched(fid, "read_images", timer("decode_s")), \
+            patched(fid, "frechet_distance", timer("frechet_s")):
+        _, _, wall = run(argv, False)
+        out = {"wall_s": wall, "decode_s": sum(spans["decode_s"]),
+               "decoded_batches": len(spans["decode_s"]), "frechet_s": sum(spans["frechet_s"])}
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run(argv, False)
+            torch.cuda.synchronize()
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    out["device_busy_ms"] = busy
+    out["idle_share"] = 1 - busy / 1e3 / wall
+    log("  FID CLI on the card, split: " + json.dumps(out))
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -1561,7 +1932,7 @@ def main() -> int:
         traceback.print_exc()
         failed.append("slice")
 
-    cli, train, vqgan = {}, {}, {}
+    cli, train, vqgan, perceptual, evaluation = {}, {}, {}, {}, {}
     short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
     for e in entries:
         e["launches_by_path"] = {"slice_sample_to_eval": e["launches"]}
@@ -1597,9 +1968,29 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failed.append("vqgan train")
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            perceptual = vqgan_perceptual_phase(dev, counters, root)
+            for e in entries:
+                e["launches_by_path"]["vqgan_train_perceptual"] = \
+                    perceptual["launches"][short[e["name"]]]
+            log(f"vqgan perceptual train: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("vqgan perceptual train")
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            evaluation = eval_phase(dev, root, cli["f4_euler_sample_to_eval"]["tree"])
+            log(f"evaluation: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("evaluation")
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
-                    "vqgan_train": vqgan, "card": card}))
+                    "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
+                    "evaluation": evaluation, "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

@@ -92,9 +92,10 @@ def test_png_writer_round_trips_through_pillow(tmp_path, channels):
 
 
 def test_import_needs_no_jax_yaml_or_pillow():
-    """The package (every module), main_torch.py and chip_smoke.py import where
-    jax, flax, optax, yaml, PIL and msgpack are absent, and import no triton and
-    build nothing at import time."""
+    """The package (every module, ``evaluation/`` included), main_torch.py,
+    preprocess_and_evaluation_torch.py and chip_smoke.py import where jax, flax,
+    optax, yaml, PIL and msgpack are absent, and import no triton, nothing of
+    ``bbdm_tpu`` or ``tests`` and build nothing at import time."""
     code = (
         "import sys\n"
         "for m in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'msgpack'):\n"
@@ -104,10 +105,13 @@ def test_import_needs_no_jax_yaml_or_pillow():
         "    importlib.import_module(mod.name)\n"
         "assert 'bbdm_tpu_torch.data.loader' in sys.modules\n"
         "assert 'bbdm_tpu_torch.training.step' in sys.modules\n"
+        "assert 'bbdm_tpu_torch.evaluation.lpips' in sys.modules\n"
+        "assert 'bbdm_tpu_torch.evaluation.cli' in sys.modules\n"
         "import main_torch\n"
+        "import preprocess_and_evaluation_torch\n"
         "import chip_smoke\n"
         "assert 'triton' not in sys.modules\n"
-        "assert not any(m.startswith('bbdm_tpu.') or m == 'bbdm_tpu' for m in sys.modules)\n"
+        "assert not any(m.split('.')[0] in ('bbdm_tpu', 'tests') for m in sys.modules)\n"
         "import torch\n"
         "assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32\n"
     )

@@ -171,12 +171,26 @@ def test_reconstruction_loss_and_adaptive_weight_match():
 
 
 def test_reconstruction_loss_refuses_the_perceptual_term():
-    """With LPIPS weights and a perceptual weight it raises, naming the
-    ROADMAP item, instead of training on L1 alone."""
-    x = torch.zeros(1, 3, 4, 4)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 10"):
-        pl.reconstruction_loss(x, x, lpips_params="lpips.pth", perceptual_weight=1.0)
-    assert pl.reconstruction_loss(x, x, lpips_params="lpips.pth", perceptual_weight=0.0).sum() == 0
+    """The perceptual term is no longer refused: with an LPIPS-VGG network and
+    ``perceptual_weight`` 0 the loss is |x - xrec| alone; with weight 1 it
+    equals the JAX ``reconstruction_loss`` given the same weights (1e-5
+    relative; ``test_torch_vqgan_perceptual.py`` holds its gradient and the GAN
+    step)."""
+    from test_torch_eval_metrics import random_lpips
+
+    from bbdm_tpu.evaluation.lpips import convert_lpips_state_dict
+
+    x = torch.zeros(1, 3, 16, 16)
+    vgg = random_lpips("vgg")
+    assert pl.reconstruction_loss(x, x, lpips=vgg, perceptual_weight=0.0).sum() == 0
+    rs = np.random.RandomState(5)
+    a, b = (rs.uniform(-1, 1, (2, 16, 16, 3)).astype(np.float32) for _ in range(2))
+    with torch.no_grad():
+        got = nhwc(pl.reconstruction_loss(nchw(a), nchw(b), lpips=vgg, perceptual_weight=1.0))
+    want = jl.reconstruction_loss(a, b, lpips_params=convert_lpips_state_dict(
+        vgg.state_dict(), "vgg"), perceptual_weight=1.0)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+    assert (got > np.abs(a - b)).all()
 
 
 # -------------------------------------------------------------- quantizers

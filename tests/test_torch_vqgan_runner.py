@@ -12,9 +12,10 @@ the JAX package's runner and ``main.py``, on the CPU.
   equal trees and the same eval loss (2e-4); a JAX run's files resume in the
   port with equal counters, weights, BatchNorm statistics and Adam states.
 * A port-trained VQGAN loads as an LBBDM's first stage; a checkpoint converted
-  with another discriminator geometry, and LPIPS weights, are refused by name.
+  with another discriminator geometry is refused by name; LPIPS weights are
+  loaded (LPIPS-VGG, the perceptual term), as the JAX runner loads them.
 * ``checkpoints/torch_import.py``'s taming-layout converters against the JAX
-  package's on one synthetic state_dict.
+  package's on one synthetic state_dict, the LPIPS weights included.
 """
 
 import os
@@ -269,22 +270,34 @@ def test_a_port_trained_vqgan_loads_as_an_lbbdm_first_stage(setup, tmp_path):
 
 
 def test_another_discriminator_geometry_and_lpips_weights_are_refused(setup, tmp_path):
+    """Another discriminator geometry is refused by name. LPIPS weights are no
+    longer refused: both runners load LPIPS-VGG from ``lpips_weights`` and log
+    the same line (``test_torch_vqgan_perceptual.py`` holds the term)."""
+    from test_torch_eval_metrics import random_lpips
+
     ck = jax_io.load_checkpoint(str(setup / "m.ckpt"))
     ck["disc_config"] = {"disc_num_layers": 3, "use_actnorm": False, "disc_ndf": 8}
     io.save_checkpoint(ck, str(tmp_path / "conv.ckpt"))
     with pytest.raises(ValueError, match="disc_num_layers"):
         port_runner(str(setup / "vq.yaml"), tmp_path / "a", "--resume_model",
                     str(tmp_path / "conv.ckpt"))
-    path = variant(setup, "lpips", lpips_weights="lpips_vgg.pth", perceptual_weight=1.0)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 10"):
-        main_torch.main(argv_of(path, tmp_path / "b", "--train"))
+    torch.save(random_lpips("vgg").state_dict(), str(tmp_path / "lpips_vgg.pth"))
+    path = variant(setup, "lpips", lpips_weights=str(tmp_path / "lpips_vgg.pth"),
+                   perceptual_weight=1.0)
+    logs = []
+    for make in (port_runner, jax_runner):
+        runner = make(path, tmp_path / make.__name__)
+        runner.logger = logs.append
+        runner.build_train_step()
+    line = f"perceptual loss enabled (LPIPS weights: {tmp_path / 'lpips_vgg.pth'})"
+    assert logs.count(line) == 2, logs
 
 
 @pytest.mark.parametrize("use_actnorm", [False, True])
 def test_taming_checkpoint_converters_match_the_jax_ones(tmp_path, use_actnorm):
     """A taming-layout training checkpoint (autoencoder, ``loss.discriminator
-    .main.*``, ``loss.perceptual_loss.*``): the port's converters give the JAX
-    converters' trees; the port keeps the LPIPS weights unconverted."""
+    .main.*``, ``loss.perceptual_loss.*`` with taming's LPIPS-VGG names): the
+    port's converters give the JAX converters' trees, the LPIPS tree included."""
     from bbdm_tpu.checkpoints import torch_import as jti
     from bbdm_tpu_torch.checkpoints import torch_import as pti
 
@@ -306,19 +319,21 @@ def test_taming_checkpoint_converters_match_the_jax_ones(tmp_path, use_actnorm):
     sd.update({f"loss.discriminator.{k}": torch.from_numpy(v.astype(np.float32))
                for k, v in main.items()})
     sd = {k: torch.as_tensor(v) for k, v in sd.items()}
-    sd["loss.perceptual_loss.lin0.model.1.weight"] = torch.ones(1, 64, 1, 1)
+    from test_torch_eval_metrics import random_lpips
+
+    lp_sd = {("scaling_layer." + k if k in ("shift", "scale") else k): v
+             for k, v in random_lpips("vgg").state_dict().items()}  # taming's LPIPS names
+    sd.update({f"loss.perceptual_loss.{k}": v for k, v in lp_sd.items()})
     torch.save({"state_dict": sd}, str(tmp_path / "taming.ckpt"))
 
     got, lpips = pti.convert_vqgan_train_checkpoint(str(tmp_path / "taming.ckpt"))
-    with pytest.MonkeyPatch.context() as mp:  # the JAX LPIPS converter is not under test
-        import bbdm_tpu.evaluation.lpips as jlp
-
-        mp.setattr(jlp, "convert_lpips_state_dict", lambda *a, **k: {})
-        want, _ = jti.convert_vqgan_train_checkpoint(str(tmp_path / "taming.ckpt"))
+    want, want_lpips = jti.convert_vqgan_train_checkpoint(str(tmp_path / "taming.ckpt"))
     assert got["disc_config"] == want["disc_config"] == {
         "disc_num_layers": 2, "use_actnorm": use_actnorm, "disc_ndf": 8}
     if use_actnorm:
         assert got["model"]["disc_stats"] is None and want["model"]["disc_stats"] is None
     assert_trees_equal({k: v for k, v in got["model"].items() if v is not None},
                        {k: v for k, v in want["model"].items() if v is not None})
-    assert list(lpips) == ["lin0.model.1.weight"]
+    assert_trees_equal(lpips, want_lpips)
+    assert set(lpips) == {f"conv_{i}" for i in (0, 2, 5, 7, 10, 12, 14, 17, 19, 21, 24, 26,
+                                                28)} | {f"lin_{k}" for k in range(5)}
