@@ -2,8 +2,10 @@
 
 The port's module names are the flax names, so the mapping is mechanical:
 ``a.b.kernel`` -> ``a.b.weight`` (conv HWIO -> OIHW, dense [in, out] ->
-[out, in]), ``a.b.scale`` (GroupNorm) -> ``a.b.weight``, ``bias`` and the
-codebook ``embedding`` as they are. A reference ``.pth`` loads as
+[out, in], a 3-D ``DenseGeneral`` kernel as it is: the port keeps flax's
+layout), ``a.b.scale`` (GroupNorm, LayerNorm) -> ``a.b.weight``, ``bias``,
+the codebook's and ``nn.Embed``'s ``embedding`` and free parameters such as
+``pos_emb`` as they are. A reference ``.pth`` loads as
 ``checkpoints/torch_import.py`` composed with this function. Latent
 statistics are NHWC ``[1, 1, 1, C]`` in a checkpoint, ``[1, C, 1, 1]`` in the
 port. The optimizer's moments and the plateau state convert both ways too,
@@ -47,7 +49,7 @@ def state_dict_from_jax(params, model) -> dict:
             if arr.ndim == 4:
                 arr = arr.transpose(3, 2, 0, 1)
             elif arr.ndim == 2:
-                arr = arr.T
+                arr = arr.T  # a 3-D DenseGeneral kernel keeps flax's layout
         elif leaf == "scale":
             name = f"{mod}.weight" if mod else "weight"
         else:
@@ -76,7 +78,7 @@ def jax_tree_from_state_dict(state, *, masked=()) -> dict:
     for name, t in state.items():
         mod, leaf = name.rsplit(".", 1) if "." in name else ("", name)
         if leaf == "weight":
-            leaf = "kernel" if t.ndim in (2, 4) else "scale"
+            leaf = "kernel" if t.ndim > 1 else "scale"
         node = tree
         for part in mod.split(".") if mod else ():
             node = node.setdefault(part, {})
@@ -84,7 +86,7 @@ def jax_tree_from_state_dict(state, *, masked=()) -> dict:
             node[leaf] = {}
             continue
         arr = t.detach().float().cpu().numpy()
-        if leaf == "kernel":
+        if leaf == "kernel" and arr.ndim in (2, 4):
             arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
         node[leaf] = np.ascontiguousarray(arr)
     return tree

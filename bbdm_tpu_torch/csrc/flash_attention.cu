@@ -1,8 +1,10 @@
-// K3: flash attention forward, [B*H, T, D] bf16, no mask, head dim up to 512.
+// K3: flash attention forward, q [B*H, Tq, D], k and v [B*H, Tk, D] bf16, no mask,
+// head dim up to 512.
 //
 // Replaces bbdm_tpu/ops/flash_attention.py:flash_attention (the Pallas _kernel:
 // blockwise online softmax with fp32 running max, denominator and accumulator
-// in VMEM). Softmax(q k^T / sqrt(D)) v, i.e. q and k each scaled by D^-1/4.
+// in VMEM; its key grid axis runs over Tk, which may differ from Tq).
+// Softmax(q k^T / sqrt(D)) v, i.e. q and k each scaled by D^-1/4.
 //
 // What bounds it on the H100: tensor-core FLOPs. On LBBDM-f4 it runs the VQGAN
 // encoder and decoder mid_attn_1 at H=1, T=4096, D=512: 4*T*T*D = 34 GFLOP per
@@ -19,15 +21,16 @@
 //   a 16 KB exchange buffer, and after a named barrier adds the other's partial.
 //   fp32 addition commutes, so both warpgroups hold the same S bit for bit and
 //   run the same online softmax in registers (fp32 running max and sum, the
-//   1/sqrt(D) scale on the fp32 scores, keys past T masked to -inf).
+//   1/sqrt(D) scale on the fp32 scores, keys past Tk masked to -inf).
 // - O = O * alpha + P V: P is rounded to bf16 in registers, where the score
 //   accumulator layout already is wgmma's register-A layout, and each warpgroup
 //   runs wgmma m64n(DP/2)k16 against its half of V (MN-major, transposed-B form).
 // One producer thread (warpgroup 2, registers lowered with setmaxnreg) loads Q
 // once and streams K and V tiles with TMA into 2-stage K and V rings, each stage
 // with a full and an empty mbarrier. DP (128, 256, 512) is the head dim rounded
-// up; TMA zero-fills the columns past D and the rows past T. Query rows past T
-// are not written. At DP=512 the shared memory holds Q 64 KB, K 2 x 32 KB,
+// up; TMA zero-fills the columns past D and the rows past Tq or Tk. Keys past Tk
+// (zero rows of a padded k) are masked by count, never summed; query rows past
+// Tq are not written. At DP=512 the shared memory holds Q 64 KB, K 2 x 32 KB,
 // V 2 x 32 KB and the exchange 16 KB (ops/attention.flash_smem_bytes mirrors it).
 // What holds it back now: ptxas allocates the consumers within ~168 registers
 // (SASS tops out at R165) although setmaxnreg gives them 240, so it places S on
@@ -71,8 +74,8 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
                        __grid_constant__ const CUtensorMap map_k,
                        __grid_constant__ const CUtensorMap map_v,
-                       __nv_bfloat16* __restrict__ out, int T, int D, int Tm, int Dm,
-                       float scale_log2) {
+                       __nv_bfloat16* __restrict__ out, int Tq, int Tk, int D, int Tqm,
+                       int Dm, float scale_log2) {
   constexpr int QCH = DP / 64;  // 64-column chunks of a tile
   constexpr int NH = DP / 2;    // head-dim columns per consumer warpgroup
   constexpr int WCH = NH / 64;
@@ -92,7 +95,7 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
-  const int ntiles = (T + BKV - 1) / BKV;
+  const int ntiles = (Tk + BKV - 1) / BKV;
 
   if (tid == 0) {
     mbar_init(qfull, 1);
@@ -180,10 +183,10 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
 #pragma unroll
       for (int i = 0; i < BKV / 2; ++i) s[i] += other[i * 128 + lt];
 
-      // keys past T only in the last tile: mask there, against one register
+      // keys past Tk only in the last tile: mask there, against one register
       if (j == ntiles - 1) {
-        // column 8jj + 2*(lane%4) + e of the tile is past T when 8jj + e >= left
-        const int left = T - j * BKV - 2 * (lane & 3);
+        // column 8jj + 2*(lane%4) + e of the tile is past Tk when 8jj + e >= left
+        const int left = Tk - j * BKV - 2 * (lane & 3);
 #pragma unroll
         for (int jj = 0; jj < BKV / 8; ++jj)
 #pragma unroll
@@ -255,9 +258,9 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = q0 + (lt >> 5) * 16 + (lane >> 2) + 8 * hh;
-      if (row >= T) continue;
+      if (row >= Tq) continue;
       const float inv = 1.0f / l[hh];
-      __nv_bfloat16* dst = out + ((size_t)bh * Tm + row) * Dm;
+      __nv_bfloat16* dst = out + ((size_t)bh * Tqm + row) * Dm;
 #pragma unroll
       for (int jj = 0; jj < NH / 8; ++jj) {
         const int col = g * NH + 8 * jj + 2 * (lane & 3);
@@ -271,43 +274,45 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
 
 template <int DP>
 int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
-           __nv_bfloat16* out, int BH, int T, int D, int Tm, int Dm, cudaStream_t stream) {
+           __nv_bfloat16* out, int BH, int Tq, int Tk, int D, int Tqm, int Dm,
+           cudaStream_t stream) {
   static std::atomic<uint64_t> smem_ready{0};
   const int rc = allow_dynamic_smem(flash_attention_kernel<DP>, smem_bytes(DP), smem_ready);
   if (rc != 0) return rc;
-  dim3 grid((unsigned)((T + BQ - 1) / BQ), (unsigned)BH);
+  dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)BH);
   flash_attention_kernel<DP><<<grid, THREADS, smem_bytes(DP), stream>>>(
-      mq, mk, mv, out, T, D, Tm, Dm, 1.4426950408889634f / sqrtf((float)D));
+      mq, mk, mv, out, Tq, Tk, D, Tqm, Dm, 1.4426950408889634f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out: [BH, Tm, Dm] bf16 contiguous, of which rows < T and columns < D
-// hold the problem (D % 16 == 0, D <= 512); Tm, Dm >= 64 so that every TMA box
-// fits inside the tensor, and the padding is zero. smem is the caller's copy of
-// the shared-memory layout (ops/attention.flash_smem_bytes); a mismatch is
-// refused. Returns a cudaError_t.
+// q, out: [BH, Tqm, Dm] and k, v: [BH, Tkm, Dm] bf16 contiguous, of which rows < Tq
+// (q, out) or < Tk (k, v) and columns < D hold the problem (D % 16 == 0, D <= 512,
+// Tq, Tk >= 1); Tqm, Tkm, Dm >= 64 so that every TMA box fits inside its tensor,
+// and the padding is zero. smem is the caller's copy of the shared-memory layout
+// (ops/attention.flash_smem_bytes); a mismatch is refused. Returns a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
-                                    int BH, int T, int D, int Tm, int Dm, int smem,
-                                    void* stream) {
-  if (D % 16 != 0 || D <= 0 || D > 512 || Tm < 64 || Tm < T || Dm < 64 || Dm < D ||
-      Dm % 8 != 0)
+                                    int BH, int Tq, int Tk, int D, int Tqm, int Tkm, int Dm,
+                                    int smem, void* stream) {
+  if (D % 16 != 0 || D <= 0 || D > 512 || Tq <= 0 || Tk <= 0 || Tqm < 64 || Tqm < Tq ||
+      Tkm < 64 || Tkm < Tk || Dm < 64 || Dm < D || Dm % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const int DP = Dm <= 128 ? 128 : Dm <= 256 ? 256 : 512;
   if (Dm > 512 || smem != smem_bytes(DP)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
-  const uint64_t dims[3] = {(uint64_t)Dm, (uint64_t)Tm, (uint64_t)BH};
-  const uint64_t strides[2] = {(uint64_t)Dm * 2, (uint64_t)Tm * Dm * 2};
   for (int i = 0; i < 3; ++i) {
+    const uint64_t rows = (uint64_t)(i == 0 ? Tqm : Tkm);
+    const uint64_t dims[3] = {(uint64_t)Dm, rows, (uint64_t)BH};
+    const uint64_t strides[2] = {(uint64_t)Dm * 2, rows * Dm * 2};
     const uint64_t box[3] = {64, (uint64_t)(i == 0 ? BQ : BKV), 1};
     const int rc = encode_bf16_map(&maps[i], ptrs[i], 3, dims, strides, box);
     if (rc != 0) return rc;
   }
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (DP == 128) return launch<128>(maps[0], maps[1], maps[2], o, BH, T, D, Tm, Dm, st);
-  if (DP == 256) return launch<256>(maps[0], maps[1], maps[2], o, BH, T, D, Tm, Dm, st);
-  return launch<512>(maps[0], maps[1], maps[2], o, BH, T, D, Tm, Dm, st);
+  if (DP == 128) return launch<128>(maps[0], maps[1], maps[2], o, BH, Tq, Tk, D, Tqm, Dm, st);
+  if (DP == 256) return launch<256>(maps[0], maps[1], maps[2], o, BH, Tq, Tk, D, Tqm, Dm, st);
+  return launch<512>(maps[0], maps[1], maps[2], o, BH, Tq, Tk, D, Tqm, Dm, st);
 }

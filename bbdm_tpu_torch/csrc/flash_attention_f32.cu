@@ -1,5 +1,5 @@
-// K3, fp32: flash attention forward, [B*H, T, D] float32, no mask, D % 4 == 0,
-// D <= 512, on the tensor cores in 3xTF32.
+// K3, fp32: flash attention forward, q [B*H, Tq, D], k and v [B*H, Tk, D] float32,
+// no mask, D % 4 == 0, D <= 512, on the tensor cores in 3xTF32.
 //
 // Replaces bbdm_tpu/ops/flash_attention.py:flash_attention for fp32 inputs (the
 // Pallas _kernel takes any dtype: it scales q and k by D^-1/4 in fp32, keeps the
@@ -27,9 +27,10 @@
 // and m64n8 instructions. mma.sync takes both operands from registers, so
 // shared memory holds the raw fp32 tiles (2 KB per key) and the split happens
 // in registers.
-// - Pre-pass (flash_attention_f32_kernel_stage): q and k times D^-1/4 in fp32,
-//   as _kernel scales them, into scratch [BH, Tm, Dm]; zero-padded (and v
-//   copied) only where T < 64 or D < 32, so that every TMA box fits its tensor.
+// - Pre-pass (flash_attention_f32_kernel_stage, one launch for q, one for k and
+//   v): q and k times D^-1/4 in fp32, as _kernel scales them, into scratch
+//   [BH, Tqm, Dm] and [BH, Tkm, Dm]; zero-padded (and v copied) only where Tk
+//   < 64 or D < 32, so that every TMA box fits its tensor.
 // - A block owns 64 query rows of one (batch, head): 256 threads, 8 warps. It
 //   holds Q (64 x DP, DP = D rounded up to 128, 256 or 512) in shared memory,
 //   in [64 x 32] boxes with the 128-byte swizzle, which makes every fragment
@@ -55,7 +56,8 @@
 //   with no shuffle and no transpose of V. Each V fragment, split once, serves
 //   both row blocks; each warp keeps 32 rows x DP / 4 columns of O in
 //   registers (128 floats at DP=512).
-// Query rows past T read zeros and are not written; keys past T are masked.
+// Query rows past Tq read zeros and are not written; keys past Tk are masked by
+// count (a padded k's zero rows never enter the sum).
 // ptxas (CUDA 12.9): 255 registers and 144 bytes of spill at DP=512, 250 at 256,
 // 204 at 128 (the build log in _build/). Half the warps covering 16 rows with
 // a head-dim half each (the first design) ran 11% slower: every V and K
@@ -113,12 +115,11 @@ __device__ __forceinline__ float4 scaled(float4 v, float s) {
   return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
 }
 
-// q, k (times scale) and, where vs is given, v into [BH, Tm, Dm], zero outside
-// [T, D]
+// a (times scale) and, where bs is given, b into [BH, Tm, Dm], zero outside
+// [T, D]: q alone, or k with v
 __global__ void __launch_bounds__(256)
-flash_attention_f32_kernel_stage(const float4* __restrict__ q, const float4* __restrict__ k,
-                                 const float4* __restrict__ v, float4* __restrict__ qs,
-                                 float4* __restrict__ ks, float4* __restrict__ vs, int BH, int T,
+flash_attention_f32_kernel_stage(const float4* __restrict__ a, const float4* __restrict__ b,
+                                 float4* __restrict__ as, float4* __restrict__ bs, int BH, int T,
                                  int D, int Tm, int Dm, float scale) {
   const int D4 = D / 4, Dm4 = Dm / 4;
   const size_t total = (size_t)BH * Tm * Dm4;
@@ -126,14 +127,24 @@ flash_attention_f32_kernel_stage(const float4* __restrict__ q, const float4* __r
        idx += (size_t)gridDim.x * blockDim.x) {
     const int d4 = (int)(idx % Dm4);
     const int r = (int)((idx / Dm4) % Tm);
-    const size_t b = idx / ((size_t)Dm4 * Tm);
+    const size_t n = idx / ((size_t)Dm4 * Tm);
     const bool inside = r < T && d4 < D4;
-    const size_t src = (b * T + r) * D4 + d4;
+    const size_t src = (n * T + r) * D4 + d4;
     const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
-    qs[idx] = inside ? scaled(q[src], scale) : zero;
-    ks[idx] = inside ? scaled(k[src], scale) : zero;
-    if (vs != nullptr) vs[idx] = inside ? v[src] : zero;
+    as[idx] = inside ? scaled(a[src], scale) : zero;
+    if (bs != nullptr) bs[idx] = inside ? b[src] : zero;
   }
+}
+
+// one launch of the pre-pass over [BH, Tm, Dm]
+int stage(const void* a, const void* b, void* as, void* bs, int BH, int T, int D, int Tm, int Dm,
+          float scale, cudaStream_t st) {
+  const size_t total4 = (size_t)BH * Tm * (Dm / 4);
+  const unsigned blocks = (unsigned)(total4 / 256 < 4096 ? (total4 + 255) / 256 : 4096);
+  flash_attention_f32_kernel_stage<<<blocks, 256, 0, st>>>(
+      static_cast<const float4*>(a), static_cast<const float4*>(b), static_cast<float4*>(as),
+      static_cast<float4*>(bs), BH, T, D, Tm, Dm, scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int DP>
@@ -141,7 +152,7 @@ __global__ void __launch_bounds__(THREADS, 1)
 flash_attention_f32_kernel(__grid_constant__ const CUtensorMap map_q,
                            __grid_constant__ const CUtensorMap map_k,
                            __grid_constant__ const CUtensorMap map_v, float* __restrict__ out,
-                           int T, int D) {
+                           int Tq, int Tk, int D) {
   constexpr int NCH = DP / 32;    // 32-column boxes of a row
   constexpr int HCH = NCH / 4;    // boxes of one head-dim quarter
   constexpr int DW = DP / 4;      // head-dim columns of O per warp
@@ -158,7 +169,7 @@ flash_attention_f32_kernel(__grid_constant__ const CUtensorMap map_q,
   const int tid = threadIdx.x;
   const int q0 = blockIdx.x * BQ;
   const int bh = blockIdx.y;
-  const int ntiles = (T + BKV - 1) / BKV;
+  const int ntiles = (Tk + BKV - 1) / BKV;
 
   // load idx of the sequence K0, V0, K1, V1, ... into its slot once the slot's
   // previous tile (idx - SLOTS) is released by all 8 warps; thread 0 only
@@ -274,13 +285,13 @@ flash_attention_f32_kernel(__grid_constant__ const CUtensorMap map_q,
     __syncwarp();
 
     // ---- online softmax of rows r0 + 16 mb (s[mb][.][0, 1]) and r0 + 16 mb + 8
-    // (s[mb][.][2, 3]); keys past T only in the last tile
+    // (s[mb][.][2, 3]); keys past Tk only in the last tile
     if (j == ntiles - 1) {
 #pragma unroll
       for (int nb = 0; nb < 2; ++nb)
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          if (j * BKV + 8 * nb + 2 * t + e >= T)
+          if (j * BKV + 8 * nb + 2 * t + e >= Tk)
 #pragma unroll
             for (int mb = 0; mb < 2; ++mb) s[mb][nb][e] = s[mb][nb][2 + e] = -INFINITY;
     }
@@ -293,7 +304,7 @@ flash_attention_f32_kernel(__grid_constant__ const CUtensorMap map_q,
                          fmaxf(s[mb][1][2 * hh], s[mb][1][2 * hh + 1]));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-        const float m_new = fmaxf(m[mb][hh], mx);  // finite: every tile holds a key < T
+        const float m_new = fmaxf(m[mb][hh], mx);  // finite: every tile holds a key < Tk
         alpha[mb][hh] = expf(m[mb][hh] - m_new);
         m[mb][hh] = m_new;
         float sum = 0.0f;
@@ -360,8 +371,8 @@ flash_attention_f32_kernel(__grid_constant__ const CUtensorMap map_q,
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int row = q0 + r0 + 16 * mb + 8 * hh;
-      if (row >= T) continue;
-      float* dst = out + ((size_t)bh * T + row) * D;
+      if (row >= Tq) continue;
+      float* dst = out + ((size_t)bh * Tq + row) * D;
 #pragma unroll
       for (int i = 0; i < NB; ++i) {
         const int col = h * DW + 8 * i + 2 * t;
@@ -373,54 +384,54 @@ flash_attention_f32_kernel(__grid_constant__ const CUtensorMap map_q,
 }
 
 template <int DP>
-int launch(const CUtensorMap (&maps)[3], float* out, int BH, int T, int D, cudaStream_t stream) {
+int launch(const CUtensorMap (&maps)[3], float* out, int BH, int Tq, int Tk, int D,
+           cudaStream_t stream) {
   static std::atomic<uint64_t> smem_ready{0};
   const int rc = allow_dynamic_smem(flash_attention_f32_kernel<DP>, smem_bytes(DP), smem_ready);
   if (rc != 0) return rc;
-  const dim3 grid((unsigned)((T + BQ - 1) / BQ), (unsigned)BH);
-  flash_attention_f32_kernel<DP><<<grid, THREADS, smem_bytes(DP), stream>>>(maps[0], maps[1],
-                                                                           maps[2], out, T, D);
+  const dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)BH);
+  flash_attention_f32_kernel<DP><<<grid, THREADS, smem_bytes(DP), stream>>>(
+      maps[0], maps[1], maps[2], out, Tq, Tk, D);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// q, k, v, out: [BH, T, D] fp32 contiguous, D % 4 == 0, 0 < D <= 512, T >= 1.
-// qs, ks: [BH, Tm, Dm] fp32 scratch with Tm = max(T, 64), Dm = max(D, 32); vs the
-// same where (Tm, Dm) != (T, D), else null (v is read in place). smem is the
-// caller's copy of the shared-memory size (ops/attention.flash_f32_smem_bytes);
-// a mismatch is refused. Returns a cudaError_t.
+// q, out: [BH, Tq, D] and k, v: [BH, Tk, D] fp32 contiguous, D % 4 == 0, 0 < D <= 512,
+// Tq, Tk >= 1. qs: [BH, Tqm, Dm] and ks: [BH, Tkm, Dm] fp32 scratch with Tqm =
+// max(Tq, 64), Tkm = max(Tk, 64), Dm = max(D, 32); vs like ks where (Tkm, Dm) !=
+// (Tk, D), else null (v is read in place). smem is the caller's copy of the
+// shared-memory size (ops/attention.flash_f32_smem_bytes); a mismatch is refused.
+// Returns a cudaError_t.
 extern "C" int flash_attention_f32(const void* q, const void* k, const void* v, void* out,
-                                   void* qs, void* ks, void* vs, int BH, int T, int D, int Tm,
-                                   int Dm, int smem, void* stream) {
-  if (D % 4 != 0 || D <= 0 || D > 512 || T <= 0 || BH <= 0 || Tm != (T > 64 ? T : 64) ||
-      Dm != (D > 32 ? D : 32) || (vs == nullptr && (Tm != T || Dm != D)))
+                                   void* qs, void* ks, void* vs, int BH, int Tq, int Tk, int D,
+                                   int Tqm, int Tkm, int Dm, int smem, void* stream) {
+  if (D % 4 != 0 || D <= 0 || D > 512 || Tq <= 0 || Tk <= 0 || BH <= 0 ||
+      Tqm != (Tq > 64 ? Tq : 64) || Tkm != (Tk > 64 ? Tk : 64) || Dm != (D > 32 ? D : 32) ||
+      (vs == nullptr && (Tkm != Tk || Dm != D)))
     return static_cast<int>(cudaErrorInvalidValue);
   const int DP = Dm <= 128 ? 128 : Dm <= 256 ? 256 : 512;
   if (smem != smem_bytes(DP)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   // D^-1/4 in double, rounded once to fp32, as the Python scale of the JAX kernel
   const float scale = static_cast<float>(1.0 / pow((double)D, 0.25));
-  const size_t total4 = (size_t)BH * Tm * (Dm / 4);
-  const unsigned blocks = (unsigned)(total4 / 256 < 4096 ? (total4 + 255) / 256 : 4096);
-  flash_attention_f32_kernel_stage<<<blocks, 256, 0, st>>>(
-      static_cast<const float4*>(q), static_cast<const float4*>(k), static_cast<const float4*>(v),
-      static_cast<float4*>(qs), static_cast<float4*>(ks), static_cast<float4*>(vs), BH, T, D, Tm,
-      Dm, scale);
-  int rc = static_cast<int>(cudaGetLastError());
+  int rc = stage(q, nullptr, qs, nullptr, BH, Tq, D, Tqm, Dm, scale, st);
+  if (rc != 0) return rc;
+  rc = stage(k, v, ks, vs, BH, Tk, D, Tkm, Dm, scale, st);
   if (rc != 0) return rc;
 
   CUtensorMap maps[3];
   const void* ptrs[3] = {qs, ks, vs != nullptr ? vs : v};
-  const uint64_t dims[3] = {(uint64_t)Dm, (uint64_t)Tm, (uint64_t)BH};
-  const uint64_t strides[2] = {(uint64_t)Dm * 4, (uint64_t)Tm * Dm * 4};
   for (int i = 0; i < 3; ++i) {
+    const uint64_t rows = (uint64_t)(i == 0 ? Tqm : Tkm);
+    const uint64_t dims[3] = {(uint64_t)Dm, rows, (uint64_t)BH};
+    const uint64_t strides[2] = {(uint64_t)Dm * 4, rows * Dm * 4};
     const uint64_t box[3] = {32, (uint64_t)(i == 0 ? BQ : BKV), 1};
     rc = encode_f32_map(&maps[i], ptrs[i], 3, dims, strides, box);
     if (rc != 0) return rc;
   }
   float* o = static_cast<float*>(out);
-  if (DP == 128) return launch<128>(maps, o, BH, T, D, st);
-  if (DP == 256) return launch<256>(maps, o, BH, T, D, st);
-  return launch<512>(maps, o, BH, T, D, st);
+  if (DP == 128) return launch<128>(maps, o, BH, Tq, Tk, D, st);
+  if (DP == 256) return launch<256>(maps, o, BH, Tq, Tk, D, st);
+  return launch<512>(maps, o, BH, Tq, Tk, D, st);
 }

@@ -42,10 +42,10 @@ _SIGNATURES = {
     # uint64, UpconvPlan.c_values for 4-byte elements), stream
     "subpixel_upconv_f32": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                             ctypes.POINTER(ctypes.c_uint64), _P],
-    # q, k, v, out, BH, T, D, Tm, Dm, smem_bytes, stream
-    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    # q, k, v, out, qs, ks, vs, BH, T, D, Tm, Dm, smem_bytes, stream
-    "flash_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, BH, Tq, Tk, D, Tqm, Tkm, Dm, smem_bytes, stream
+    "flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # q, k, v, out, qs, ks, vs, BH, Tq, Tk, D, Tqm, Tkm, Dm, smem_bytes, stream
+    "flash_attention_f32": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()

@@ -1,4 +1,7 @@
-"""UNet building blocks, NCHW (port of the BBDM subset of ``bbdm_tpu/models/layers.py``).
+"""UNet building blocks, NCHW (port of ``bbdm_tpu/models/layers.py``), with the
+cross-attention family (``CrossAttention``, ``GEGLUFeedForward``,
+``BasicTransformerBlock``, ``SpatialTransformer``) and the two other attention
+layers (``LinearAttention``, ``SpatialSelfAttention``).
 
 Parameters are fp32; each conv/dense casts its input, weight and bias to its
 compute ``dtype`` at use, as flax does (``dtype=None``: the promotion of the
@@ -38,6 +41,16 @@ def torch_default_init(t, g):
 
 def zeros_init(t, g):
     t.zero_()
+
+
+def lecun_normal_init(fan_in):
+    """flax's default Dense kernel init: a normal truncated at +-2 std with
+    variance 1/fan_in after the truncation."""
+    std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+
+    def init(t, g):
+        torch.nn.init.trunc_normal_(t, 0.0, std, -2.0 * std, 2.0 * std, generator=g)
+    return init
 
 
 def head_init(scheme: str):
@@ -143,21 +156,24 @@ def conv1x1(in_ch, out_ch, *, init=normal_init, dtype=None, bias=True, device=No
 
 
 class Dense(_Init):
-    """flax ``nn.Dense`` semantics over the last axis."""
+    """flax ``nn.Dense`` semantics over the last axis; ``bias=False`` for
+    ``use_bias=False``."""
 
-    def __init__(self, in_f, out_f, *, init=normal_init, dtype=None, device=None):
+    def __init__(self, in_f, out_f, *, init=normal_init, dtype=None, bias=True, device=None):
         super().__init__()
         self.dtype, self._init = dtype, init
         self.weight = nn.Parameter(torch.empty(out_f, in_f, device=device))
-        self.bias = nn.Parameter(torch.empty(out_f, device=device))
+        self.bias = nn.Parameter(torch.empty(out_f, device=device)) if bias else None
 
     def init_from(self, g):
         self._init(self.weight, g)
-        self.bias.zero_()
+        if self.bias is not None:
+            self.bias.zero_()
 
     def forward(self, x):
         dt = _dt(self.dtype, x, self.weight)
-        return F.linear(x.to(dt), self.weight.to(dt), self.bias.to(dt))
+        return F.linear(x.to(dt), self.weight.to(dt),
+                        self.bias.to(dt) if self.bias is not None else None)
 
 
 def upsample_nearest_2x(x):
@@ -289,3 +305,247 @@ class AttentionBlock(nn.Module):
         a = attn_ops.multi_head_attention(q, k, v)  # [B, heads, T, d]
         a = self.proj_out(a.transpose(1, 2).reshape(B, T, C))
         return x + a.transpose(1, 2).reshape(B, C, H, W)
+
+
+# ------------------------------------------------------- transformer family
+# bbdm_tpu/models/layers.py:279-412. Token tensors are [B, T, C] as in flax;
+# image tensors NCHW, whose tokens are taken in row-major (h, w) order, the
+# order of flax's NHWC reshape.
+
+def tokens(x):
+    """NCHW [B, C, H, W] -> [B, H*W, C], tokens in row-major (h, w) order."""
+    return x.flatten(2).transpose(1, 2)
+
+
+def untokens(t, H, W):
+    """[B, H*W, C] -> NCHW-contiguous [B, C, H, W] (the kernels take NCHW)."""
+    return t.transpose(1, 2).contiguous().view(t.shape[0], t.shape[2], H, W)
+
+
+class LayerNorm(_Init):
+    """flax ``nn.LayerNorm`` over the last axis: epsilon 1e-6, fp32 ``weight``
+    (flax ``scale``) and ``bias``, the mean of x and of x^2 in fp32 (flax's fast
+    variance, clipped at 0), and an fp32 output whatever x's dtype (flax's
+    result type of a bf16 x and fp32 parameters)."""
+
+    def __init__(self, features, eps=1e-6, *, device=None):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(features, device=device))
+        self.bias = nn.Parameter(torch.empty(features, device=device))
+
+    def init_from(self, g):
+        self.weight.fill_(1.0)
+        self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.float()
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf * xf).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+        return (xf - mu) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+
+
+class CrossAttention(nn.Module):
+    """Multi-head attention of x's tokens over the context's
+    (``bbdm_tpu/models/layers.py:325-349``); self-attention where the context
+    is None. Bias-free ``to_q``/``to_k``/``to_v``, biased ``to_out``. A 4-D
+    (NCHW) context becomes its H*W tokens. flax infers ``to_k``/``to_v``'s input
+    width from the context; here it is ``context_dim`` (None: the query width),
+    and a context of another width raises."""
+
+    def __init__(self, query_dim, heads, dim_head, out_dim, *, context_dim=None, dtype=None,
+                 device=None):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        kw = dict(bias=False, dtype=dtype, device=device)
+        self.to_q = Dense(query_dim, inner, **kw)
+        self.to_k = Dense(context_dim or query_dim, inner, **kw)
+        self.to_v = Dense(context_dim or query_dim, inner, **kw)
+        self.to_out = Dense(inner, out_dim, dtype=dtype, device=device)
+
+    def forward(self, x, context=None):
+        """x: [B, Tq, C]; context: None, [B, Tk, C'] or [B, C', H, W]."""
+        ctx = x if context is None else context
+        if ctx.ndim == 4:
+            ctx = tokens(ctx)
+        width = self.to_k.weight.shape[1]
+        if ctx.shape[-1] != width:
+            raise ValueError(f"CrossAttention: the context has {ctx.shape[-1]} channels, to_k "
+                             f"and to_v take {width} (set UNetParams.context_dim to the "
+                             "context's channels)")
+        B, T = x.shape[:2]
+
+        def heads(t):
+            return t.reshape(t.shape[0], t.shape[1], self.heads, self.dim_head) \
+                .transpose(1, 2).contiguous()
+
+        out = attn_ops.multi_head_attention(heads(self.to_q(x)), heads(self.to_k(ctx)),
+                                            heads(self.to_v(ctx)))
+        return self.to_out(out.transpose(1, 2).reshape(B, T, self.heads * self.dim_head))
+
+
+class GEGLUFeedForward(nn.Module):
+    """GEGLU feed-forward (``bbdm_tpu/models/layers.py:352-365``): ``proj`` to
+    2 x mult x dim, value times tanh-GELU(gate) (flax ``nn.gelu``), ``out``."""
+
+    def __init__(self, dim, mult=4, *, dtype=None, device=None):
+        super().__init__()
+        self.proj = Dense(dim, 2 * mult * dim, dtype=dtype, device=device)
+        self.out = Dense(mult * dim, dim, dtype=dtype, device=device)
+
+    def forward(self, x):
+        h, gate = self.proj(x).chunk(2, dim=-1)
+        return self.out(h * F.gelu(gate, approximate="tanh"))
+
+
+class BasicTransformerBlock(nn.Module):
+    """Pre-LayerNorm self-attention, cross-attention and GEGLU feed-forward,
+    each added to its input (``bbdm_tpu/models/layers.py:368-387``)."""
+
+    def __init__(self, dim, heads, dim_head, *, context_dim=None, dtype=None, device=None):
+        super().__init__()
+        kw = dict(dtype=dtype, device=device)
+        self.norm1 = LayerNorm(dim, device=device)
+        self.attn1 = CrossAttention(dim, heads, dim_head, dim, **kw)
+        self.norm2 = LayerNorm(dim, device=device)
+        self.attn2 = CrossAttention(dim, heads, dim_head, dim, context_dim=context_dim, **kw)
+        self.norm3 = LayerNorm(dim, device=device)
+        self.ff = GEGLUFeedForward(dim, **kw)
+
+    def forward(self, x, context=None):
+        x = self.attn1(self.norm1(x)) + x
+        x = self.attn2(self.norm2(x), context) + x
+        return self.ff(self.norm3(x)) + x
+
+
+class SpatialTransformer(nn.Module):
+    """GroupNorm (eps 1e-6, through K1) -> 1x1 ``proj_in`` -> ``depth``
+    transformer blocks over the H*W tokens -> 1x1 ``proj_out`` (head init),
+    added to x (``bbdm_tpu/models/layers.py:390-412``)."""
+
+    def __init__(self, ch, heads, dim_head, *, depth=1, context_dim=None,
+                 init_scheme="reference", dtype=None, device=None):
+        super().__init__()
+        inner = heads * dim_head
+        self.depth = depth
+        self.norm = GroupNorm32(ch, eps=1e-6, device=device)
+        self.proj_in = conv1x1(ch, inner, dtype=dtype, device=device)
+        for d in range(depth):
+            self.add_module(f"block_{d}", BasicTransformerBlock(
+                inner, heads, dim_head, context_dim=context_dim, dtype=dtype, device=device))
+        self.proj_out = conv1x1(inner, ch, init=head_init(init_scheme), dtype=dtype,
+                                device=device)
+
+    def forward(self, x, context=None):
+        H, W = x.shape[-2:]
+        h = tokens(self.proj_in(self.norm(x)))
+        for d in range(self.depth):
+            h = self.get_submodule(f"block_{d}")(h, context)
+        return x + self.proj_out(untokens(h, H, W))
+
+
+class LinearAttention(nn.Module):
+    """Kernelised attention (``bbdm_tpu/models/layers.py:279-300``): 1x1
+    ``to_qkv``, the keys' softmax over tokens in fp32 (rounded to x's dtype),
+    context = k^T v per head, out = q context, 1x1 ``to_out``; no norm, no
+    residual."""
+
+    def __init__(self, ch, heads=4, dim_head=32, *, dtype=None, device=None):
+        super().__init__()
+        self.heads, self.dim_head = heads, dim_head
+        inner = heads * dim_head
+        self.to_qkv = conv1x1(ch, 3 * inner, init=torch_default_init, dtype=dtype, device=device)
+        self.to_out = conv1x1(inner, ch, init=torch_default_init, dtype=dtype, device=device)
+
+    def forward(self, x):
+        B, _, H, W = x.shape
+        qkv = tokens(self.to_qkv(x)).reshape(B, H * W, 3, self.heads, self.dim_head)
+        q, k, v = qkv.unbind(2)  # each [B, T, heads, d]
+        k = torch.softmax(k.float(), dim=1).to(x.dtype)
+        context = torch.einsum("bthd,bthe->bhde", k, v)
+        out = torch.einsum("bhde,bthd->bthe", context, q)
+        return self.to_out(untokens(out.reshape(B, H * W, self.heads * self.dim_head), H, W))
+
+
+class SpatialSelfAttention(nn.Module):
+    """One-head self-attention with 1x1 ``q``/``k``/``v`` convs
+    (``bbdm_tpu/models/layers.py:303-322``): GroupNorm eps 1e-6 (K1), logits in
+    fp32 scaled by C^-1/2, an fp32 softmax rounded to x's dtype, 1x1
+    ``proj_out``, added to x. Not through ``multi_head_attention``: it has its
+    own scale."""
+
+    def __init__(self, ch, *, dtype=None, device=None):
+        super().__init__()
+        kw = dict(init=torch_default_init, dtype=dtype, device=device)
+        self.norm = GroupNorm32(ch, eps=1e-6, device=device)
+        self.q, self.k, self.v = (conv1x1(ch, ch, **kw) for _ in range(3))
+        self.proj_out = conv1x1(ch, ch, **kw)
+
+    def forward(self, x):
+        B, C, H, W = x.shape
+        h = self.norm(x)
+        q, k, v = (tokens(m(h)) for m in (self.q, self.k, self.v))
+        logits = torch.matmul(q.float(), k.float().transpose(1, 2)) * (C ** -0.5)
+        w = torch.softmax(logits, dim=-1).to(x.dtype)
+        return x + self.proj_out(untokens(torch.matmul(w, v), H, W))
+
+
+# ------------------------------------------------------------ embedders' layers
+
+class Embed(_Init):
+    """flax ``nn.Embed``: a table ``embedding`` [num, features] drawn from
+    N(0, std^2); integer ids -> rows, fp32."""
+
+    def __init__(self, num, features, *, std=1.0, device=None):
+        super().__init__()
+        self.std = std
+        self.embedding = nn.Parameter(torch.empty(num, features, device=device))
+
+    def init_from(self, g):
+        self.embedding.normal_(0.0, self.std, generator=g)
+
+    def forward(self, ids):
+        return self.embedding[ids.long()]
+
+
+class DenseGeneral(_Init):
+    """flax ``nn.DenseGeneral`` as ``MultiHeadDotProductAttention`` uses it: the
+    last ``len(in_shape)`` axes of x contracted with ``weight``'s leading ones,
+    ``weight`` in flax's layout (in_shape + out_shape, e.g. [C, heads, d] or
+    [heads, d, C]), ``bias`` out_shape; computed in ``dtype``."""
+
+    def __init__(self, in_shape, out_shape, *, dtype=None, device=None):
+        super().__init__()
+        self.dtype, self.n_in = dtype, len(in_shape)
+        self.weight = nn.Parameter(torch.empty(*in_shape, *out_shape, device=device))
+        self.bias = nn.Parameter(torch.empty(*out_shape, device=device))
+
+    def init_from(self, g):
+        lecun_normal_init(math.prod(self.weight.shape[:self.n_in]))(self.weight, g)
+        self.bias.zero_()
+
+    def forward(self, x):
+        dt = _dt(self.dtype, x, self.weight)
+        return torch.tensordot(x.to(dt), self.weight.to(dt), dims=self.n_in) + self.bias.to(dt)
+
+
+class MultiHeadDotProductAttention(nn.Module):
+    """flax ``nn.MultiHeadDotProductAttention`` (biased ``query``, ``key``,
+    ``value`` [C, heads, C/heads] and ``out`` [heads, C/heads, C]
+    ``DenseGeneral``s; q scaled by 1/sqrt(C/heads), logits and softmax in the
+    compute dtype, no dropout) over one input attending to itself."""
+
+    def __init__(self, features, num_heads, *, dtype=None, device=None):
+        super().__init__()
+        d = features // num_heads
+        kw = dict(dtype=dtype, device=device)
+        self.query, self.key, self.value = (DenseGeneral((features,), (num_heads, d), **kw)
+                                            for _ in range(3))
+        self.out = DenseGeneral((num_heads, d), (features,), **kw)
+
+    def forward(self, x):
+        q, k, v = self.query(x), self.key(x), self.value(x)  # [B, T, heads, d]
+        q = q / torch.tensor(math.sqrt(q.shape[-1]), dtype=q.dtype)
+        w = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k), dim=-1)
+        return self.out(torch.einsum("bhqk,bkhd->bqhd", w, v))

@@ -7,6 +7,12 @@ Downsample; middle ResBlock -> attention -> ResBlock; a mirrored decoder that
 concatenates ``[h, skip]`` and ends each level but the first with an up
 ResBlock or Upsample; head GN -> SiLU -> fp32 conv. The time MLP runs in fp32
 (flax ``dtype=None`` on an fp32 input).
+
+With ``use_spatial_transformer`` each attention is a ``SpatialTransformer``
+whose cross-attention attends to the context (``xattn``), which is also
+concatenated to x where ``condition_key != "nocond"``. Its ``to_k``/``to_v``
+take ``context_dim`` channels (flax infers them from the context; None: the
+block width, self-attention).
 """
 
 from __future__ import annotations
@@ -23,6 +29,7 @@ from bbdm_tpu_torch.models.layers import (
     Downsample,
     GroupNorm32,
     ResBlock,
+    SpatialTransformer,
     Upsample,
     conv3x3,
     head_init,
@@ -36,14 +43,13 @@ class UNet(nn.Module):
                  attention_resolutions: Sequence[int], dropout=0.0, channel_mult=(1, 2, 4, 8),
                  conv_resample=True, dims=2, num_heads=-1, num_head_channels=-1,
                  num_heads_upsample=-1, use_scale_shift_norm=False,
-                 resblock_updown=False, use_spatial_transformer=False,
-                 condition_key="nocond", init_scheme="reference",
+                 resblock_updown=False, use_spatial_transformer=False, transformer_depth=1,
+                 context_dim=None, condition_key="nocond", init_scheme="reference",
                  dtype=torch.bfloat16, device=None):
         super().__init__()
         if dims != 2:
             raise NotImplementedError("only dims=2 (NCHW images) is supported")
-        if use_spatial_transformer:
-            raise NotImplementedError("use_spatial_transformer is not ported yet")
+        self.use_spatial_transformer = use_spatial_transformer
         self.model_channels, self.num_res_blocks = model_channels, num_res_blocks
         self.attention_resolutions = tuple(attention_resolutions)
         self.channel_mult = tuple(channel_mult)
@@ -62,8 +68,14 @@ class UNet(nn.Module):
                 init_scheme=init_scheme, dtype=dtype, device=device, **kw))
 
         def attention(name, ch, decoder=False):
-            self.add_module(name, AttentionBlock(
-                ch, self._heads_for(ch, decoder), dtype=dtype, device=device))
+            heads, dim_head = self._heads_for(ch, decoder)
+            if use_spatial_transformer:
+                block = SpatialTransformer(ch, heads, dim_head, depth=transformer_depth,
+                                           context_dim=context_dim, init_scheme=init_scheme,
+                                           dtype=dtype, device=device)
+            else:
+                block = AttentionBlock(ch, heads, dtype=dtype, device=device)
+            self.add_module(name, block)
 
         self.stem = conv3x3(in_channels, mc, dtype=dtype, device=device)
         chans = [mc]
@@ -106,13 +118,20 @@ class UNet(nn.Module):
         self.out_conv = conv3x3(ch, out_channels, init=head_init(init_scheme),
                                 dtype=torch.float32, device=device)
 
-    def _heads_for(self, ch: int, decoder: bool = False) -> int:
-        """Head count of the legacy arithmetic (``bbdm_tpu/models/unet.py:73-93``)."""
+    def _heads_for(self, ch: int, decoder: bool = False) -> tuple:
+        """(heads, dim_head) of the legacy arithmetic (``bbdm_tpu/models/unet.py:73-93``):
+        ``num_heads_upsample`` only for a decoder AttentionBlock, and
+        ch // heads as the head width of a SpatialTransformer."""
         if self.num_head_channels == -1:
-            if decoder and self.num_heads_upsample != -1:
-                return self.num_heads_upsample
-            return self.num_heads
-        return ch // self.num_head_channels
+            heads = self.num_heads
+            if decoder and not self.use_spatial_transformer and self.num_heads_upsample != -1:
+                heads = self.num_heads_upsample
+            dim_head = ch // heads
+        else:
+            heads, dim_head = ch // self.num_head_channels, self.num_head_channels
+        if self.use_spatial_transformer:
+            dim_head = ch // heads
+        return heads, dim_head
 
     def forward(self, x, timesteps, context=None):
         """x: [B, C, H, W]; timesteps: [B]. Returns [B, out_channels, H, W] fp32."""
@@ -124,6 +143,11 @@ class UNet(nn.Module):
         emb = emb.to(self.dtype)
         block = self.get_submodule
 
+        def attend(name, h):
+            if self.use_spatial_transformer:
+                return block(name)(h, context)
+            return block(name)(h)
+
         hs = [self.stem(h)]
         h = hs[0]
         ds = 1
@@ -131,7 +155,7 @@ class UNet(nn.Module):
             for i in range(self.num_res_blocks):
                 h = block(f"down_{level}_{i}")(h, emb)
                 if ds in self.attention_resolutions:
-                    h = block(f"down_{level}_{i}_attn")(h)
+                    h = attend(f"down_{level}_{i}_attn", h)
                 hs.append(h)
             if level != len(self.channel_mult) - 1:
                 ds_block = block(f"down_{level}_ds")
@@ -140,14 +164,14 @@ class UNet(nn.Module):
                 ds *= 2
 
         h = self.mid_res_0(h, emb)
-        h = self.mid_attn(h)
+        h = attend("mid_attn", h)
         h = self.mid_res_1(h, emb)
 
         for level, _ in reversed(list(enumerate(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
                 h = block(f"up_{level}_{i}")(torch.cat([h, hs.pop()], dim=1), emb)
                 if ds in self.attention_resolutions:
-                    h = block(f"up_{level}_{i}_attn")(h)
+                    h = attend(f"up_{level}_{i}_attn", h)
                 if level and i == self.num_res_blocks:
                     us_block = block(f"up_{level}_us")
                     h = us_block(h, emb) if isinstance(us_block, ResBlock) else us_block(h)
@@ -173,6 +197,8 @@ class UNet(nn.Module):
             use_scale_shift_norm=p.get("use_scale_shift_norm", False),
             resblock_updown=p.get("resblock_updown", False),
             use_spatial_transformer=p.get("use_spatial_transformer", False),
+            transformer_depth=p.get("transformer_depth", 1),
+            context_dim=p.get("context_dim", None) if condition_key != "nocond" else None,
             condition_key=condition_key, init_scheme=init_scheme,
             dtype=dtype, device=device,
         )

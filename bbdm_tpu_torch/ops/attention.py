@@ -2,8 +2,9 @@
 (twin of ``bbdm_tpu/ops/attention.py``).
 
 q and k are each scaled by D^-1/4 (the reference's symmetric scaling) and the
-softmax runs in float32. Dispatch mirrors ``bbdm_tpu/ops/attention.py:43-48``:
-a CUDA tensor with T >= 1024 and D % 128 == 0 goes to kernel K3
+softmax runs in float32; k and v may hold another number of tokens (Tk) than q
+(Tq), as in cross-attention. Dispatch mirrors ``bbdm_tpu/ops/attention.py:43-48``:
+a CUDA tensor with Tq >= 1024 and D % 128 == 0 goes to kernel K3
 (``csrc/flash_attention.cu`` for bf16, ``csrc/flash_attention_f32.cu`` for
 fp32 in 3xTF32; both replace the Pallas
 ``bbdm_tpu/ops/flash_attention.py:flash_attention``); everything else, the
@@ -15,6 +16,8 @@ Where grad mode is on and q, k or v requires grad, K3 launches through
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from bbdm_tpu_torch.ops import needs_grad, recompute_grads, use_kernel
@@ -23,7 +26,8 @@ KERNEL_MIN_SEQ = 1024  # bbdm_tpu/ops/attention.py:_PALLAS_MIN_SEQ
 
 
 def multi_head_attention(q, k, v):
-    """q, k, v: [B, H, T, D] -> [B, H, T, D] in q.dtype."""
+    """q: [B, H, Tq, D], k, v: [B, H, Tk, D] -> [B, H, Tq, D] in q.dtype. K3 or
+    not is decided on Tq and D alone, as in the JAX dispatch."""
     if use_kernel(q) and q.shape[-2] >= KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:
         if needs_grad(q, k, v):
             return FlashAttentionFunction.apply(q, k, v)
@@ -68,78 +72,116 @@ def flash_smem_bytes(D):
     """K3's dynamic shared memory at head dim D (csrc/flash_attention.cu
     smem_bytes): Q (64 rows x DP bf16), two stages each of K and V tiles
     (32 keys x DP bf16), the 2 x [64 x 32] fp32 score exchange, 9 mbarriers and
-    1 KB of alignment slack."""
+    1 KB of alignment slack. The key loop streams its tiles through these
+    stages, so no length, Tq or Tk, enters it."""
     dp = flash_padded_dim(D)
     return 64 * dp * 2 + 2 * 2 * 32 * dp * 2 + 2 * 64 * 32 * 4 + 9 * 8 + 1024
-
-
-def flash_attention_cuda(q, k, v):
-    """Launch K3 on contiguous [B, H, T, D] CUDA tensors of one dtype: bf16 with
-    D % 16 == 0 (``csrc/flash_attention.cu``) or fp32 with D % 4 == 0
-    (``csrc/flash_attention_f32.cu``), D <= 512. Output in q's dtype."""
-    for t in (q, k, v):
-        if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32) or t.ndim != 4 \
-                or not t.is_contiguous():
-            raise ValueError("flash_attention_cuda takes contiguous bf16 or fp32 CUDA "
-                             "[B, H, T, D]")
-        if t.shape != q.shape or t.device != q.device or t.dtype != q.dtype:
-            raise ValueError("flash_attention_cuda: q, k, v differ in shape, device or dtype")
-    if q.dtype == torch.float32:
-        return _flash_f32(q, k, v)
-    return _flash_bf16(q, k, v)
-
-
-def _flash_bf16(q, k, v):
-    """A TMA box is 64 rows x 64 columns and must fit inside its tensor, so T or
-    D below 64 is zero-padded to 64 (padded keys are masked, padded rows and
-    columns not written) and the output cut back."""
-    from bbdm_tpu_torch.kernels import build
-
-    B, H, T, D = q.shape
-    if D % 16 != 0 or D > 512:
-        raise ValueError(f"flash_attention_cuda (bf16) takes D % 16 == 0 and D <= 512, got {D}")
-    Tm, Dm = max(T, 64), max(D, 64)
-    if (Tm, Dm) != (T, D):
-        q, k, v = (torch.nn.functional.pad(t, (0, Dm - D, 0, Tm - T)) for t in (q, k, v))
-    out = torch.empty_like(q)
-    stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = build.library().flash_attention_bf16(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, T, D, Tm, Dm,
-        flash_smem_bytes(Dm), stream)
-    build.check("flash_attention_bf16", rc)
-    flash_attention_cuda.launches += 1
-    return out[..., :T, :D].contiguous() if (Tm, Dm) != (T, D) else out
 
 
 def flash_f32_smem_bytes(D):
     """The fp32 K3's dynamic shared memory at head dim D
     (csrc/flash_attention_f32.cu smem_bytes): Q (64 rows x DP fp32), a 3-slot
     ring of 16-key K or V tiles (16 x DP fp32, at least the 16 KB of score
-    partials each slot also holds), 7 mbarriers and 1 KB of alignment slack."""
+    partials each slot also holds), 7 mbarriers and 1 KB of alignment slack;
+    like the bf16 kernel's, independent of Tq and Tk."""
     dp = flash_padded_dim(D)
     return 64 * dp * 4 + 3 * max(16 * dp * 4, 16384) + 7 * 8 + 1024
 
 
-def _flash_f32(q, k, v):
-    """The fp32 kernel masks keys and rows past T itself. Its pre-pass writes
-    q and k times D^-1/4 into scratch allocated here, zero-padded to at least
-    64 rows and 32 columns (one TMA box), and a padded copy of v only where
-    that padding is needed."""
+class FlashPlan(NamedTuple):
+    """K3's padded extents for q [B, H, Tq, D] and k, v [B, H, Tk, D]: rows of
+    q (``Tqm``) and of k and v (``Tkm``) and columns (``Dm``) in device memory,
+    each at least one TMA box (64 rows; 64 bf16 or 32 fp32 columns), so that
+    every box fits inside its tensor; the compiled head dim ``DP`` and the
+    dynamic shared memory ``smem``. Keys past Tk are masked by count in the
+    kernel, never summed as zeros; query rows past Tq are not written."""
+    Tqm: int
+    Tkm: int
+    Dm: int
+    DP: int
+    smem: int
+
+
+def plan_flash(Tq, Tk, D, dtype) -> FlashPlan:
+    """K3's plan (:class:`FlashPlan`) for bf16 or fp32. Raises ValueError on a
+    shape the kernel does not take, saying which: D <= 512 (the Pallas kernel
+    has no such limit; D is a multiple of 128 wherever the dispatch sends
+    attention to K3), D % 16 == 0 in bf16 and D % 4 == 0 in fp32 (16-byte TMA
+    rows), and Tq, Tk >= 1."""
+    f32 = dtype == torch.float32
+    if Tq < 1 or Tk < 1 or D < 1:
+        raise ValueError(f"flash_attention_cuda takes Tq, Tk, D >= 1, got Tq={Tq}, Tk={Tk}, "
+                         f"D={D}")
+    if D > 512 or D % (4 if f32 else 16) != 0:
+        raise ValueError(f"flash_attention_cuda ({'fp32' if f32 else 'bf16'}) takes "
+                         f"D % {4 if f32 else 16} == 0 and D <= 512, got D={D}")
+    Dm = max(D, 32 if f32 else 64)
+    return FlashPlan(max(Tq, 64), max(Tk, 64), Dm, flash_padded_dim(Dm),
+                     flash_f32_smem_bytes(Dm) if f32 else flash_smem_bytes(Dm))
+
+
+def flash_attention_cuda(q, k, v):
+    """Launch K3 on contiguous CUDA tensors of one dtype, q [B, H, Tq, D] and
+    k, v [B, H, Tk, D] (Tk may differ from Tq, as in the Pallas kernel): bf16
+    (``csrc/flash_attention.cu``) or fp32 (``csrc/flash_attention_f32.cu``);
+    :func:`plan_flash` says which D. Output [B, H, Tq, D] in q's dtype."""
+    for t in (q, k, v):
+        if not t.is_cuda or t.dtype not in (torch.bfloat16, torch.float32) or t.ndim != 4 \
+                or not t.is_contiguous():
+            raise ValueError("flash_attention_cuda takes contiguous bf16 or fp32 CUDA "
+                             "[B, H, T, D]")
+        if t.device != q.device or t.dtype != q.dtype:
+            raise ValueError("flash_attention_cuda: q, k, v differ in device or dtype")
+    B, H, Tq, D = q.shape
+    if k.shape != v.shape or k.shape[:2] != (B, H) or k.shape[3] != D:
+        raise ValueError(f"flash_attention_cuda takes q [B, H, Tq, D] and k, v [B, H, Tk, D], "
+                         f"got q {tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    plan = plan_flash(Tq, k.shape[2], D, q.dtype)
+    if q.dtype == torch.float32:
+        return _flash_f32(q, k, v, plan)
+    return _flash_bf16(q, k, v, plan)
+
+
+def _flash_bf16(q, k, v, plan):
+    """A TMA box is 64 rows x 64 columns and must fit inside its tensor, so q
+    (Tq rows), k and v (Tk rows) below 64 rows, or D below 64, are zero-padded
+    as :func:`plan_flash` says and the output cut back."""
     from bbdm_tpu_torch.kernels import build
 
-    B, H, T, D = q.shape
-    if D % 4 != 0 or D > 512 or T == 0:
-        raise ValueError(f"flash_attention_cuda (fp32) takes D % 4 == 0, D <= 512 and T > 0, "
-                         f"got D={D}, T={T}")
-    Tm, Dm = max(T, 64), max(D, 32)
-    qs, ks = (q.new_empty((B * H, Tm, Dm)) for _ in range(2))
-    vs = q.new_empty((B * H, Tm, Dm)) if (Tm, Dm) != (T, D) else None
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    pad = lambda t, T, Tm: (t if (Tm, plan.Dm) == (T, D)
+                            else torch.nn.functional.pad(t, (0, plan.Dm - D, 0, Tm - T)))
+    q = pad(q, Tq, plan.Tqm)
+    k, v = pad(k, Tk, plan.Tkm), pad(v, Tk, plan.Tkm)
+    out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = build.library().flash_attention_bf16(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B * H, Tq, Tk, D, plan.Tqm,
+        plan.Tkm, plan.Dm, plan.smem, stream)
+    build.check("flash_attention_bf16", rc)
+    flash_attention_cuda.launches += 1
+    return out[..., :Tq, :D].contiguous() if (plan.Tqm, plan.Dm) != (Tq, D) else out
+
+
+def _flash_f32(q, k, v, plan):
+    """The fp32 kernel masks keys past Tk and rows past Tq itself. Its pre-pass
+    writes q and k times D^-1/4 into scratch allocated here, zero-padded as
+    :func:`plan_flash` says, and a padded copy of v only where that padding is
+    needed."""
+    from bbdm_tpu_torch.kernels import build
+
+    B, H, Tq, D = q.shape
+    Tk = k.shape[2]
+    qs = q.new_empty((B * H, plan.Tqm, plan.Dm))
+    ks = q.new_empty((B * H, plan.Tkm, plan.Dm))
+    vs = q.new_empty((B * H, plan.Tkm, plan.Dm)) if (plan.Tkm, plan.Dm) != (Tk, D) else None
     out = torch.empty_like(q)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = build.library().flash_attention_f32(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), qs.data_ptr(), ks.data_ptr(),
-        None if vs is None else vs.data_ptr(), B * H, T, D, Tm, Dm, flash_f32_smem_bytes(Dm),
-        stream)
+        None if vs is None else vs.data_ptr(), B * H, Tq, Tk, D, plan.Tqm, plan.Tkm, plan.Dm,
+        plan.smem, stream)
     build.check("flash_attention_f32", rc)
     flash_attention_cuda.launches += 1
     return out

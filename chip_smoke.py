@@ -11,8 +11,10 @@ Phases, each of which must pass:
 3. each hand-written kernel (K1 GroupNorm, K2 subpixel up-conv, K3 flash
    attention, all CUDA C++; K2 and K3 in bf16 and, from their ``*_f32.cu``
    sources, in fp32) against its plain PyTorch twin on the card at the shapes
-   the LBBDM-f4 path (bf16) and VQGAN-f4 training (fp32) give it and at edge
-   cases, one launch per call;
+   the LBBDM-f4 path (bf16) and VQGAN-f4 training (fp32) give it, at phase 9's
+   new shapes (f16's 4^2 and 8^2 UNet levels, f8's VQGAN attention at T=1024,
+   the transformer's eps-1e-6 norms), K3 with keys != queries (Tk 4096 and 1
+   for 1024 queries) and at edge cases, one launch per call;
    at the path shapes also CUDA-event times of the kernel (wrapper included),
    its twin and one PyTorch library call computing the same function (or, for
    K1, a subset of it), the kernel's own device time from torch.profiler, and
@@ -88,7 +90,23 @@ Phases, each of which must pass:
    relative; then InceptionV3 at batch 32 (299^2, and 256^2 resized) and
    LPIPS alex and vgg at batch 32 at 256^2 (CUDA-event ms, images or pairs per
    second), and one ``-f FID`` run split into its wall, the host's PNG decode
-   and Fréchet (scipy sqrtm) seconds and its device busy ms.
+   and Fréchet (scipy sqrtm) seconds and its device busy ms;
+9. the other latent paths through ``main_torch.main`` at full width from seeded
+   random weights, each on a synthetic 256^2 ``custom_aligned`` dataset (16
+   train pairs, flipped to 32 where the template flips, 8 val, 8 test):
+   ``Template-LBBDM-f8.yaml`` and ``Template-LBBDM-f16.yaml`` as they stand and
+   ``Template-LBBDM-f4.yaml`` with the cross-attention UNet
+   (``use_spatial_transformer``, depth 1, ``condition_key: SpatialRescaler``,
+   ``context_dim`` 3, ``in_channels`` 6), each cut to 20 sampling steps and 1
+   draw: one ``--sample_to_eval`` batch of 8 and a one-epoch ``--train`` run
+   (4, 4 and 2 microbatches, one validation epoch, one save). Each run's
+   K1/K2/K3 launches must equal the counts derived from the code
+   (:func:`kernel_calls`: the modules walked on the meta device). Printed:
+   seconds per batch, per sampler step (with device busy and idle share) and
+   per microbatch and update, device busy and idle share over a batch and
+   over two microbatches, peak memory; the sampled latent and the encode
+   through the kernels against the twins (bar: twice the twins' bf16-vs-fp32
+   distance); every trainable parameter with a finite gradient.
 
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
@@ -119,6 +137,7 @@ import torch
 
 SAMPLE_STEP, SAMPLE_NUM, BATCHES, BATCH = 20, 2, 2, 8
 CLI_TEST_PAIRS, CLI_SEED = 16, 1234
+SHORT = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
 
 
 def log(*a):
@@ -265,7 +284,10 @@ def kernel_cases(dev):
     # the edge cases of the gpu-marked tests: a span that overflows a cluster of 8
     # (fp32 at 256^2), a ragged span (C=96 at 7x5), fp16 with FiLM, a cluster of
     # 4, and a ragged span split over a cluster of 2; then timed fp32 at VQGAN
-    # training's three widths (encoder and decoder norms at 256^2, 128^2, 64^2)
+    # training's three widths (encoder and decoder norms at 256^2, 128^2, 64^2);
+    # then phase 9's new shapes: the f16 UNet's level-2 out_norm with FiLM at 4^2
+    # (C=1024), the cross-attention UNet's SpatialTransformer norm (eps 1e-6,
+    # C=1024 at 16^2) and eps 1e-6 at [8,512,32,32]
     for shape, film, eps, dtype, timed in (
             ((BATCH, 640, 64, 64), False, 1e-5, torch.bfloat16, True),
             ((BATCH, 1024, 32, 32), True, 1e-5, torch.bfloat16, True),
@@ -277,7 +299,10 @@ def kernel_cases(dev):
             ((2, 32, 255, 255), True, 1e-6, torch.bfloat16, False),
             ((BATCH, 128, 256, 256), False, 1e-6, torch.float32, True),
             ((BATCH, 256, 128, 128), False, 1e-6, torch.float32, True),
-            ((BATCH, 512, 64, 64), False, 1e-6, torch.float32, True)):
+            ((BATCH, 512, 64, 64), False, 1e-6, torch.float32, True),
+            ((BATCH, 1024, 4, 4), True, 1e-5, torch.bfloat16, True),
+            ((BATCH, 1024, 16, 16), False, 1e-6, torch.bfloat16, True),
+            ((BATCH, 512, 32, 32), False, 1e-6, torch.bfloat16, True)):
         N, C, H, W = shape
         x = randn(*shape, scale=2.0, dtype=dtype)
         w, b = 1 + randn(C, scale=0.1, dtype=torch.float32), randn(C, scale=0.1,
@@ -308,7 +333,9 @@ def kernel_cases(dev):
     # the edge cases of the gpu-marked tests (ragged co, ci < 64, w = 40, h = 24) and
     # one that pads every dimension (ci % 8, co < 128, h < one tile of rows, w % 4);
     # then fp32 (VQGAN training's eval-mode reconstructions) at the decoder's two
-    # shapes and the same edge cases
+    # shapes and the same edge cases; then phase 9's f16 UNet up_2_us / up_1_us in_conv
+    # at 4^2 and 8^2 (h below one tile of rows, w padded to 8), and untimed the other
+    # up-convs of the f8 and f16 paths (UNet at 8^2 and 16^2, the decoders' levels)
     for (n, ci, h, wd), co, dtype, timed in (
             ((BATCH, 1024, 16, 16), 1024, torch.bfloat16, True),
             ((BATCH, 512, 32, 32), 512, torch.bfloat16, True),
@@ -321,7 +348,14 @@ def kernel_cases(dev):
             ((BATCH, 256, 128, 128), 256, torch.float32, True),
             ((1, 32, 24, 40), 96, torch.float32, False),
             ((2, 64, 16, 16), 64, torch.float32, False),
-            ((1, 20, 5, 7), 30, torch.float32, False)):
+            ((1, 20, 5, 7), 30, torch.float32, False),
+            ((BATCH, 1024, 4, 4), 1024, torch.bfloat16, True),
+            ((BATCH, 512, 8, 8), 512, torch.bfloat16, True),
+            ((BATCH, 1024, 8, 8), 1024, torch.bfloat16, False),
+            ((BATCH, 512, 16, 16), 512, torch.bfloat16, False),
+            ((BATCH, 256, 64, 64), 256, torch.bfloat16, False),
+            ((BATCH, 256, 32, 32), 256, torch.bfloat16, False),
+            ((BATCH, 128, 128, 128), 128, torch.bfloat16, False)):
         f32 = dtype == torch.float32
         x = randn(n, ci, h, wd, dtype=dtype)
         w = randn(co, ci, 3, 3, scale=0.02, dtype=torch.float32)
@@ -351,28 +385,53 @@ def kernel_cases(dev):
     fa = []
     # VQGAN encoder / decoder mid_attn_1: H=1, T=64^2, D=512; then the edge cases of
     # the gpu-marked tests: ragged T (keys masked, rows not written) and D=128; then
-    # T and D below one 64 x 64 box; then the same in fp32 (VQGAN training)
-    for shape, dtype, timed in (((BATCH, 1, 4096, 512), torch.bfloat16, True),
-                                ((1, 2, 1100, 128), torch.bfloat16, False),
-                                ((2, 1, 1024, 512), torch.bfloat16, False),
-                                ((1, 1, 50, 48), torch.bfloat16, False),
-                                ((BATCH, 1, 4096, 512), torch.float32, True),
-                                ((1, 2, 1100, 128), torch.float32, False),
-                                ((2, 1, 1024, 512), torch.float32, False),
-                                ((1, 1, 50, 48), torch.float32, False)):
+    # T and D below one 64 x 64 box; then the same in fp32 (VQGAN training); then
+    # the f8 VQGAN's attention at 32^2 (T=1024) in both dtypes, and keys != queries:
+    # 32^2 queries over a 64^2 context and over one token (a class embedding), in
+    # both dtypes, and ragged Tk below one box
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa(q, k, v, backend=None):
+        if backend is None:
+            return F.scaled_dot_product_attention(q, k, v, scale=q.shape[-1] ** -0.5)
+        with sdpa_kernel([backend]):
+            return F.scaled_dot_product_attention(q, k, v, scale=q.shape[-1] ** -0.5)
+
+    for shape, tk, dtype, timed in (((BATCH, 1, 4096, 512), None, torch.bfloat16, True),
+                                    ((1, 2, 1100, 128), None, torch.bfloat16, False),
+                                    ((2, 1, 1024, 512), None, torch.bfloat16, False),
+                                    ((1, 1, 50, 48), None, torch.bfloat16, False),
+                                    ((BATCH, 1, 4096, 512), None, torch.float32, True),
+                                    ((1, 2, 1100, 128), None, torch.float32, False),
+                                    ((2, 1, 1024, 512), None, torch.float32, False),
+                                    ((1, 1, 50, 48), None, torch.float32, False),
+                                    ((BATCH, 1, 1024, 512), None, torch.bfloat16, True),
+                                    ((BATCH, 1, 1024, 512), None, torch.float32, True),
+                                    ((BATCH, 4, 1024, 128), 4096, torch.bfloat16, True),
+                                    ((BATCH, 4, 1024, 128), 4096, torch.float32, True),
+                                    ((BATCH, 4, 1024, 128), 1, torch.bfloat16, True),
+                                    ((BATCH, 4, 1024, 128), 1, torch.float32, True),
+                                    ((2, 3, 1100, 128), 77, torch.bfloat16, False),
+                                    ((1, 2, 50, 48), 3, torch.float32, False)):
         f32 = dtype == torch.float32
-        q, k, v = (randn(*shape, dtype=dtype) for _ in range(3))
         B, H, T, D = shape
-        work = dict(flops=4 * B * H * T * T * D, peak=PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS,
-                    passes=3 if f32 else 1, bytes=4 * q.numel() * q.element_size(),
-                    library=lambda q=q, k=k, v=v: F.scaled_dot_product_attention(
-                        q, k, v, scale=q.shape[-1] ** -0.5),
-                    library_call="F.scaled_dot_product_attention(q, k, v, scale=D**-0.5)",
+        Tk = T if tk is None else tk
+        q = randn(*shape, dtype=dtype)
+        k, v = (randn(B, H, Tk, D, dtype=dtype) for _ in range(2))
+        # keys != queries: SDPA pinned to its memory-efficient backend (any Tk, fp32)
+        backend = None if tk is None else SDPBackend.EFFICIENT_ATTENTION
+        work = dict(flops=4 * B * H * T * Tk * D, peak=PEAK_TF32_FLOPS if f32 else PEAK_BF16_FLOPS,
+                    passes=3 if f32 else 1,
+                    bytes=(2 * q.numel() + 2 * k.numel()) * q.element_size(),
+                    library=lambda q=q, k=k, v=v, be=backend: sdpa(q, k, v, be),
+                    library_call="F.scaled_dot_product_attention(q, k, v, scale=D**-0.5)"
+                    + ("" if backend is None else ", EFFICIENT_ATTENTION"),
                     backends=lambda q=q, k=k, v=v: sdpa_backends(q, k, v))
-        if f32:
-            work.update(fma_peak=PEAK_FP32_FLOPS,
-                        one_pass=lambda q=q, k=k, v=v: attention_one_tf32_pass(q, k, v))
-        fa.append((f"{list(shape)}{' fp32' if f32 else ''}",
+        if f32:  # the one-pass control at the VQGAN's self-attention shapes
+            work.update(fma_peak=PEAK_FP32_FLOPS)
+            if tk is None:
+                work["one_pass"] = lambda q=q, k=k, v=v: attention_one_tf32_pass(q, k, v)
+        fa.append((f"{list(shape)}{'' if tk is None else f' Tk={tk}'}{' fp32' if f32 else ''}",
                    lambda q=q, k=k, v=v: attention.flash_attention_cuda(q, k, v),
                    lambda q=q, k=k, v=v: attention.attention_plain(q, k, v),
                    # bf16: the twin rounds q*D^-1/4 and k*D^-1/4 to bf16 (as
@@ -822,7 +881,7 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
             ("bbdm_sample_to_eval", bbdm, "euler", 1, True, ("K1", "K2")))
     names = [f"{i:04d}" for i in range(pairs)]
     launches, runners = {}, {}
-    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    short = SHORT
     for label, name, sampler, num, to_eval, needed in runs:
         result = os.path.join(root, f"results-{label}")
         argv = ["-c", paths[name, sampler, num], "--resume_model",
@@ -1061,7 +1120,7 @@ def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=
         runner = main_torch.main(argv)
         torch.cuda.synchronize()
     wall = time.time() - t0
-    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    short = SHORT
     launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
     out = {"wall_s": wall, "launches": launches,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -1366,7 +1425,7 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
         runner = main_torch.main(argv)
         torch.cuda.synchronize()
     wall = time.time() - t0
-    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    short = SHORT
     launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
     ckpt = runner.config.result.ckpt_path
     clean = [b - a for a, b in zip(starts, starts[1:])
@@ -1595,7 +1654,7 @@ def vqgan_perceptual_phase(dev, counters, root, gpu_ids="0", config=None):
                               "--gpu_ids", gpu_ids])
     torch.cuda.synchronize()
     wall = time.time() - t0
-    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    short = SHORT
     launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
     out = {"wall_s": wall, "launches": launches, "steps": runner.global_step,
            "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -1856,6 +1915,304 @@ def fid_cli_split(run, argv):
     return out
 
 
+# ------------------------------------------------ latent paths: f8, f16, xattn
+
+PATH_PAIRS = (16, 8, 8)  # train (flipped in f8/f16: 32), val, test pairs at 256^2
+
+
+def path_configs():
+    """{name: ConfigNode} of phase 9's paths: ``Template-LBBDM-f8.yaml`` and
+    ``Template-LBBDM-f16.yaml`` as they stand, and ``Template-LBBDM-f4.yaml``
+    with the cross-attention UNet (``use_spatial_transformer``, depth 1, a
+    SpatialRescaler context of 3 channels concatenated and attended to)."""
+    from bbdm_tpu_torch.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    load = lambda n: load_config(os.path.join(here, "configs", f"Template-{n}.yaml"))
+    xattn = load("LBBDM-f4")
+    xattn.model.model_name = "LBBDM-f4-xattn"
+    u = xattn.model.BB.params.UNetParams
+    u.use_spatial_transformer, u.transformer_depth, u.context_dim = True, 1, 3
+    u.condition_key, u.in_channels = "SpatialRescaler", 6
+    return {"LBBDM-f8": load("LBBDM-f8"), "LBBDM-f16": load("LBBDM-f16"),
+            "LBBDM-f4-xattn": xattn}
+
+
+def kernel_calls(model_config, batch):
+    """The calls of an LBBDM that launch a kernel on a CUDA tensor, from its
+    modules: the UNet in eval and in training mode, the VQGAN encoder and decoder
+    walked on the meta device (no memory, no arithmetic) at ``batch`` with
+    recorders in place of the three ops. {part: Counter of (kernel, shape)};
+    K1 every GroupNorm (N, C, H, W); K2 every eval-mode up-conv (N, ci, h, w,
+    co); K3 the attentions the dispatch sends to it, Tq >= KERNEL_MIN_SEQ and
+    D % 128 == 0 (B, H, Tq, D, Tk)."""
+    from collections import Counter
+
+    from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel
+    from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+
+    seen = Counter()
+
+    def k1(x, *a, **kw):
+        seen["K1", tuple(x.shape)] += 1
+        return torch.empty_like(x)
+
+    def k2(x, w, b, *, dtype=None, combined=None):
+        N, ci, h, wd = x.shape
+        seen["K2", (N, ci, h, wd, w.shape[0])] += 1
+        return x.new_empty((N, w.shape[0], 2 * h, 2 * wd),
+                           dtype=dtype or torch.promote_types(x.dtype, w.dtype))
+
+    def k3(q, k, v):
+        if q.shape[-2] >= attention.KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:
+            seen["K3", (*q.shape, k.shape[-2])] += 1
+        return torch.empty_like(q)
+
+    saved = group_norm.group_norm, upsample_conv.upsample2x_conv3x3, attention.multi_head_attention
+    group_norm.group_norm, upsample_conv.upsample2x_conv3x3, attention.multi_head_attention = \
+        k1, k2, k3
+    out = {}
+    try:
+        meta = torch.device("meta")
+        model = LatentBrownianBridgeModel(model_config, device=meta).eval()
+        dd = model_config.VQGAN.params.ddconfig
+        size = dd.resolution
+        z = (batch, dd.z_channels, size // 2 ** (len(dd.ch_mult) - 1),
+             size // 2 ** (len(dd.ch_mult) - 1))
+        u = model_config.BB.params.UNetParams
+        ctx = None
+        if model.condition_key != "nocond":
+            ctx = torch.empty(batch, u.in_channels - u.out_channels, z[2], z[3], device=meta)
+        t = torch.zeros(batch, dtype=torch.int32, device=meta)
+        with torch.no_grad():
+            for part, run in (
+                    ("unet", lambda: model.unet.eval()(torch.empty(z, device=meta), t, ctx)),
+                    ("unet_train", lambda: model.unet.train()(torch.empty(z, device=meta), t,
+                                                               ctx)),
+                    ("encoder", lambda: model.vqgan.encoder(
+                        torch.empty(batch, 3, size, size, device=meta))),
+                    ("decoder", lambda: model.vqgan.decoder(torch.empty(z, device=meta)))):
+                seen.clear()
+                run()
+                out[part] = Counter(seen)
+    finally:
+        group_norm.group_norm, upsample_conv.upsample2x_conv3x3, attention.multi_head_attention = \
+            saved
+    return out
+
+
+def expected_launches(calls, *, steps=0, draws=0, batches=0, microbatches=0):
+    """Launches per kernel of ``batches`` sample_to_eval batches (one encode,
+    then per draw ``steps`` UNet forwards and a decode) or of ``microbatches``
+    training-mode loss evaluations (two encodes and a UNet forward each)."""
+    n = lambda part, k: sum(c for (kk, _), c in calls[part].items() if kk == k)
+    return {k: batches * (n("encoder", k) + draws * (steps * n("unet", k) + n("decoder", k)))
+            + microbatches * (2 * n("encoder", k) + n("unet_train", k))
+            for k in ("K1", "K2", "K3")}
+
+
+def latent_paths_phase(dev, counters, root, gpu_ids="0", configs=None, step=SAMPLE_STEP,
+                       pairs=PATH_PAIRS):
+    """Phase 9 (see the module docstring): each of :func:`path_configs` through
+    ``main_torch.main`` at full width; ``configs`` lets a CPU rehearsal pass
+    tiny models. Returns {path: results}."""
+    import shutil
+
+    out = {}
+    for name, cfg in (configs or path_configs()).items():
+        t0 = time.time()
+        work = os.path.join(root, name)
+        try:
+            out[name] = latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs)
+        finally:
+            shutil.rmtree(work, ignore_errors=True)  # a few GB of checkpoints each
+        log(f"  {name}: ok ({time.time() - t0:.1f} s)")
+        torch.cuda.empty_cache()
+    return out
+
+
+def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
+    import statistics as st
+
+    import main_torch
+    from bbdm_tpu_torch.config import save_config
+    from bbdm_tpu_torch.profile_slice import measure
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+    from bbdm_tpu_torch.training.step import make_train_step
+
+    size = cfg.data.dataset_config.image_size
+    n_train, n_val, n_test = pairs
+    data = os.path.join(work, "data")
+    write_dataset(data, size, n_test, seed=9, train=n_train, val=n_val)
+    cfg.data.dataset_config.dataset_path = data
+    cfg.model.BB.params.sample_step = step
+    cfg.testing.sample_num = 1
+    cfg.model.VQGAN.params.ckpt_path = os.path.join(work, "vqgan.ckpt")
+    write_checkpoints(cfg, dev, os.path.join(work, "model.ckpt"), cfg.model.VQGAN.params.ckpt_path)
+    t = cfg.training
+    t.sample_interval, t.save_interval, t.validation_interval = 1000, 1, 1
+    path = os.path.join(work, "config.yaml")
+    save_config(cfg, path)
+    bs = cfg.data.test.batch_size
+    flip = 2 if cfg.data.dataset_config.flip else 1
+    micro = n_train * flip // cfg.data.train.batch_size
+    calls = kernel_calls(cfg.model, bs)
+    shapes = {part: sorted(f"{k} {list(s)} x{c}" for (k, s), c in cnt.items())
+              for part, cnt in calls.items()}
+    log(f"  {name}: kernel calls by part (the modules walked on meta): " + json.dumps(shapes))
+    log("reduced: " + json.dumps({
+        "path": name, "sample_step": {"template": 200, "run": step},
+        "sample_num": {"template": 5, "run": 1},
+        "n_epochs": {"template": 100, "run": 1}, "microbatches": micro,
+        "train/val/test pairs": list(pairs), "sample_interval": "none during training",
+        "weights": "random (seeds 11, 12), VQGAN written by the smoke"}))
+    out = {}
+
+    def counted(argv, sweeps=None):
+        for mod, attr in counters.values():
+            getattr(mod, attr).launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        with timed(BBDMRunner, "sample_to_eval", sweeps if sweeps is not None else []):
+            runner = main_torch.main(argv)
+        torch.cuda.synchronize()
+        return runner, time.time() - t0, {SHORT[k]: getattr(mod, attr).launches
+                                          for k, (mod, attr) in counters.items()}
+
+    def check(what, got, want):
+        log(f"  {name} {what}: launches {got}, derived from the code {want}")
+        if got != want:
+            raise AssertionError(f"{name} {what}: launches {got} != {want}")
+
+    # --sample_to_eval: one batch, one draw
+    sweeps = []
+    runner, wall, launches = counted(
+        ["-c", path, "--sample_to_eval", "--resume_model", os.path.join(work, "model.ckpt"),
+         "-r", os.path.join(work, "results"), "-s", str(CLI_SEED), "--gpu_ids", gpu_ids],
+        sweeps)
+    batches = n_test // bs
+    check("sample_to_eval", launches, expected_launches(
+        calls, steps=len(runner.model.coeffs.steps), draws=1, batches=batches))
+    names = [f"{i:04d}" for i in range(n_test)]
+    check_tree(runner.config.result.sample_to_eval_path, names, names, step, 1, size)
+    out["sample_to_eval"] = {"wall_s": wall, "launches": launches,
+                             "batch_s": sweeps[0] / batches,
+                             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    # the card's idle share over one batch (PNG writes included)
+    from bbdm_tpu_torch.data import DataLoader, get_dataset
+
+    batch = next(iter(DataLoader(get_dataset(runner.config.data)[2], bs)))
+    wall_ms, busy_ms, _ = measure(
+        lambda: runner.sample_to_eval([batch], os.path.join(work, "idle")), 2, 1)
+    out["sample_to_eval"].update(batch_wall_ms=wall_ms, batch_device_busy_ms=busy_ms,
+                                 idle_share=1 - busy_ms / wall_ms)
+    # the latent through the kernels against the twins (same weights and noise)
+    model = runner.model
+    x_cond = torch.from_numpy(batch["x_cond"]).permute(0, 3, 1, 2).to(runner.device)
+    y = model.encode(x_cond, latent_stats=runner.latent_stats)
+    ctx = model.get_cond_stage_context(x_cond)
+    g = torch.Generator(runner.device).manual_seed(3)
+    noise = [torch.randn(y.shape, generator=g, device=runner.device)
+             for _ in range(model.noised_steps())]
+    z_k = model.p_sample_loop(y, ctx, noise=noise, clip_denoised=False)
+    step_ms, step_busy_ms, _ = measure(
+        lambda: model.p_sample_loop(y, ctx, noise=noise, clip_denoised=False), 1, len(noise))
+    out.update(sampler_step_ms=step_ms, sampler_step_device_busy_ms=step_busy_ms,
+               sampler_step_idle_share=1 - step_busy_ms / step_ms)
+    with plain_ops():
+        y_p = model.encode(x_cond, latent_stats=runner.latent_stats)
+        z_p = model.p_sample_loop(y, ctx, noise=noise, clip_denoised=False)
+        ref32 = build_fp32_copy(cfg.model, model, runner.device)
+        y_32 = ref32.encode(x_cond, latent_stats=runner.latent_stats)
+        z_32 = ref32.p_sample_loop(y, ctx.float() if ctx is not None else None, noise=noise,
+                                   clip_denoised=False)
+        del ref32
+    d = lambda a, b: float((a.float() - b.float()).abs().max())
+    agree = {"encode_kernel_vs_plain": d(y, y_p), "encode_bf16_vs_fp32": d(y_p, y_32),
+             "latent_kernel_vs_plain": d(z_k, z_p), "latent_bf16_vs_fp32": d(z_p, z_32)}
+    out["agreement"] = agree
+    s = out["sample_to_eval"]
+    log(f"  {name} sample_to_eval: {wall:.1f} s in main_torch.main, {s['batch_s']:.3f} s per "
+        f"batch of {bs} (1 draw, {step} steps), sampler step {step_ms:.2f} ms (device busy "
+        f"{step_busy_ms:.2f} ms, idle {out['sampler_step_idle_share']:.0%}), "
+        f"over one batch wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
+        f"{s['idle_share']:.0%}, peak device memory {s['peak_memory_gib']:.2f} GiB; "
+        f"kernels vs twins {json.dumps(agree)}")
+    if not torch.isfinite(z_k).all():
+        raise AssertionError(f"{name}: non-finite latent")
+    for what in ("encode", "latent"):
+        if agree[f"{what}_kernel_vs_plain"] > 2 * agree[f"{what}_bf16_vs_fp32"]:
+            raise AssertionError(f"{name} {what}: kernel path farther from the twins than 2x "
+                                 "bf16 error")
+    del runner, model
+
+    # --train: one epoch, one validation epoch, one save
+    runner, wall, launches = counted(
+        ["-c", path, "--train", "--max_epoch", "1", "-r", os.path.join(work, "results-train"),
+         "-s", str(CLI_SEED), "--gpu_ids", gpu_ids])
+    check("train", launches, expected_launches(
+        calls, microbatches=micro + n_val // cfg.data.val.batch_size))
+    if runner.global_step != micro:
+        raise AssertionError(f"{name} train: {runner.global_step} steps, not {micro}")
+    ckpt = runner.config.result.ckpt_path
+    files = {f: os.path.getsize(os.path.join(ckpt, f)) for f in sorted(os.listdir(ckpt))}
+    if {"last_model.ckpt", "last_optim_sche.ckpt"} - set(files):
+        raise AssertionError(f"{name} train: checkpoint files {sorted(files)}")
+    out["train"] = {"wall_s": wall, "launches": launches, "microbatches": micro,
+                    "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+                    "checkpoints": files}
+    model = runner.model
+    acc = int(cfg.training.accumulate_grad_batches)
+    step_fn = make_train_step(model, cfg.training, cfg.model.EMA, runner.lr_scheduler_config)
+    tb = next(iter(runner._build_loaders()[0]))
+    x, yb = runner._put_batch(tb)
+    model.train()
+
+    def microbatches(n):
+        prev = None
+        for _ in range(n):
+            metrics = step_fn(runner.state, x, yb, runner.train_generator)
+            if prev is not None:
+                float(prev["loss"])
+            prev = metrics
+        float(prev["loss"])
+
+    while runner.state.step % acc:
+        microbatches(1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    microbatches(acc)
+    torch.cuda.synchronize()
+    loop = time.perf_counter() - t0
+    wall_ms, busy_ms, _ = measure(lambda: microbatches(2), 1, 2)
+    tr = out["train"]
+    tr.update(s_per_microbatch=loop / acc, s_per_update=loop, microbatch_wall_ms=wall_ms,
+              microbatch_device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
+    # every trainable parameter's gradient, present and finite
+    g = torch.Generator(runner.device).manual_seed(6)
+    zshape = model.encode(x).shape
+    tt = torch.randint(0, model.num_timesteps, (x.shape[0],), generator=g, device=x.device)
+    nz = torch.randn(zshape, generator=g, device=x.device)
+    loss, grads = microbatch_grads(model, runner, tb, tt, nz)
+    names_ = list(model.trainable_parameters())
+    absent = [n for n, gr in zip(names_, grads) if gr is None]
+    finite = all(bool(torch.isfinite(gr).all()) for gr in grads if gr is not None)
+    model.eval()
+    tr.update(loss=float(loss), trainable_grads=len(grads), absent_grads=len(absent),
+              finite_grads=finite, peak_memory_gib=max(
+                  tr["peak_memory_gib"], torch.cuda.max_memory_allocated() / 2 ** 30))
+    log(f"  {name} train: {wall:.1f} s in main_torch.main ({micro} microbatches, one "
+        f"validation epoch, one save), {tr['s_per_microbatch']:.4f} s per microbatch, "
+        f"{tr['s_per_update']:.4f} s per update ({acc}); over two microbatches wall "
+        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms per microbatch, idle share "
+        f"{tr['idle_share']:.0%}; peak device memory {tr['peak_memory_gib']:.2f} GiB; "
+        f"gradients {len(grads) - len(absent)} of {len(grads)} trainable, finite {finite}; "
+        f"checkpoints {files}")
+    if absent or not finite:
+        raise AssertionError(f"{name} train: gradients absent {absent[:3]}, finite {finite}")
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -1932,8 +2289,8 @@ def main() -> int:
         traceback.print_exc()
         failed.append("slice")
 
-    cli, train, vqgan, perceptual, evaluation = {}, {}, {}, {}, {}
-    short = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
+    cli, train, vqgan, perceptual, evaluation, paths = {}, {}, {}, {}, {}, {}
+    short = SHORT
     for e in entries:
         e["launches_by_path"] = {"slice_sample_to_eval": e["launches"]}
     with tempfile.TemporaryDirectory(prefix="bbdm_smoke_cli_") as root:
@@ -1987,10 +2344,22 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failed.append("evaluation")
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            paths = latent_paths_phase(dev, counters, root)
+            for e in entries:
+                for p, r in paths.items():
+                    for run in ("sample_to_eval", "train"):
+                        e["launches_by_path"][f"{p}_{run}"] = r[run]["launches"][short[e["name"]]]
+            log(f"latent paths: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("latent paths")
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
                     "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
-                    "evaluation": evaluation, "card": card}))
+                    "evaluation": evaluation, "latent_paths": paths, "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

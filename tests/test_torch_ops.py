@@ -5,8 +5,8 @@ it themselves off-TPU) on numpy-seeded fp32 inputs and is held against the
 port's plain twin; inputs are transposed NHWC <-> NCHW at the boundary.
 
 GPU cases (marker ``gpu``, skipped without a card): each hand-written kernel
-against its twin on the card in bf16 (K2 and K3 also in fp32), with its launch
-counter. They import no
+against its twin on the card in bf16 (K2 and K3 also in fp32, K3 also with
+keys != queries), with its launch counter. They import no
 jax, so on a machine without jax they run with
 ``python -m pytest tests/test_torch_ops.py -m gpu --noconftest``.
 """
@@ -397,3 +397,25 @@ def test_flash_attention_kernel_fp32_keeps_both_halves_at_any_scale(cuda, scale)
     ref = attention.attention_plain(q, k, v)
     torch.cuda.synchronize()
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-5 * scale)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape,tk", [((2, 4, 1024, 128), 4096), ((2, 4, 1024, 128), 1),
+                                      ((1, 2, 1100, 128), 77), ((1, 1, 50, 48), 3)])
+def test_flash_attention_kernel_with_other_key_count_matches_twin(cuda, dtype, shape, tk):
+    """keys != queries (cross-attention; Tk 1: a class embedding's context)."""
+    if dtype == torch.bfloat16 and shape[-1] % 16:
+        pytest.skip("bf16 K3 takes D % 16 == 0")
+    g = torch.Generator(cuda).manual_seed(8)
+    q = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn((*shape[:2], tk, shape[3]), generator=g, device=cuda).to(dtype)
+            for _ in range(2))
+    before = attention.flash_attention_cuda.launches
+    out = attention.flash_attention_cuda(q, k, v)
+    ref = attention.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == before + 1 and out.shape == q.shape
+    # the bars of the Tk == Tq cases above
+    tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
+    torch.testing.assert_close(out.float(), ref.float(), **tol)
