@@ -375,19 +375,24 @@ def save_config(config: ConfigNode, path: str) -> None:
 
 # ---------------------------------------------------------------- CLI
 
-def device_from_gpu_ids(gpu_ids: str) -> str:
-    """``--gpu_ids``: "-1" is the CPU, one id N is ``cuda:N``. Several ids
-    raise: data parallelism is not ported (ROADMAP.md §1 item 6)."""
+def device_from_gpu_ids(gpu_ids: str) -> list:
+    """``--gpu_ids`` as the devices of a node's ranks: "-1" is the CPU
+    (``["cpu"]``), "0,1,..." one rank per card (``["cuda:0", "cuda:1", ...]``).
+    ``-1`` among card ids raises, and so does a repeated id (NCCL puts no two
+    ranks on one card)."""
     ids = [s.strip() for s in str(gpu_ids).split(",") if s.strip()]
-    if len(ids) != 1:
-        raise NotImplementedError(
-            f"--gpu_ids {gpu_ids!r}: give -1 (CPU) or one card id; data-parallel "
-            "training and sampling over several cards are not ported (ROADMAP.md §1 item 6)")
-    if ids[0] == "-1":
-        return "cpu"
-    if not ids[0].isdigit():
+    if not ids:
+        raise ValueError(f"--gpu_ids {gpu_ids!r}: no device")
+    if ids == ["-1"]:
+        return ["cpu"]
+    if "-1" in ids:
+        raise ValueError(f"--gpu_ids {gpu_ids!r}: -1 (the CPU) mixed with card ids")
+    if not all(i.isdigit() for i in ids):
         raise ValueError(f"--gpu_ids {gpu_ids!r}: not a card id")
-    return f"cuda:{int(ids[0])}"
+    cards = [int(i) for i in ids]
+    if len(set(cards)) != len(cards):
+        raise ValueError(f"--gpu_ids {gpu_ids!r}: a card named twice (one rank per card)")
+    return [f"cuda:{c}" for c in cards]
 
 
 def apply_cli_overrides(config: ConfigNode, args) -> ConfigNode:

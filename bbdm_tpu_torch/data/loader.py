@@ -1,5 +1,5 @@
 """Host-side batching loader with a prefetch thread (port of
-``bbdm_tpu/data/loader.py:53-155``, one process, no sharding).
+``bbdm_tpu/data/loader.py:53-155``).
 
 Per-epoch shuffling with ``np.random.RandomState(seed + epoch)``, full batches
 only (the last partial batch is dropped, as every loader of
@@ -7,6 +7,14 @@ only (the last partial batch is dropped, as every loader of
 float32 arrays plus name lists::
 
     {"x": [B, H, W, C], "x_name": [B], "x_cond": [B, H, W, C], "x_cond_name": [B]}
+
+Data parallelism (``parallel/``): node ``shard_index`` of ``shard_count``
+takes the JAX loader's shard of the shuffled indices (padded to a multiple of
+``shard_count`` with its first indices, as DistributedSampler pads, then every
+``shard_count``-th from ``shard_index``) in batches of ``batch_size``, and
+rank ``local_index`` of the node's ``local_count`` keeps its contiguous rows
+of each of them: it decodes only those. The union of a node's ranks' rows is
+the node's batch, row for row.
 
 A background thread decodes the next two batches while the caller works on the
 current one; an error there is raised to the caller.
@@ -19,6 +27,8 @@ import threading
 from typing import Iterator
 
 import numpy as np
+
+from bbdm_tpu_torch.parallel.collectives import local_rows
 
 
 def _collate(items) -> dict:
@@ -33,11 +43,15 @@ def _collate(items) -> dict:
 class DataLoader:
     prefetch = 2  # batches decoded ahead
 
-    def __init__(self, dataset, batch_size: int, *, shuffle: bool = False, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, *, shuffle: bool = False, seed: int = 0,
+                 shard_count: int = 1, shard_index: int = 0, local_count: int = 1,
+                 local_index: int = 0):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
+        self.shard_count, self.shard_index = shard_count, shard_index
+        self.rows = local_rows(batch_size, local_index, local_count)  # raises if uneven
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
@@ -47,15 +61,18 @@ class DataLoader:
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             np.random.RandomState(self.seed + self.epoch).shuffle(idx)
+        if self.shard_count > 1:
+            idx = np.concatenate([idx, idx[:(-len(idx)) % self.shard_count]])
+            idx = idx[self.shard_index::self.shard_count]
         return idx
 
     def __len__(self) -> int:
-        return len(self.dataset) // self.batch_size
+        return len(self._indices()) // self.batch_size
 
     def _batches(self) -> Iterator[dict]:
         idx = self._indices()
         for b in range(len(self)):
-            chunk = idx[b * self.batch_size:(b + 1) * self.batch_size]
+            chunk = idx[b * self.batch_size:(b + 1) * self.batch_size][self.rows]
             yield _collate([self.dataset[int(i)] for i in chunk])
 
     def __iter__(self) -> Iterator[dict]:

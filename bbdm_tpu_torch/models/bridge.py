@@ -43,6 +43,7 @@ from bbdm_tpu_torch.models.schedules import (
 )
 from bbdm_tpu_torch.models.unet import UNet
 from bbdm_tpu_torch.ops.upsample_conv import combine_kernel_2x2
+from bbdm_tpu_torch.parallel import collectives
 
 
 class BrownianBridgeModel(nn.Module):
@@ -104,8 +105,9 @@ class BrownianBridgeModel(nn.Module):
              t=None, noise=None):
         """Training loss (``bbdm_tpu/models/bridge.py:187-223``): returns
         ``(loss, {"loss", "x0_recon"})``. t ~ U{0..T-1} and the noise are drawn
-        from ``generator`` unless given (``t=`` [B] ints, ``noise=`` x's shape),
-        which lets tests feed the JAX package's draws."""
+        from ``generator`` at the global batch's shape, this rank's rows kept
+        (``parallel.collectives``), unless given (``t=`` [B] ints, ``noise=``
+        x's shape), which lets tests feed the JAX package's draws."""
         x, y = x.contiguous(), y.contiguous()  # the kernels take NCHW-contiguous activations
         if self.condition_key == "nocond":
             context = None
@@ -113,9 +115,11 @@ class BrownianBridgeModel(nn.Module):
             context = y
         B = x.shape[0]
         if t is None:
-            t = torch.randint(0, self.num_timesteps, (B,), generator=generator, device=x.device)
+            t = collectives.randint(0, self.num_timesteps, (B,), generator=generator,
+                                    device=x.device)
         if noise is None:
-            noise = torch.randn(x.shape, generator=generator, dtype=x.dtype, device=x.device)
+            noise = collectives.randn(x.shape, generator=generator, dtype=x.dtype,
+                                      device=x.device)
         x_t, objective = self.q_sample(x, y, t, noise)
         pred = self.unet(x_t, t, context).to(x.dtype)
         if self.loss_type == "l1":
@@ -175,9 +179,10 @@ class BrownianBridgeModel(nn.Module):
 
         ``noise``: :meth:`noised_steps` tensors of y's shape (for tests that
         feed the JAX package's draws); by default each noised step draws from
-        ``generator``. ``sample_mid_step`` returns the trajectory instead of
-        its end: ``(imgs, one_step_imgs)``, each [S, B, C, H, W], the state after
-        each step and that step's x0 estimate.
+        ``generator`` at the global batch's shape and keeps this rank's rows.
+        ``sample_mid_step`` returns the trajectory instead of its end:
+        ``(imgs, one_step_imgs)``, each [S, B, C, H, W], the state after each
+        step and that step's x0 estimate.
         """
         y = y.contiguous()  # the kernels take NCHW-contiguous activations
         if self.condition_key == "nocond":
@@ -200,7 +205,8 @@ class BrownianBridgeModel(nn.Module):
         def draw(i):
             if noise is not None:
                 return noise[i]
-            return torch.randn(y.shape, generator=generator, dtype=y.dtype, device=y.device)
+            return collectives.randn(y.shape, generator=generator, dtype=y.dtype,
+                                     device=y.device)
 
         def update(i, x_t, x0, eps=None):
             x = float(c.a_xt[i]) * x_t + float(c.a_x0[i]) * x0 + float(c.a_y[i]) * y

@@ -29,6 +29,7 @@ from bbdm_tpu_torch.models.layers import (
     conv1x1,
     lecun_normal_init,
 )
+from bbdm_tpu_torch.parallel import collectives
 
 
 class SpatialRescaler(nn.Module):
@@ -111,7 +112,7 @@ class TransformerEmbedder(_Init):
         h = self.token_emb(tokens) + self.pos_emb[:S]
         p = self.embedding_dropout
         if self.training and p > 0.0:  # flax nn.Dropout: keep with 1 - p, scale by 1/(1 - p)
-            keep = torch.rand(h.shape, generator=generator, device=h.device) >= p
+            keep = collectives.rand(h.shape, generator=generator, device=h.device) >= p
             h = torch.where(keep, h / (1.0 - p), torch.zeros_like(h))
         if self.dtype is not None:
             h = h.to(self.dtype)

@@ -15,14 +15,17 @@ import torch.nn.functional as F
 from torch import nn
 
 from bbdm_tpu_torch.models.layers import Conv2d, _Init, torch_default_init
+from bbdm_tpu_torch.parallel import collectives
 
 
 class BatchNorm2d(_Init):
     """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5, dtype=float32)`` over N, H, W.
 
     Train mode normalises with the batch's fp32 mean and biased variance
-    E[x^2] - E[x]^2 (clipped at 0, flax's fast variance) and moves the running
-    statistics in place: ``ra = momentum * ra + (1 - momentum) * batch``. Eval
+    E[x^2] - E[x]^2 (clipped at 0, flax's fast variance), both means over the
+    global batch of a data-parallel run (with gradient through the reduction
+    over ranks, as flax under GSPMD), and moves the running statistics in
+    place: ``ra = momentum * ra + (1 - momentum) * batch``. Eval
     mode normalises with the running statistics. (``torch.nn.BatchNorm2d``
     keeps the unbiased variance and weighs the new value by its momentum.)
     Output in fp32."""
@@ -44,8 +47,9 @@ class BatchNorm2d(_Init):
     def forward(self, x, *, train: bool):
         xf = x.float()
         if train:
-            mean = xf.mean((0, 2, 3))
-            var = ((xf * xf).mean((0, 2, 3)) - mean * mean).clamp_min(0.0)
+            mean, sq = collectives.batch_mean(
+                torch.stack([xf.mean((0, 2, 3)), (xf * xf).mean((0, 2, 3))])).unbind(0)
+            var = (sq - mean * mean).clamp_min(0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.mean.copy_(m * self.mean + (1 - m) * mean)

@@ -30,6 +30,7 @@ from bbdm_tpu_torch.models.layers import (
     upsample_nearest_2x,
 )
 from bbdm_tpu_torch.ops import attention as attn_ops
+from bbdm_tpu_torch.parallel import collectives
 
 _init = torch_default_init  # the VQGAN keeps torch's default init
 
@@ -235,7 +236,8 @@ class GumbelQuantize(_Init):
     codebook, z_q = one_hot @ codebook, loss ``kl_weight`` * KL(q || uniform).
     In training the logits get Gumbel noise -log(-log u), u uniform in
     [tiny, 1): ``u`` ([B, n_e, H, W]) when given (tests feed the JAX draws),
-    else drawn from ``generator``; outside training no noise (argmax)."""
+    else drawn from ``generator`` at the global batch's shape, this rank's rows
+    kept; outside training no noise (argmax)."""
 
     def __init__(self, n_e, e_dim, kl_weight=5e-4, straight_through=True, *, device=None):
         super().__init__()
@@ -252,7 +254,7 @@ class GumbelQuantize(_Init):
         logits = self.proj(zf)  # [B, n_e, H, W]
         if train:
             if u is None:
-                u = torch.rand(logits.shape, generator=generator, device=logits.device)
+                u = collectives.rand(logits.shape, generator=generator, device=logits.device)
                 u = u.clamp_min(torch.finfo(torch.float32).tiny)
             noisy = logits - torch.log(-torch.log(u))
         else:

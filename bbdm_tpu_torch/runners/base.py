@@ -1,5 +1,5 @@
-"""BaseRunner: the training and test lifecycle of ``bbdm_tpu/runners/base.py``
-on one process and one device.
+"""BaseRunner: the training and test lifecycle of ``bbdm_tpu/runners/base.py``,
+on one rank or data parallel over several (``parallel/``).
 
 ``__init__`` builds the result tree, writes ``checkpoint/config.yaml`` and
 opens the TensorBoard writer (when the config carries CLI ``args``), builds
@@ -12,13 +12,26 @@ epoch validation every ``validation_interval`` epochs, sample grids with the
 EMA weights every ``sample_interval`` epochs' worth of steps, checkpoints in
 the JAX package's layout, the graceful stop (first SIGTERM, a stop file,
 ``training.max_wall_sec``; a second SIGTERM raises) and the exception save.
-:meth:`test` runs ``sample_to_eval`` over the test set (the val set when the
-test set has no full batch) or the single-batch grids.
+With ``training.profile_dir``, rank 0 records a ``torch.profiler`` trace
+(CPU and CUDA activities) of global steps ``(profile_start_step,
+profile_start_step + profile_steps]`` (defaults 10 and 5) and writes it there
+as a chrome trace. :meth:`test` runs ``sample_to_eval`` over the test set
+(the val set when the test set has no full batch) or the single-batch grids.
+
+Data parallel, as the JAX runner on a data-parallel mesh: every rank builds
+the same weights from the seed and loads the same checkpoint, then takes rank
+0's parameters and buffers (one broadcast); each rank trains, validates and
+samples its rows of each batch (``data/loader.py``), with the reductions of
+``training/step.py`` and ``training/gan.py``. Rank 0 alone logs, makes the
+result tree, writes ``config.yaml``, TensorBoard, checkpoints (the exception
+save too) and the mid-training and test grids, and decides the graceful stop,
+which it broadcasts at each step boundary (a first SIGTERM on another rank is
+ignored). ``sample_to_eval`` writes each rank's own files; each node's first
+rank makes the directories, and a barrier follows them and ends :meth:`test`.
 
 ``training.fuse_small_leaves`` and ``training.device_data_cache`` (TPU launch
 and transfer optimizations with identical results) are ignored;
-``training.model_parallel`` > 1, ``training.fsdp`` and
-``training.profile_dir`` raise.
+``training.model_parallel`` > 1 and ``training.fsdp`` raise.
 """
 
 from __future__ import annotations
@@ -29,6 +42,7 @@ import signal
 import time
 import traceback
 from abc import ABC, abstractmethod
+from typing import Optional
 
 import numpy as np
 import torch
@@ -41,6 +55,7 @@ from bbdm_tpu_torch.checkpoints.from_jax import (
 from bbdm_tpu_torch.checkpoints.io import save_checkpoint
 from bbdm_tpu_torch.config import ConfigNode, device_from_gpu_ids, save_config
 from bbdm_tpu_torch.models.factory import resolve_device
+from bbdm_tpu_torch.parallel import collectives, is_main, world
 from bbdm_tpu_torch.runners.utils import make_dir, make_save_dirs, remove_file
 from bbdm_tpu_torch.training.ema import ema_init, swapped_in
 from bbdm_tpu_torch.training.plateau import plateau_init
@@ -61,14 +76,17 @@ def _stream(device, constant: int, seed: int) -> torch.Generator:
 
 class BaseRunner(ABC):
     def __init__(self, config, *, device=None, seed=None):
-        """``device`` defaults to ``--gpu_ids`` (``config.args``), else the CUDA
-        card (see ``models/factory.resolve_device``); ``seed`` to ``--seed``,
-        else 0."""
+        """``device`` defaults to this rank's entry of ``--gpu_ids``
+        (``config.args``), else the CUDA card (see
+        ``models/factory.resolve_device``); ``seed`` to ``--seed``, else 0."""
         self.config = config
+        self.world = world()
+        self.is_main = is_main()
         args = config.get("args")
         self.seed = seed if seed is not None else (args.seed if args is not None else 0)
         if device is None and args is not None:
-            device = device_from_gpu_ids(args.gpu_ids)
+            devices = device_from_gpu_ids(args.gpu_ids)
+            device = devices[self.world.local_rank if len(devices) > 1 else 0]
         self.device = resolve_device(device)
         self.is_training = bool(args is not None and args.train)
         self.global_epoch = 0
@@ -79,10 +97,12 @@ class BaseRunner(ABC):
             result = config.result = ConfigNode()
             (result.result_path, result.image_path, result.ckpt_path, result.log_path,
              result.sample_path, result.sample_to_eval_path) = make_save_dirs(
-                args, prefix=config.data.dataset_name, suffix=config.model.model_name)
+                args, prefix=config.data.dataset_name, suffix=config.model.model_name,
+                make=self.is_main)
             self.logger("save training results to " + result.result_path)
-            save_config(config, os.path.join(result.ckpt_path, "config.yaml"))
-            self.writer = SummaryWriter(result.log_path)
+            if self.is_main:
+                save_config(config, os.path.join(result.ckpt_path, "config.yaml"))
+                self.writer = SummaryWriter(result.log_path)
         self.use_ema = config.model.EMA.use_ema if "EMA" in config.model else False
         self.model = self.initialize_model(
             config, torch.Generator(self.device).manual_seed(self.seed))
@@ -93,17 +113,23 @@ class BaseRunner(ABC):
             self.train_generator = _stream(self.device, _TRAIN_STREAM, self.seed)
             self.state = self.build_initial_state()
         self.load_model_from_checkpoint()
+        self.broadcast_state()
 
     def logger(self, msg):
-        print(msg, flush=True)
+        if self.is_main:
+            print(msg, flush=True)
+
+    def broadcast_state(self):
+        """Rank 0's parameters and buffers, and EMA, on every rank (data parallel)."""
+        collectives.broadcast_module(self.model)
+        if self.state is not None and getattr(self.state, "ema", None) is not None:
+            collectives.broadcast_(list(self.state.ema.values()))
 
     def _check_training_config(self):
         training = self.config.training
         if int(training.get("model_parallel", 1) or 1) > 1 or training.get("fsdp", False):
             raise NotImplementedError("training.model_parallel > 1 and training.fsdp are not "
                                       "ported (ROADMAP.md §1 item 6)")
-        if training.get("profile_dir", None):
-            raise NotImplementedError("training.profile_dir is not ported (ROADMAP.md §1 item 9)")
         if training.get("fuse_small_leaves", False):
             self.logger("training.fuse_small_leaves is ignored: a TPU launch optimization with "
                         "identical results; the optimizer state keeps the per-leaf layout")
@@ -155,20 +181,27 @@ class BaseRunner(ABC):
 
     # ------------------------------------------------------------- batches
 
+    def _loader(self, dataset, batch_size, shuffle):
+        """This rank's loader: its node's shard, its rows of each node batch."""
+        from bbdm_tpu_torch.data import DataLoader
+
+        w = self.world
+        return DataLoader(dataset, batch_size, shuffle=shuffle, seed=self.config.args.seed,
+                          shard_count=w.nodes, shard_index=w.node, local_count=w.local_size,
+                          local_index=w.local_rank)
+
     def _build_loaders(self):
         """(train, val, test) loaders as ``bbdm_tpu/runners/base.py:359-377``
         builds them: train and val shuffled by ``seed + epoch`` (``set_epoch``),
-        the test loader unshuffled; every loader drops its last partial batch."""
-        from bbdm_tpu_torch.data import DataLoader, get_dataset
+        the test loader unshuffled; every loader drops its last partial batch.
+        ``data.*.batch_size`` is per node."""
+        from bbdm_tpu_torch.data import get_dataset
 
         train_ds, val_ds, test_ds = get_dataset(self.config.data)
-        data, seed = self.config.data, self.config.args.seed
-        train_loader = DataLoader(train_ds, data.train.batch_size,
-                                  shuffle=data.train.get("shuffle", True), seed=seed)
-        val_loader = DataLoader(val_ds, data.val.batch_size,
-                                shuffle=data.val.get("shuffle", True), seed=seed)
-        test_loader = DataLoader(test_ds, data.test.batch_size, shuffle=False, seed=seed)
-        return train_loader, val_loader, test_loader
+        data = self.config.data
+        return (self._loader(train_ds, data.train.batch_size, data.train.get("shuffle", True)),
+                self._loader(val_ds, data.val.batch_size, data.val.get("shuffle", True)),
+                self._loader(test_ds, data.test.batch_size, False))
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """NHWC float batch -> NCHW-contiguous fp32 on the device; on the card
@@ -238,32 +271,45 @@ class BaseRunner(ABC):
     # ------------------------------------------------------- val and sample
 
     def validation_step(self, val_batch, epoch, step):
+        """The global batch's eval loss (every rank takes part)."""
         x, y = self._put_batch(val_batch)
         loss = float(self._eval_step(self.state, x, y, self.train_generator))
-        self.writer.add_scalar("loss/val_step", loss, step)
+        if self.writer is not None:
+            self.writer.add_scalar("loss/val_step", loss, step)
         return loss
 
     def validation_epoch(self, val_loader, epoch):
         losses = [float(self._eval_step(self.state, *self._put_batch(b), self.train_generator))
                   for b in val_loader]
         average_loss = sum(losses) / max(len(losses), 1)
-        self.writer.add_scalar("val_epoch/loss", average_loss, epoch)
+        if self.writer is not None:
+            self.writer.add_scalar("val_epoch/loss", average_loss, epoch)
         return average_loss
 
     def sample_step(self, train_batch, val_batch):
-        """Sample grids with the EMA weights (``bbdm_tpu/runners/base.py:349-355``)."""
+        """Sample grids with the EMA weights (``bbdm_tpu/runners/base.py:349-355``),
+        on rank 0 alone, drawing what a one-rank run draws."""
         sample_path = make_dir(os.path.join(self.config.result.image_path,
                                             str(self.global_step)))
         with (swapped_in(self.state.params, self.state.ema) if self.use_ema
-              else contextlib.nullcontext()):
+              else contextlib.nullcontext()), collectives.rank_local():
             self.sample(train_batch, sample_path, stage="train")
             self.sample(val_batch, sample_path, stage="val")
+
+    def shared_dirs(self, *paths):
+        """``paths`` made by each node's first rank, then a barrier: the
+        directories every rank of a ``sample_to_eval`` writes into."""
+        if self.world.local_rank == 0:
+            for p in paths:
+                make_dir(p)
+        collectives.barrier()
+        return paths
 
     # ---------------------------------------------------------------- train
 
     def train(self):
-        """``bbdm_tpu/runners/base.py:394-682`` on one process (see the module
-        docstring). ``self.stop_reason`` says why it ended (None: ran to the end)."""
+        """``bbdm_tpu/runners/base.py:394-682`` (see the module docstring).
+        ``self.stop_reason`` says why it ended (None: ran to the end)."""
         if self.state is None:
             raise RuntimeError("train() needs a runner built for training (args.train)")
         self.logger(self.__class__.__name__)
@@ -288,26 +334,37 @@ class BaseRunner(ABC):
                     val_iter = None
             raise RuntimeError("the val set has no full batch")
 
+        profiler = _ProfileWindow(training, self.device) if self.is_main else None
+
         stop_reason = None
         unwinding = False
+        sigterm_seen = False
         train_t0 = time.monotonic()
         max_wall = training.get("max_wall_sec", None)
         stop_file = training.get("stop_file",
                                  os.path.join(self.config.result.result_path, "STOP"))
 
         def poll_stop():
+            """Rank 0's triggers, broadcast to every rank at each step boundary."""
             nonlocal stop_reason
-            if stop_reason is None:
+            if self.is_main and stop_reason is None:
                 if max_wall is not None and time.monotonic() - train_t0 > float(max_wall):
                     stop_reason = f"wall budget ({max_wall}s) exhausted"
                 elif stop_file and os.path.exists(stop_file):
                     stop_reason = f"stop file {stop_file} present"
+            if collectives.broadcast_flag(stop_reason is not None) and stop_reason is None:
+                stop_reason = "stop broadcast from rank 0"
             return stop_reason
 
         def on_sigterm(signum, frame):
-            nonlocal stop_reason
-            if unwinding or stop_reason is not None:
+            nonlocal stop_reason, sigterm_seen
+            if unwinding or sigterm_seen or stop_reason is not None:
                 raise KeyboardInterrupt("SIGTERM")
+            sigterm_seen = True
+            if not self.is_main:
+                print(f"rank {self.world.rank}: SIGTERM ignored for the graceful stop (rank 0 "
+                      "decides; send again to force the emergency-save raise)", flush=True)
+                return
             stop_reason = "SIGTERM"
             self.logger("SIGTERM: stopping at the next step boundary "
                         "(send again to force the emergency-save raise)")
@@ -333,19 +390,23 @@ class BaseRunner(ABC):
                     x, y = self._put_batch(train_batch)
                     metrics = train_step(self.state, x, y, self.train_generator)
                     self.global_step += 1
+                    if profiler is not None:
+                        profiler.step(self.global_step, self.logger)
                     # the previous step's loss: reading it waits for that step
                     # only, not for the one just queued
-                    if pending_log is not None:
+                    if pending_log is not None and self.writer is not None:
                         self.writer.add_scalar("loss/train", float(pending_log[1]["loss"]),
                                                pending_log[0])
                     pending_log = (self.global_step, metrics)
                     if self.global_step % 50 == 0:
                         self.validation_step(next_val_batch(), epoch, self.global_step)
                     if self.global_step % sample_every == 0:
-                        self.sample_step(train_batch, next_val_batch())
+                        val_batch = next_val_batch()  # every rank: the val iterators stay aligned
+                        if self.is_main:
+                            self.sample_step(train_batch, val_batch)
                     if poll_stop():
                         break
-                if pending_log is not None:
+                if pending_log is not None and self.writer is not None:
                     self.writer.add_scalar("loss/train", float(pending_log[1]["loss"]),
                                            pending_log[0])
                 self.logger(f"training time: {int(round(time.time() - start_time))}s "
@@ -363,28 +424,32 @@ class BaseRunner(ABC):
                     if stop_reason is not None:
                         self.logger(f"graceful stop ({stop_reason}): saving latest checkpoint, "
                                     "then returning cleanly")
-                    self.logger("saving latest checkpoint...")
-                    model_states, optim_states = self.get_checkpoint_states(
-                        stage="graceful_stop" if stop_reason is not None else "epoch_end")
-                    self._save_checkpoints(epoch, model_states, optim_states, average_loss)
-                    del model_states, optim_states
+                    if self.is_main:
+                        self.logger("saving latest checkpoint...")
+                        model_states, optim_states = self.get_checkpoint_states(
+                            stage="graceful_stop" if stop_reason is not None else "epoch_end")
+                        self._save_checkpoints(epoch, model_states, optim_states, average_loss)
+                        del model_states, optim_states
 
                 if stop_reason is not None:
-                    if stop_file and os.path.exists(stop_file):
+                    if self.is_main and stop_file and os.path.exists(stop_file):
                         os.remove(stop_file)  # so that a resume does not stop at once
                     break
         except BaseException as e:
             unwinding = True
-            self.logger("exception save model start....")
-            model_states, optim_states = self.get_checkpoint_states(stage="exception")
-            ckpt_path = self.config.result.ckpt_path
-            save_checkpoint(model_states, os.path.join(ckpt_path, "last_model.ckpt"))
-            save_checkpoint(optim_states, os.path.join(ckpt_path, "last_optim_sche.ckpt"))
-            self.logger("exception save model success!")
-            print("str(e):", str(e))
+            if self.is_main:
+                self.logger("exception save model start....")
+                model_states, optim_states = self.get_checkpoint_states(stage="exception")
+                ckpt_path = self.config.result.ckpt_path
+                save_checkpoint(model_states, os.path.join(ckpt_path, "last_model.ckpt"))
+                save_checkpoint(optim_states, os.path.join(ckpt_path, "last_optim_sche.ckpt"))
+                self.logger("exception save model success!")
+            print(f"rank {self.world.rank} str(e):", str(e))
             traceback.print_exc()
             raise  # a non-zero exit for the supervisor
         finally:
+            if profiler is not None:
+                profiler.close(self.global_step, self.logger)
             if old_handler is not None:
                 signal.signal(signal.SIGTERM, old_handler)
             self.model.eval()
@@ -393,14 +458,55 @@ class BaseRunner(ABC):
     # ----------------------------------------------------------------- test
 
     def test(self):
-        """``bbdm_tpu/runners/base.py:714-744`` on one process."""
+        """``bbdm_tpu/runners/base.py:714-744``: every rank samples its rows of
+        the test set, or rank 0 writes the grids of its first batch."""
         _, val_loader, test_loader = self._build_loaders()
         if len(test_loader) == 0:
             test_loader = val_loader
         if self.config.args.sample_to_eval:
             self.sample_to_eval(test_loader, self.config.result.sample_to_eval_path)
+        elif self.is_main:
+            with collectives.rank_local():
+                for i, test_batch in enumerate(test_loader):
+                    self.sample(test_batch, os.path.join(self.config.result.sample_path, str(i)),
+                                stage="test")
+                    break
+        collectives.barrier()
+
+
+class _ProfileWindow:
+    """``training.profile_dir``: a ``torch.profiler`` trace of global steps
+    ``(profile_start_step, profile_start_step + profile_steps]`` (the JAX
+    runner's window, ``bbdm_tpu/runners/base.py:423-427,532-539``), written to
+    ``profile_dir`` as a chrome trace when the window ends or training does."""
+
+    def __init__(self, training, device):
+        self.dir = training.get("profile_dir", None)
+        self.start = int(training.get("profile_start_step", 10))
+        self.stop = self.start + int(training.get("profile_steps", 5))
+        self.device = device
+        self.prof: Optional[torch.profiler.profile] = None
+        self.path = None
+
+    def step(self, global_step, log):
+        if not self.dir:
             return
-        for i, test_batch in enumerate(test_loader):
-            self.sample(test_batch, os.path.join(self.config.result.sample_path, str(i)),
-                        stage="test")
-            break
+        if self.prof is None and self.path is None and global_step == self.start:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=activities)
+            self.prof.start()
+        elif self.prof is not None and global_step >= self.stop:
+            self.close(global_step, log)
+
+    def close(self, global_step, log):
+        if self.prof is None:
+            return
+        prof, self.prof = self.prof, None
+        prof.stop()
+        os.makedirs(self.dir, exist_ok=True)
+        self.path = os.path.join(self.dir,
+                                 f"steps_{self.start + 1}-{global_step}.pt.trace.json")
+        prof.export_chrome_trace(self.path)
+        log(f"profiler trace written to {self.path}")

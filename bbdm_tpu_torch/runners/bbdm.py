@@ -43,6 +43,7 @@ from bbdm_tpu_torch.checkpoints.from_jax import (
 from bbdm_tpu_torch.checkpoints.io import extract_vqgan_tree, load_checkpoint
 from bbdm_tpu_torch.models import build_model
 from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel, init_latent_stats
+from bbdm_tpu_torch.parallel import collectives
 from bbdm_tpu_torch.runners.base import BaseRunner
 from bbdm_tpu_torch.runners.utils import is_torch_file, make_dir
 from bbdm_tpu_torch.training.optim import Optimizer
@@ -149,11 +150,13 @@ class BBDMRunner(BaseRunner):
         """The two-pass dataset latent statistics (``bbdm_tpu/runners/bbdm.py:138-217``):
         the mean of per-batch means over the shuffled train set's full batches,
         then the mean of per-batch mean squared deviations from it; std is its
-        square root."""
-        from bbdm_tpu_torch.data import DataLoader, get_dataset
+        square root. Data parallel, each rank encodes its rows of each batch and
+        the totals are averaged over ranks after each pass (JAX's ``combine``),
+        so every rank ends with the same statistics."""
+        from bbdm_tpu_torch.data import get_dataset
 
-        loader = DataLoader(get_dataset(self.config.data)[0], self.config.data.train.batch_size,
-                            shuffle=True, seed=self.config.args.seed)
+        loader = self._loader(get_dataset(self.config.data)[0],
+                              self.config.data.train.batch_size, True)
         if len(loader) == 0:
             raise ValueError("latent statistics: the train set has no full batch")
 
@@ -170,13 +173,14 @@ class BBDMRunner(BaseRunner):
         tot_o = tot_c = 0.0
         for xl, yl in latents():
             tot_o, tot_c = tot_o + batch_mean(xl), tot_c + batch_mean(yl)
-        ori_mean, cond_mean = tot_o / len(loader), tot_c / len(loader)
+        ori_mean, cond_mean = (collectives.mean(t) / len(loader) for t in (tot_o, tot_c))
         self.logger("start calculating latent std")
         tot_o = tot_c = 0.0
         for xl, yl in latents():
             tot_o = tot_o + batch_mean((xl - ori_mean) ** 2)
             tot_c = tot_c + batch_mean((yl - cond_mean) ** 2)
-        ori_std, cond_std = torch.sqrt(tot_o / len(loader)), torch.sqrt(tot_c / len(loader))
+        ori_std, cond_std = (torch.sqrt(collectives.mean(t) / len(loader))
+                             for t in (tot_o, tot_c))
         self.latent_stats = dict(zip(LATENT_STATS, (ori_mean, ori_std, cond_mean, cond_std)))
         for k, v in self.latent_stats.items():
             self.logger(f"{k}: {v.flatten().cpu().numpy()}")
@@ -244,11 +248,11 @@ class BBDMRunner(BaseRunner):
         contract of ``data.DataLoader``) into ``sample_path``
         (``bbdm_tpu/runners/bbdm.py:329-384``). The PNGs of a batch are encoded
         on one writer thread while the card samples the next batch; at most
-        two batches wait for it."""
-        condition_path = make_dir(os.path.join(sample_path, "condition"))
-        gt_path = make_dir(os.path.join(sample_path, "ground_truth"))
-        result_path = make_dir(os.path.join(sample_path,
-                                            str(self.config.model.BB.params.sample_step)))
+        two batches wait for it. Data parallel, each rank samples and writes
+        its rows of each batch (the loader gives them)."""
+        condition_path, gt_path, result_path = self.shared_dirs(
+            os.path.join(sample_path, "condition"), os.path.join(sample_path, "ground_truth"),
+            os.path.join(sample_path, str(self.config.model.BB.params.sample_step)))
         to_normal = self.config.data.dataset_config.to_normal
         sample_num = self.config.testing.sample_num
 

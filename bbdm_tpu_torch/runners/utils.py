@@ -21,14 +21,16 @@ def remove_file(path: str) -> None:
         pass
 
 
-def make_save_dirs(args, prefix: str, suffix: str | None = None, with_time: bool = False):
+def make_save_dirs(args, prefix: str, suffix: str | None = None, with_time: bool = False,
+                   make: bool = True):
     """``<result_path>/<prefix>/<suffix>/{image,log,checkpoint,samples,sample_to_eval}``;
-    returns (result, image, checkpoint, log, samples, sample_to_eval) paths."""
+    returns (result, image, checkpoint, log, samples, sample_to_eval) paths,
+    made unless ``make`` is False."""
     time_str = datetime.now().strftime("%Y-%m-%dT%H-%M-%S") if with_time else ""
-    result_path = make_dir(os.path.join(args.result_path, prefix, suffix or "", time_str))
-    return (result_path,
-            *(make_dir(os.path.join(result_path, d))
-              for d in ("image", "checkpoint", "log", "samples", "sample_to_eval")))
+    result_path = os.path.join(args.result_path, prefix, suffix or "", time_str)
+    paths = (result_path, *(os.path.join(result_path, d)
+                            for d in ("image", "checkpoint", "log", "samples", "sample_to_eval")))
+    return tuple(make_dir(p) for p in paths) if make else paths
 
 
 def is_torch_file(path: str) -> bool:

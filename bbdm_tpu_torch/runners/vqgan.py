@@ -41,6 +41,7 @@ from bbdm_tpu_torch.checkpoints.io import load_checkpoint
 from bbdm_tpu_torch.config import dict2namespace
 from bbdm_tpu_torch.models import build_model
 from bbdm_tpu_torch.models.layers import eval_mode
+from bbdm_tpu_torch.parallel import collectives
 from bbdm_tpu_torch.runners.base import BaseRunner
 from bbdm_tpu_torch.runners.utils import is_torch_file, make_dir
 from bbdm_tpu_torch.training.gan import GANTrainState, make_vqgan_train_step
@@ -98,13 +99,13 @@ class VQGANRunner(BaseRunner):
         return lambda state, x, y, generator=None: step(state, x, generator)
 
     def build_eval_step(self):
-        """Reconstruction L1 with the autoencoder in eval mode."""
+        """Reconstruction L1 with the autoencoder in eval mode, the mean over ranks."""
         vq = self.model.vqgan
 
         def eval_step(state, x, y, generator=None):
             with eval_mode(vq), torch.no_grad():
                 xrec, _ = vq(x)
-                return (x - xrec).abs().mean()
+                return collectives.mean((x - xrec).abs().mean())
 
         return eval_step
 
@@ -189,9 +190,10 @@ class VQGANRunner(BaseRunner):
                 self.writer.add_image(f"{stage}_{name}", grid, self.global_step)
 
     def sample_to_eval(self, test_loader, sample_path):
-        """Reconstruct the test set (for rFID and reconstruction metrics)."""
-        rec_path = make_dir(os.path.join(sample_path, "reconstruction"))
-        gt_path = make_dir(os.path.join(sample_path, "ground_truth"))
+        """Reconstruct the test set (for rFID and reconstruction metrics); data
+        parallel, each rank its rows of each batch."""
+        rec_path, gt_path = self.shared_dirs(os.path.join(sample_path, "reconstruction"),
+                                             os.path.join(sample_path, "ground_truth"))
         to_normal = self.config.data.dataset_config.to_normal
         for batch in test_loader:
             x = np.asarray(batch["x"])

@@ -18,6 +18,12 @@ and the adversarial terms are scaled by 0, as ``jnp.where`` does there.
 
 The Gumbel temperature is max(temp_min, temp_init * exp(-anneal_rate * step))
 at the step being taken (the counter plus one), in fp32.
+
+Data parallel (``parallel/``), as the JAX step under a data-parallel mesh: the
+two last-layer gradients d_weight divides are averaged over ranks before their
+norms, the discriminator's train-mode BatchNorm takes global statistics
+(``models/discriminator.py``), both players' gradients are averaged over ranks
+in one flat collective, and the returned losses are means over ranks.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from bbdm_tpu_torch.models.gan_losses import (
     reconstruction_loss,
     vanilla_d_loss,
 )
+from bbdm_tpu_torch.parallel import collectives
 from bbdm_tpu_torch.training.optim import Optimizer
 
 
@@ -80,6 +87,7 @@ def make_vqgan_losses(vq_model, disc_model, loss_config, *, lpips=None):
             w_last = vq_model.decoder.conv_out.weight
             nll_grad, = torch.autograd.grad(nll, w_last, retain_graph=True)
             g_grad, = torch.autograd.grad(g, w_last, retain_graph=True)
+            collectives.all_reduce_mean_([nll_grad, g_grad])
             d_weight = adaptive_d_weight(nll_grad, g_grad, disc_weight).detach()
         else:
             d_weight = disc_weight
@@ -130,15 +138,17 @@ def make_vqgan_train_step(vq_model, disc_model, loss_config, *, lpips=None):
         g_grads = _grads(g_total, state.gen_params, "generator")
         d_total = disc_loss_fn(x, aux["xrec"].detach(), step)
         d_grads = _grads(d_total, state.disc_params, "discriminator")
+        collectives.all_reduce_mean_(g_grads + d_grads)
         state.gen_opt.update(g_grads, state.lr)
         state.disc_opt.update(d_grads, state.lr)
         state.step = step
         d_weight = aux["d_weight"]
-        metrics = {"loss": g_total.detach(), "d_loss": d_total.detach(),
-                   "nll": aux["nll"].detach(), "g_loss": aux["g_loss"].detach(),
-                   "q_loss": aux["q_loss"].detach(),
-                   "d_weight": d_weight if torch.is_tensor(d_weight)
-                   else torch.tensor(d_weight, dtype=torch.float32, device=x.device)}
+        losses = collectives.mean(torch.stack([
+            g_total.detach(), d_total.detach(), aux["nll"].detach(),
+            aux["g_loss"].detach(), aux["q_loss"].detach()]))
+        metrics = dict(zip(("loss", "d_loss", "nll", "g_loss", "q_loss"), losses.unbind(0)))
+        metrics["d_weight"] = d_weight if torch.is_tensor(d_weight) \
+            else torch.tensor(d_weight, dtype=torch.float32, device=x.device)
         if is_gumbel:
             metrics["temperature"] = torch.tensor(temp, dtype=torch.float32)
         return metrics

@@ -9,6 +9,12 @@ microbatch's loss, and the gradients are cleared. The EMA steps when
 ``step % (update_ema_interval * accumulate) == 0``: a copy before
 ``start_ema_step``, the decay from it on. Nothing here reads the device back
 to the host.
+
+Data parallel (``parallel/``): each rank's loss is the mean over its rows; the
+loss returned and given to the plateau is its mean over ranks, and on the
+update microbatch the summed gradients are averaged over ranks (one flat
+collective) before the optimizer applies them: the global batch's gradient,
+as the JAX step under a data-parallel mesh takes it.
 """
 
 from __future__ import annotations
@@ -17,6 +23,7 @@ import contextlib
 
 import torch
 
+from bbdm_tpu_torch.parallel import collectives
 from bbdm_tpu_torch.training.ema import ema_update, swapped_in
 from bbdm_tpu_torch.training.plateau import plateau_step
 from bbdm_tpu_torch.training.state import TrainState
@@ -43,6 +50,7 @@ def make_train_step(model, training_config, ema_config=None, lr_scheduler_config
         step = state.step + 1
         loss = _loss(model, state, x, y, generator=generator, t=t, noise=noise)
         loss.backward()
+        loss = collectives.mean(loss.detach())
         state.step = step
         if step % accumulate == 0:
             opt = state.optimizer
@@ -51,7 +59,9 @@ def make_train_step(model, training_config, ema_config=None, lr_scheduler_config
                 raise RuntimeError(f"no gradient reached {len(missing)} trainable parameters "
                                    f"(first: {missing[0]}): the graph was cut")
             lr = state.plateau.lr  # this update's: the transition below comes after it
-            opt.update([p.grad for p in opt.params], lr)
+            grads = [p.grad for p in opt.params]
+            collectives.all_reduce_mean_(grads)
+            opt.update(grads, lr)
             if sched is not None:
                 state.plateau = plateau_step(
                     state.plateau, loss, factor=sched.factor, patience=sched.patience,
@@ -60,19 +70,20 @@ def make_train_step(model, training_config, ema_config=None, lr_scheduler_config
                 p.grad = None
         if use_ema and step % (ema_interval * accumulate) == 0:
             ema_update(state.ema, state.params, ema_decay, step >= start_ema_step)
-        return {"loss": loss.detach(), "lr": state.plateau.lr}
+        return {"loss": loss, "lr": state.plateau.lr}
 
     return train_step
 
 
 def make_eval_step(model):
     """``eval_step(state, x, y, generator=None) -> loss`` with the EMA weights
-    (the model's mode as it is: the JAX eval loss runs with ``train=True``)."""
+    (the model's mode as it is: the JAX eval loss runs with ``train=True``),
+    the mean over ranks."""
 
     def eval_step(state: TrainState, x, y, generator=None):
         weights = (swapped_in(state.params, state.ema) if state.ema is not None
                    else contextlib.nullcontext())
         with torch.no_grad(), weights:
-            return _loss(model, state, x, y, generator=generator)
+            return collectives.mean(_loss(model, state, x, y, generator=generator))
 
     return eval_step

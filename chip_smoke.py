@@ -106,7 +106,31 @@ Phases, each of which must pass:
    per microbatch and update, device busy and idle share over a batch and
    over two microbatches, peak memory; the sampled latent and the encode
    through the kernels against the twins (bar: twice the twins' bf16-vs-fp32
-   distance); every trainable parameter with a finite gradient.
+   distance); every trainable parameter with a finite gradient;
+10. data parallelism (``bbdm_tpu_torch/parallel``), at full width on
+   synthetic datasets from seeded random weights: (a) ``Template-LBBDM-f4.yaml``
+   training (node batch 8, ``accumulate_grad_batches`` 4, 8 microbatches, 2
+   updates) as 1 rank on card 0, as 2 ranks sharing card 0 over gloo (batch 4
+   each, spawned processes joined through ``parallel.initialize``) and as 1
+   rank in fp32 through the twins: each rank's K1/K2/K3 launches equal the
+   counts :func:`kernel_calls` derives, the losses and lr of the 2 ranks those
+   of 1, and the 2 ranks' parameters, update and losses no farther from 1
+   rank's than twice the fp32 run's distance from it; seconds per update and
+   the gradient all-reduce's seconds per update; (b) ``--sample_to_eval`` of
+   8 test pairs (20 steps, 1 draw) the same three ways: the same files, the
+   copied inputs equal, the samples' mean uint8 distance from 1 rank's within
+   twice the fp32 run's, and the launch counts; (c) ``Template-VQGAN-f4.yaml``
+   training in fp32, 2 steps at node batch 8, 1 rank and 2 ranks with the
+   1-rank run's codes pinned: loss, d_loss, d_weight, the discriminator's
+   BatchNorm running statistics and the first step's gradients (averaged
+   over the ranks) within the bars of phase 7 (``VQ_STEP_BARS``), the
+   parameters within Adam's bar of ``tests/test_torch_train_step.py``; (d)
+   ``main_torch.main`` ``--train`` and ``--sample_to_eval`` on a cut LBBDM-f4
+   (one res block per level, accumulate 1, one epoch) as one node of one NCCL
+   rank (``BBDM_MULTIHOST``): the checkpoint files and keys of the same run
+   without a process group, the kernels launched; (e) that plain run's
+   ``training.profile_dir`` chrome trace of one microbatch: it names K1 and
+   K3, and its device total and top device kernels are printed.
 
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
@@ -2213,6 +2237,498 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
     return out
 
 
+# ----------------------------------------------------------- data parallel
+
+DP_RANKS, DP_EPOCHS, DP_VQ_STEPS = 2, 2, 2
+DP_PAIRS = (32, 8, 8)  # train, val, test pairs at 256^2 (VQGAN: 16, 8, 8 images)
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def kernel_launches(reset=False):
+    """{K1, K2, K3: launches} of this process's kernel wrappers, after setting
+    them to 0 when ``reset``."""
+    from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+
+    fns = {"K1": group_norm.group_norm_cuda, "K2": upsample_conv.upsample_conv_cuda,
+           "K3": attention.flash_attention_cuda}
+    for f in fns.values():
+        if reset:
+            f.launches = 0
+    return {k: f.launches for k, f in fns.items()}
+
+
+def dp_rank(rank, ranks, port, dev, job, args, setup=None):
+    """Rank ``rank`` of ``ranks`` spawned on ``dev`` (all on card 0) over gloo:
+    ``job(rank, ranks, dev, *args)``. ``setup`` (a CPU rehearsal's stubs) runs first."""
+    if setup is not None:
+        setup()
+    import bbdm_tpu_torch  # noqa: F401  (sets TF32 off)
+    from bbdm_tpu_torch import parallel
+
+    parallel.initialize(rank, ranks, init_method=f"tcp://127.0.0.1:{port}", local_size=ranks,
+                        backend="gloo", device=dev)
+    try:
+        job(rank, ranks, dev, *args)
+    finally:
+        parallel.shutdown()
+
+
+def spawn_ranks(dev, job, args, setup=None):
+    """``job`` as ``DP_RANKS`` ranks, each its own process sharing ``dev`` over gloo."""
+    import torch.multiprocessing as mp
+
+    mp.start_processes(dp_rank, args=(DP_RANKS, free_port(), dev, job, args, setup),
+                       nprocs=DP_RANKS, join=True, start_method="spawn")
+
+
+def dp_runner(cls, path, dev, result, mode, fp32=False):
+    """``cls`` built from the config at ``path`` as ``main_torch`` builds it for
+    ``mode`` (--train or --sample_to_eval) on ``dev``; ``fp32``: the
+    configuration in fp32."""
+    import main_torch
+    from bbdm_tpu_torch.config import apply_cli_overrides, load_config
+
+    args = main_torch.parse_args(["-c", path, mode, "-r", result, "-s", str(CLI_SEED)])
+    cfg = apply_cli_overrides(load_config(path), args)
+    if fp32:
+        cfg.model.mixed_precision = False
+    return cls(cfg, device=dev)
+
+
+def dp_dump(out, name, rank, ranks, record):
+    if rank == 0:
+        torch.save(record, os.path.join(out, f"{name}_of{ranks}.pt"))
+    with open(os.path.join(out, f"{name}_rank{rank}_of{ranks}.json"), "w") as f:
+        json.dump({k: v for k, v in record.items()
+                   if k == "launches" or isinstance(v, (int, float, str, list))}, f)
+
+
+def dp_train_job(rank, ranks, dev, path, out, fp32=False):
+    """Phase 10 (a) on one rank: ``DP_EPOCHS`` epochs of the LBBDM-f4 train step
+    over this rank's rows of each node batch (``accumulate_grad_batches`` 4):
+    the losses and lr, seconds per update, the gradient collective's seconds
+    per update, the kernels' launches, and on rank 0 the trainable parameters
+    before and after. ``fp32``: the fp32 model through the plain twins."""
+    from bbdm_tpu_torch.parallel import collectives
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+
+    tag = "train-fp32" if fp32 else "train"
+    runner = dp_runner(BBDMRunner, path, dev, os.path.join(out, f"{tag}-{ranks}"), "--train",
+                       fp32)
+    loader = runner._build_loaders()[0]
+    step = runner.build_train_step()
+    acc = int(runner.config.training.accumulate_grad_batches)
+    flat = lambda: torch.cat([p.detach().float().flatten() for p in runner.state.params.values()])
+    before = flat().cpu()
+    reduce_s, updates, losses, lrs = [], [], [], []
+
+    def timed_reduce(fn):
+        def wrapped(tensors):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(tensors)
+            torch.cuda.synchronize()
+            reduce_s.append(time.perf_counter() - t0)
+        return wrapped
+
+    runner.model.train()
+    kernel_launches(reset=True)
+    with patched(collectives, "all_reduce_mean_", timed_reduce), \
+            (plain_ops() if fp32 else contextlib.nullcontext()):
+        for epoch in range(DP_EPOCHS):
+            loader.set_epoch(epoch)
+            for batch in loader:
+                x, y = runner._put_batch(batch)
+                m = step(runner.state, x, y, runner.train_generator)
+                losses.append(float(m["loss"]))
+                lrs.append(float(m["lr"]))
+                if runner.state.step % acc == 0:
+                    torch.cuda.synchronize()
+                    updates.append(time.perf_counter())
+    dp_dump(out, tag, rank, ranks, {
+        "launches": kernel_launches(), "losses": losses, "lrs": lrs,
+        "microbatches": runner.state.step, "rows": int(x.shape[0]),
+        "s_per_update": updates[-1] - updates[-2], "reduce_s_per_update": reduce_s[-1]
+        if reduce_s else 0.0, "before": before, "after": flat().cpu()})
+
+
+def dp_sample_job(rank, ranks, dev, path, out, fp32=False):
+    """Phase 10 (b) on one rank: ``BBDMRunner.test`` with --sample_to_eval."""
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+
+    tag = "sample-fp32" if fp32 else "sample"
+    runner = dp_runner(BBDMRunner, path, dev, os.path.join(out, f"{tag}-{ranks}"),
+                       "--sample_to_eval", fp32)
+    kernel_launches(reset=True)
+    with plain_ops() if fp32 else contextlib.nullcontext():
+        runner.test()
+    torch.cuda.synchronize()
+    dp_dump(out, tag, rank, ranks, {"launches": kernel_launches(),
+                                    "tree": runner.config.result.sample_to_eval_path})
+
+
+def dp_vqgan_job(rank, ranks, dev, path, out):
+    """Phase 10 (c) on one rank: ``DP_VQ_STEPS`` VQGAN-f4 steps (fp32) over this
+    rank's rows, with the first step's gradients as the optimizers get them
+    (averaged over ranks); the codes the one-rank run picks are recorded there
+    and pinned here (a near tie broken the other way moves a step far beyond
+    rounding: phase 7), counting the codes this rank would pick otherwise."""
+    from bbdm_tpu_torch.parallel import collectives
+    from bbdm_tpu_torch.parallel.collectives import local_rows
+    from bbdm_tpu_torch.runners.vqgan import VQGANRunner
+
+    runner = dp_runner(VQGANRunner, path, dev, os.path.join(out, f"vqgan-{ranks}"), "--train")
+    loader = runner._build_loaders()[0]
+    step = runner.build_train_step()
+    quantize = runner.model.vqgan.quantize
+    codes_path = os.path.join(out, "vqgan_codes.pt")
+    pinned = torch.load(codes_path) if ranks > 1 else None
+    codes, flips = [], [0]
+
+    def pin(nearest):
+        def chosen(z):
+            mine = nearest(z)
+            if pinned is None:
+                codes.append(mine.cpu())
+                return mine
+            theirs = pinned[len(codes)]
+            theirs = theirs[local_rows(theirs.shape[0], rank, ranks)].to(mine.device)
+            codes.append(theirs)
+            flips[0] += int((mine != theirs).sum())
+            return theirs
+        return chosen
+
+    flat = lambda ts: torch.cat([t.detach().flatten() for t in ts]).cpu()
+    model = runner.model
+    n_gen = len(list(model.vqgan.parameters()))
+    before = {"vqgan": flat(model.vqgan.parameters()),
+              "discriminator": flat(model.discriminator.parameters())}
+    grads = {}
+
+    def first_grads(reduce):
+        def wrapped(tensors):
+            reduce(tensors)
+            if not grads and len(tensors) > 2:  # both players' (not d_weight's pair)
+                grads.update(vqgan=flat(tensors[:n_gen]), discriminator=flat(tensors[n_gen:]))
+        return wrapped
+
+    model.train()
+    metrics = []
+    kernel_launches(reset=True)
+    with patched(quantize, "nearest", pin), \
+            patched(collectives, "all_reduce_mean_", first_grads):
+        for _, batch in zip(range(DP_VQ_STEPS), loader):
+            x, _ = runner._put_batch(batch)
+            m = step(runner.state, x, x, runner.train_generator)
+            metrics.append({k: float(v) for k, v in m.items()})
+    if pinned is None:
+        torch.save(codes, codes_path)
+    dp_dump(out, "vqgan", rank, ranks, {
+        "launches": kernel_launches(), "metrics": metrics, "code_flips": flips[0],
+        "before": before, "grads": grads,
+        "after": {"vqgan": flat(model.vqgan.parameters()),
+                  "discriminator": flat(model.discriminator.parameters())},
+        "stats": {k: b.detach().cpu() for k, b in model.discriminator.named_buffers()}})
+
+
+def trace_kernels(path, top=8):
+    """[(device kernel name, total us, launches)] of a chrome trace, the largest
+    first (``top`` of them; None: all)."""
+    from collections import defaultdict
+
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    total, calls = defaultdict(float), defaultdict(int)
+    for e in events:
+        if e.get("cat") == "kernel":
+            total[e["name"]] += e.get("dur", 0.0)
+            calls[e["name"]] += 1
+    return sorted(((n, total[n], calls[n]) for n in total), key=lambda r: -r[1])[:top]
+
+
+def ckpt_keys(tree, prefix=""):
+    """The key paths of a checkpoint tree."""
+    if isinstance(tree, dict):
+        return sorted(k for name, sub in tree.items() for k in ckpt_keys(sub, f"{prefix}/{name}"))
+    return [prefix]
+
+
+def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
+    """Phase 10 (see the module docstring): (a)-(e). ``configs`` ({"lbbdm",
+    "vqgan"} ConfigNodes) and ``setup`` let a CPU rehearsal pass tiny models
+    and its stubs to the spawned ranks. Returns the phase's numbers."""
+    import shutil
+
+    import numpy as np
+
+    import main_torch
+    from bbdm_tpu_torch.checkpoints.io import load_checkpoint
+    from bbdm_tpu_torch.config import load_config, save_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    load = lambda n: load_config(os.path.join(here, "configs", f"Template-{n}.yaml"))
+    cfg = configs["lbbdm"] if configs else load("LBBDM-f4")
+    size = cfg.data.dataset_config.image_size
+    work = os.path.join(root, "parallel")
+    data = os.path.join(work, "data")
+    n_train, n_val, n_test = pairs
+    write_dataset(data, size, n_test, seed=13, train=n_train, val=n_val)
+    cfg.data.dataset_config.dataset_path = data
+    cfg.model.VQGAN.params.ckpt_path = None  # seeded random, the same on every rank
+    cfg.model.BB.params.sample_step = SAMPLE_STEP
+    cfg.testing.sample_num = 1
+    path = os.path.join(work, "lbbdm.yaml")
+    save_config(cfg, path)
+    bs, acc = cfg.data.train.batch_size, int(cfg.training.accumulate_grad_batches)
+    micro = DP_EPOCHS * n_train // bs
+    calls = kernel_calls(cfg.model, bs // DP_RANKS)
+    log("reduced: " + json.dumps({
+        "phase": "10 (a, b)", "microbatches": micro, "updates": micro // acc,
+        "train/val/test pairs": list(pairs), "sample_step": {"template": 200, "run": SAMPLE_STEP},
+        "sample_num": {"template": 5, "run": 1},
+        "weights": "random (seed), VQGAN too", "ranks": f"1 and {DP_RANKS} on card 0 (gloo)"}))
+    out = {}
+
+    def read(name, ranks):
+        per_rank = []
+        for r in range(ranks):
+            with open(os.path.join(work, f"{name}_rank{r}_of{ranks}.json")) as f:
+                per_rank.append(json.load(f))
+        return torch.load(os.path.join(work, f"{name}_of{ranks}.pt")), per_rank
+
+    def check_launches(what, per_rank, want):
+        got = [r["launches"] for r in per_rank]
+        log(f"  {what}: launches per rank {got}, derived from the code {want}")
+        if any(g != want for g in got):
+            raise AssertionError(f"{what}: launches {got} != {want}")
+
+    # (a) LBBDM-f4 training: 1 rank, 1 rank in fp32 through the twins, 2 ranks
+    t0 = time.time()
+    dp_train_job(0, 1, dev, path, work)
+    dp_train_job(0, 1, dev, path, work, fp32=True)
+    torch.cuda.empty_cache()
+    spawn_ranks(dev, dp_train_job, (path, work), setup)
+    (one, one_r), (f32, _), (two, two_r) = (read(n, r) for n, r in (
+        ("train", 1), ("train-fp32", 1), ("train", DP_RANKS)))
+    want = expected_launches(calls, microbatches=micro)
+    check_launches("(a) train, 1 rank", one_r, want)
+    check_launches(f"(a) train, {DP_RANKS} ranks", two_r, want)
+    lr = float(cfg.model.BB.optimizer.lr)
+    d_two, d_f32 = two["after"] - one["after"], f32["after"] - one["after"]
+    update = one["after"] - one["before"]
+    a = {"s_per_update": {"1": one_r[0]["s_per_update"],
+                          str(DP_RANKS): [r["s_per_update"] for r in two_r]},
+         "reduce_s_per_update": [r["reduce_s_per_update"] for r in two_r],
+         "rows_per_rank": {"1": one_r[0]["rows"], str(DP_RANKS): two_r[0]["rows"]},
+         "loss": {"1": one["losses"], str(DP_RANKS): two["losses"], "fp32": f32["losses"]},
+         "lr": {"1": one["lrs"], str(DP_RANKS): two["lrs"]},
+         "param_max_abs": {f"{DP_RANKS}_vs_1": float(d_two.abs().max()),
+                           "fp32_vs_1": float(d_f32.abs().max()),
+                           "adam_bound": 2 * lr * (micro // acc)},
+         "update_norm_rel": {f"{DP_RANKS}_vs_1": float(d_two.norm() / update.norm()),
+                             "fp32_vs_1": float(d_f32.norm() / update.norm())},
+         "loss_max_abs": {f"{DP_RANKS}_vs_1": max(abs(p - q) for p, q in
+                                                  zip(two["losses"], one["losses"])),
+                          "fp32_vs_1": max(abs(p - q) for p, q in
+                                           zip(f32["losses"], one["losses"]))},
+         "wall_s": time.time() - t0}
+    a["launches"] = two_r[0]["launches"]
+    out["train"] = a
+    log(f"  (a) LBBDM-f4 train, {micro} microbatches ({micro // acc} updates) at node batch "
+        f"{bs}: s per update 1 rank {a['s_per_update']['1']:.3f}, {DP_RANKS} ranks on one card "
+        f"{a['s_per_update'][str(DP_RANKS)]} of which the gradient all-reduce (gloo, through "
+        f"the host) {a['reduce_s_per_update']}; " + json.dumps(
+            {k: a[k] for k in ("param_max_abs", "update_norm_rel", "loss_max_abs", "lr")}))
+    if two["lrs"] != one["lrs"] or [r["losses"] for r in two_r] != [two["losses"]] * DP_RANKS:
+        raise AssertionError("(a): lr differs from 1 rank, or the ranks' losses differ")
+    for k in ("param_max_abs", "update_norm_rel", "loss_max_abs"):
+        if a[k][f"{DP_RANKS}_vs_1"] > 2 * a[k]["fp32_vs_1"]:
+            raise AssertionError(f"(a): {k} of {DP_RANKS} ranks against 1 beyond twice bf16's "
+                                 "distance from fp32")
+    del one, two, f32, d_two, d_f32, update
+    log(f"  (a): ok ({time.time() - t0:.1f} s)")
+
+    # (b) --sample_to_eval of the test pairs: 1 rank, 1 rank fp32 twins, 2 ranks
+    t0 = time.time()
+    dp_sample_job(0, 1, dev, path, work)
+    dp_sample_job(0, 1, dev, path, work, fp32=True)
+    torch.cuda.empty_cache()
+    spawn_ranks(dev, dp_sample_job, (path, work), setup)
+    trees = {k: read_pngs(read(n, r)[0]["tree"]) for k, (n, r) in {
+        "1": ("sample", 1), "fp32": ("sample-fp32", 1), "2": ("sample", DP_RANKS)}.items()}
+    want = expected_launches(calls, steps=SAMPLE_STEP, draws=1,
+                             batches=n_test // cfg.data.test.batch_size)
+    for ranks in (1, DP_RANKS):
+        check_launches(f"(b) sample_to_eval, {ranks} rank(s)", read("sample", ranks)[1], want)
+    names = [f"{i:04d}" for i in range(n_test)]
+    check_tree(read("sample", DP_RANKS)[0]["tree"], names, names, SAMPLE_STEP, 1, size)
+    if sorted(trees["2"]) != sorted(trees["1"]):
+        raise AssertionError("(b): the trees hold other files")
+    diff = lambda k: np.stack([np.abs(trees[k][p].astype(int) - trees["1"][p])
+                               for p in sorted(trees["1"]) if p.startswith(str(SAMPLE_STEP))])
+    b = {"codes_max": {f"{DP_RANKS}_vs_1": int(diff("2").max()),
+                       "fp32_vs_1": int(diff("fp32").max())},
+         "codes_mean": {f"{DP_RANKS}_vs_1": float(diff("2").mean()),
+                        "fp32_vs_1": float(diff("fp32").mean())},
+         "share_differing": {f"{DP_RANKS}_vs_1": float((diff("2") > 0).mean()),
+                             "fp32_vs_1": float((diff("fp32") > 0).mean())},
+         "inputs_equal": all(np.array_equal(trees["2"][p], trees["1"][p]) for p in trees["1"]
+                             if not p.startswith(str(SAMPLE_STEP))),
+         "launches": read("sample", DP_RANKS)[1][0]["launches"], "wall_s": time.time() - t0}
+    out["sample_to_eval"] = b
+    log(f"  (b) sample_to_eval, {n_test} pairs: samples of {DP_RANKS} ranks against 1 rank, "
+        "in uint8 codes, beside bf16 against fp32 (1 rank): " + json.dumps(b))
+    if not b["inputs_equal"] or b["codes_mean"][f"{DP_RANKS}_vs_1"] > \
+            2 * b["codes_mean"]["fp32_vs_1"]:
+        raise AssertionError(f"(b): {DP_RANKS} ranks differ from 1 by more than twice bf16's "
+                             "mean distance from fp32, or the copied inputs differ")
+
+    # (c) VQGAN-f4 training in fp32: 1 rank, 2 ranks, the codes pinned
+    t0 = time.time()
+    vcfg = configs["vqgan"] if configs else load("VQGAN-f4")
+    vdata = os.path.join(work, "data-vqgan")
+    vbs = vcfg.data.train.batch_size
+    write_single_dataset(vdata, vcfg.data.dataset_config.image_size,
+                         (DP_VQ_STEPS * vbs, vbs, vbs), seed=14)
+    vcfg.data.dataset_config.dataset_path = vdata
+    vcfg.data.dataset_config.flip = False
+    vcfg.model.loss.disc_start, vcfg.model.loss.perceptual_weight = 0, 0.0
+    vcfg.model.loss.lpips_weights = None
+    vpath = os.path.join(work, "vqgan.yaml")
+    save_config(vcfg, vpath)
+    dp_vqgan_job(0, 1, dev, vpath, work)
+    torch.cuda.empty_cache()
+    spawn_ranks(dev, dp_vqgan_job, (vpath, work), setup)
+    (one, one_r), (two, two_r) = read("vqgan", 1), read("vqgan", DP_RANKS)
+    check_launches(f"(c) VQGAN train, {DP_RANKS} ranks (each as 1 rank)", two_r,
+                   one_r[0]["launches"])
+    bars = VQ_STEP_BARS["norm_rel"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    norm_rel = lambda a, b: float((a - b).norm() / b.norm())
+    vlr = float(vcfg.model.optimizer.lr)
+    players = ("vqgan", "discriminator")
+    c = {"metrics_rel": {k: max(rel(p[k], q[k]) for p, q in zip(two["metrics"], one["metrics"]))
+                         for k in ("loss", "d_loss", "d_weight")},
+         "bn_stats_norm_rel": max(norm_rel(two["stats"][k], one["stats"][k])
+                                  for k in one["stats"]),
+         "grad_norm_rel": {n: norm_rel(two["grads"][n], one["grads"][n]) for n in players},
+         # Adam's bar of tests/test_torch_train_step.py: within lr / 10 but for
+         # one element in 10^4, every one within 2 lr per step
+         "params_beyond_lr_10": {n: float(((two["after"][n] - one["after"][n]).abs()
+                                           > vlr / 10).float().mean()) for n in players},
+         "params_max_abs_over_lr": {n: float((two["after"][n] - one["after"][n]).abs().max())
+                                    / vlr for n in players},
+         "code_flips": [r["code_flips"] for r in two_r],
+         "codes": DP_VQ_STEPS * vbs * (vcfg.data.dataset_config.image_size // 4) ** 2,
+         "launches": two_r[0]["launches"], "wall_s": time.time() - t0}
+    c["bars"] = {"loss": bars["gen_loss"], "d_loss": bars["disc_grad"],
+                 "d_weight": bars["gen_grad"], "bn_stats": bars["disc_grad"],
+                 "vqgan": bars["gen_grad"], "discriminator": bars["disc_grad"],
+                 "params_beyond_lr_10": 1e-4, "params_max_abs_over_lr": 2 * DP_VQ_STEPS}
+    out["vqgan_train"] = c
+    log(f"  (c) VQGAN-f4 train, {DP_VQ_STEPS} steps at node batch {vbs}, {DP_RANKS} ranks "
+        "against 1 (relative), bars from VQ_STEP_BARS and Adam's: " + json.dumps(c))
+    over = [k for k in ("loss", "d_loss", "d_weight") if c["metrics_rel"][k] > c["bars"][k]]
+    over += ["bn_stats"] * (c["bn_stats_norm_rel"] > c["bars"]["bn_stats"])
+    over += [f"{n} gradient" for n in players if c["grad_norm_rel"][n] > c["bars"][n]]
+    over += [f"{n} {k}" for k in ("params_beyond_lr_10", "params_max_abs_over_lr")
+             for n in players if c[k][n] > c["bars"][k]]
+    if over:
+        raise AssertionError(f"(c): {over} beyond their bars")
+
+    # (d) NCCL: main_torch as one node of one rank (BBDM_MULTIHOST), train then
+    # sample_to_eval, against the same run without a process group; (e) the
+    # plain run's profiler window
+    t0 = time.time()
+    ccfg = load_config(path)
+    ccfg.model.BB.params.UNetParams.num_res_blocks = 1
+    ccfg.training.accumulate_grad_batches, ccfg.training.n_epochs = 1, 1
+    ccfg.training.sample_interval = 1000
+    cpath, ppath = os.path.join(work, "cut.yaml"), os.path.join(work, "cut-profile.yaml")
+    save_config(ccfg, cpath)
+    ccfg.training.profile_dir = os.path.join(work, "profile")
+    ccfg.training.profile_start_step, ccfg.training.profile_steps = 1, 1
+    save_config(ccfg, ppath)
+    gpu = "-1" if dev.type == "cpu" else "0"
+    runs = {}
+    env = {"BBDM_MULTIHOST": "1", "BBDM_NUM_PROCESSES": "1", "BBDM_PROCESS_ID": "0",
+           "BBDM_COORDINATOR": f"127.0.0.1:{free_port()}"}
+    for name, cfg_path, multi in (("plain", ppath, False), ("nccl", cpath, True)):
+        saved = {k: os.environ.get(k) for k in env}
+        if multi:
+            os.environ.update(env)
+        try:
+            kernel_launches(reset=True)
+            runner = main_torch.main(["-c", cfg_path, "--train", "-r",
+                                      os.path.join(work, f"cut-{name}"), "-s", str(CLI_SEED),
+                                      "--gpu_ids", gpu])
+            train_launches = kernel_launches()
+            backend = runner.world.backend
+            ckpt = runner.config.result.ckpt_path
+            del runner
+            if multi:
+                kernel_launches(reset=True)
+                sampled = main_torch.main([
+                    "-c", cfg_path, "--sample_to_eval", "--resume_model",
+                    os.path.join(ckpt, "last_model.ckpt"), "-r", os.path.join(work, "cut-s2e"),
+                    "-s", str(CLI_SEED), "--gpu_ids", gpu])
+                runs["nccl_sample_launches"] = kernel_launches()
+                check_tree(sampled.config.result.sample_to_eval_path, names, names,
+                           SAMPLE_STEP, 1, size)
+                del sampled
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        states = load_checkpoint(os.path.join(ckpt, "last_model.ckpt"))
+        runs[name] = {"backend": backend, "launches": train_launches,
+                      "files": sorted(os.listdir(ckpt)), "keys": ckpt_keys(states)}
+        del states
+        torch.cuda.empty_cache()
+    d = {"backend": runs["nccl"]["backend"], "train_launches": runs["nccl"]["launches"],
+         "sample_launches": runs["nccl_sample_launches"], "files": runs["nccl"]["files"],
+         "keys": len(runs["nccl"]["keys"]), "wall_s": time.time() - t0}
+    out["nccl"] = d
+    log(f"  (d) main_torch as one node of one rank over {d['backend']}: " + json.dumps(d))
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    if d["backend"] != want_backend or runs["plain"]["backend"] is not None:
+        raise AssertionError(f"(d): backends {d['backend']}, {runs['plain']['backend']}")
+    if (runs["nccl"]["files"], runs["nccl"]["keys"]) != (runs["plain"]["files"],
+                                                         runs["plain"]["keys"]):
+        raise AssertionError("(d): the checkpoints of the two runs differ in files or keys")
+    for what, launches, ks in (("train", d["train_launches"], ("K1", "K3")),
+                               ("sample_to_eval", d["sample_launches"], ("K1", "K2", "K3"))):
+        if any(launches[k] <= 0 for k in ks):
+            raise AssertionError(f"(d) {what}: kernels {ks} not all launched: {launches}")
+
+    traces = sorted(os.listdir(ccfg.training.profile_dir))
+    if traces != ["steps_2-2.pt.trace.json"]:
+        raise AssertionError(f"(e): profile_dir holds {traces}")
+    every = trace_kernels(os.path.join(ccfg.training.profile_dir, traces[0]), top=None)
+    ours = {k: [sum(us for n, us, _ in every if frag in n),
+                sum(c for n, _, c in every if frag in n)]
+            for k, frag in (("K1", "group_norm_kernel"), ("K3", "flash_attention_kernel"))}
+    out["profile"] = {"trace": traces[0], "device_us": sum(us for _, us, _ in every),
+                      "kernels_us_launches": ours, "top_kernels_us": every[:8]}
+    log(f"  (e) the profiler window's trace {traces[0]}, one microbatch: device "
+        f"{out['profile']['device_us']:.1f} us in {sum(c for _, _, c in every)} kernels; K1 and "
+        f"K3 (us, launches) {json.dumps(ours)}; top device kernels (name, us, launches): "
+        + json.dumps(every[:8]))
+    if dev.type == "cuda" and not all(c > 0 for _, c in ours.values()):
+        raise AssertionError(f"(e): the trace does not name K1 and K3: {ours}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -2356,10 +2872,28 @@ def main() -> int:
         except Exception:
             traceback.print_exc()
             failed.append("latent paths")
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            dp = parallel_phase(dev, root)
+            for e in entries:
+                k = short[e["name"]]
+                e["launches_by_path"].update({
+                    "dp_train_per_rank": dp["train"]["launches"][k],
+                    "dp_sample_to_eval_per_rank": dp["sample_to_eval"]["launches"][k],
+                    "dp_vqgan_train_per_rank": dp["vqgan_train"]["launches"][k],
+                    "nccl_train": dp["nccl"]["train_launches"][k],
+                    "nccl_sample_to_eval": dp["nccl"]["sample_launches"][k]})
+            log(f"data parallel: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("data parallel")
+            dp = {}
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
                     "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
-                    "evaluation": evaluation, "latent_paths": paths, "card": card}))
+                    "evaluation": evaluation, "latent_paths": paths, "parallel": dp,
+                    "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

@@ -136,12 +136,27 @@ def ckpt_dir(result):
     return os.path.join(result, "tiny", "tiny-lbbdm", "checkpoint")
 
 
-def test_train_raises(setup):
-    """What training does not port raises, naming its ROADMAP item:
-    ``training.profile_dir`` (the JAX profiler trace)."""
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 9"):
-        main_torch.main(["-c", variant(setup, "profile", profile_dir=str(setup / "prof")),
-                         "--train", "--gpu_ids", "-1", "-r", str(setup / "train")])
+def test_profile_dir_writes_a_trace(setup):
+    """``training.profile_dir``: a chrome trace of the steps after
+    ``profile_start_step`` (``profile_steps`` of them), written when the window
+    closes, with the train step's operators in it."""
+    import json
+
+    from test_torch_parallel import one_thread
+
+    prof = setup / "prof"
+    with one_thread():
+        runner = main_torch.main(["-c", variant(setup, "profile", profile_dir=str(prof),
+                                                profile_start_step=1, profile_steps=1,
+                                                n_steps=10, sample_interval=100,
+                                                save_interval=3, validation_interval=3),
+                                  "--train", "--max_epoch", "3", "--gpu_ids", "-1",
+                                  "-r", str(setup / "train-prof")])
+    assert runner.global_step == 3
+    assert sorted(os.listdir(prof)) == ["steps_2-2.pt.trace.json"]
+    with open(prof / "steps_2-2.pt.trace.json") as f:
+        names = {e.get("name", "") for e in json.load(f)["traceEvents"]}
+    assert any("conv" in n for n in names) and any("backward" in n.lower() for n in names)
 
 
 @pytest.mark.parametrize("key,value", [("model_parallel", 2), ("fsdp", True)])
@@ -230,8 +245,20 @@ def test_train_saves_and_raises_on_an_exception(setup, monkeypatch):
                                                     "last_optim_sche.ckpt"]
 
 
-def test_several_gpu_ids_raise(setup):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+@pytest.mark.parametrize("gpu_ids,match", [("0,-1", "mixed"), ("0,0", "twice")])
+def test_several_gpu_ids_raise(setup, gpu_ids, match):
+    """-1 among card ids and a repeated id raise before any rank starts."""
+    with pytest.raises(ValueError, match=match):
+        main_torch.main(["-c", str(setup / "tiny.yaml"), "--sample_to_eval", "--gpu_ids",
+                         gpu_ids, "-r", str(setup / "multi")])
+
+
+def test_several_gpu_ids_need_the_cards(setup, monkeypatch):
+    """``--gpu_ids 0,1`` names one rank per card; without a card it raises before
+    starting them."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr("torch.multiprocessing.spawn", lambda *a, **k: pytest.fail("spawned"))
+    with pytest.raises(RuntimeError, match="no CUDA card"):
         main_torch.main(["-c", str(setup / "tiny.yaml"), "--sample_to_eval", "--gpu_ids", "0,1",
                          "-r", str(setup / "multi")])
 

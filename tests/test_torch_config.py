@@ -104,12 +104,23 @@ def test_saved_config_reads_back_through_pyyaml(tmp_path, path):
 
 @pytest.mark.parametrize("gpu_ids,device", [("-1", "cpu"), ("0", "cuda:0"), ("3", "cuda:3")])
 def test_gpu_ids_name_one_device(gpu_ids, device):
-    assert device_from_gpu_ids(gpu_ids) == device
+    assert device_from_gpu_ids(gpu_ids) == [device]
 
 
-@pytest.mark.parametrize("gpu_ids", ["0,1", "0,2,3"])
-def test_several_gpu_ids_raise(gpu_ids):
-    with pytest.raises(NotImplementedError, match="data-parallel"):
+@pytest.mark.parametrize("gpu_ids,devices", [("0,1", ["cuda:0", "cuda:1"]),
+                                             ("0,2,3", ["cuda:0", "cuda:2", "cuda:3"]),
+                                             (" 3, 1", ["cuda:3", "cuda:1"])])
+def test_several_gpu_ids_name_several_devices(gpu_ids, devices):
+    """One rank per id, in the order given (rank i on the i-th card)."""
+    assert device_from_gpu_ids(gpu_ids) == devices
+
+
+@pytest.mark.parametrize("gpu_ids,match", [("-1,0", "mixed"), ("0,-1", "mixed"),
+                                           ("0,0", "twice"), ("1,2,1", "twice"),
+                                           ("a", "not a card id"), ("", "no device")])
+def test_several_gpu_ids_raise(gpu_ids, match):
+    """-1 among card ids and a repeated id (NCCL puts no two ranks on one card)."""
+    with pytest.raises(ValueError, match=match):
         device_from_gpu_ids(gpu_ids)
 
 
