@@ -8,6 +8,11 @@ compute ``dtype`` at use, as flax does (``dtype=None``: the promotion of the
 input's and the weight's dtype). GroupNorm statistics and the attention
 softmax stay fp32. Attribute names are the flax module names, so
 ``checkpoints/from_jax.py`` is a rename plus transpose.
+
+Under tensor parallelism a conv or dense layer whose weight holds only this
+rank's output channels (``parallel/sharding.py``) computes them and gathers
+the rest over the model group before adding its whole bias
+(``parallel/tensor.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from torch import nn
 from bbdm_tpu_torch.ops import attention as attn_ops
 from bbdm_tpu_torch.ops import group_norm as gn_ops
 from bbdm_tpu_torch.ops import upsample_conv as up_ops
+from bbdm_tpu_torch.parallel import tensor as tp
 
 
 # ---------------------------------------------------------------- initialisers
@@ -131,6 +137,7 @@ class Conv2d(_Init):
                  dtype=None, bias=True, device=None):
         super().__init__()
         self.stride, self.padding, self.dtype, self._init = stride, padding, dtype, init
+        self.out_ch = out_ch
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kernel, kernel, device=device))
         self.bias = nn.Parameter(torch.empty(out_ch, device=device)) if bias else None
 
@@ -142,6 +149,11 @@ class Conv2d(_Init):
     def forward(self, x):
         dt = _dt(self.dtype, x, self.weight)
         bias = self.bias.to(dt) if self.bias is not None else None
+        if tp.is_shard(self.weight, self.out_ch):
+            out = tp.column_parallel(lambda h: F.conv2d(h.to(dt), self.weight.to(dt),
+                                                        stride=self.stride,
+                                                        padding=self.padding), x, 1)
+            return out if bias is None else out + bias[:, None, None]
         return F.conv2d(x.to(dt), self.weight.to(dt), bias, stride=self.stride,
                         padding=self.padding)
 
@@ -162,6 +174,7 @@ class Dense(_Init):
     def __init__(self, in_f, out_f, *, init=normal_init, dtype=None, bias=True, device=None):
         super().__init__()
         self.dtype, self._init = dtype, init
+        self.out_f = out_f
         self.weight = nn.Parameter(torch.empty(out_f, in_f, device=device))
         self.bias = nn.Parameter(torch.empty(out_f, device=device)) if bias else None
 
@@ -172,8 +185,11 @@ class Dense(_Init):
 
     def forward(self, x):
         dt = _dt(self.dtype, x, self.weight)
-        return F.linear(x.to(dt), self.weight.to(dt),
-                        self.bias.to(dt) if self.bias is not None else None)
+        bias = self.bias.to(dt) if self.bias is not None else None
+        if tp.is_shard(self.weight, self.out_f):
+            out = tp.column_parallel(lambda h: F.linear(h.to(dt), self.weight.to(dt)), x, -1)
+            return out if bias is None else out + bias
+        return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
 def upsample_nearest_2x(x):
@@ -197,6 +213,7 @@ class UpsampleConv3x3(_Init):
     def __init__(self, in_ch, out_ch, *, init=normal_init, dtype=None, device=None):
         super().__init__()
         self.dtype, self._init = dtype, init
+        self.out_ch = out_ch
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, 3, 3, device=device))
         self.bias = nn.Parameter(torch.empty(out_ch, device=device))
         self.combined = None
@@ -208,7 +225,10 @@ class UpsampleConv3x3(_Init):
     def forward(self, x):
         if self.training:
             dt = _dt(self.dtype, x, self.weight)
-            out = F.conv2d(upsample_nearest_2x(x).to(dt), self.weight.to(dt), padding=1)
+            conv = lambda h: F.conv2d(upsample_nearest_2x(h).to(dt), self.weight.to(dt),
+                                      padding=1)
+            out = tp.column_parallel(conv, x, 1) if tp.is_shard(self.weight, self.out_ch) \
+                else conv(x)
             return out + self.bias.to(out.dtype)[:, None, None]
         return up_ops.upsample2x_conv3x3(x, self.weight, self.bias, dtype=self.dtype,
                                          combined=self.combined)

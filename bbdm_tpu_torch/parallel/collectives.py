@@ -2,18 +2,28 @@
 ``bbdm_tpu/parallel/mesh.py``: there GSPMD inserts them, here they are
 written out).
 
-Every rank holds the same weights and takes its own rows of each global batch.
-A run on N ranks computes what one rank computes over the same global batch:
+Each rank takes its own rows of each global batch, the rows of its data index
+on the grid (``parallel/mesh.py``; the ranks of one model group take the same
+rows). A run on N ranks computes what one rank computes over the same global
+batch:
 
 * per-sample draws (:func:`randn`, :func:`rand`, :func:`randint`) come from
   generators seeded alike on every rank, at the global batch's shape, and each
-  rank keeps its rows, as a draw under ``jit`` fills the global array and each
-  device holds its shard;
-* gradients and losses are means over ranks (:func:`all_reduce_mean_`,
+  rank keeps its data index's rows, as a draw under ``jit`` fills the global
+  array and each device holds its shard;
+* gradients and losses are means over the data group (:func:`all_reduce_mean_`,
   :func:`mean`): each rank's loss is the mean over its rows, and the ranks
   hold equal numbers of rows;
 * train-mode BatchNorm takes its statistics over the global batch
   (:func:`batch_mean`, with gradient through the reduction).
+
+:func:`all_gather`, :func:`reduce_scatter_mean` and :func:`all_reduce_sum`
+work along one dimension over either axis of the grid (FSDP and tensor
+parallelism, ``parallel/sharding.py`` and ``parallel/tensor.py``). They use
+the list forms of ``torch.distributed``'s calls, which NCCL and gloo run on
+card and host tensors alike in the torch versions the port meets (the tensor
+forms are deprecated in newer ones); gloo stages card tensors through the
+host itself. Reductions of 16-bit tensors run in fp32.
 
 Without a process group every function is the identity or a no-op; in a
 group of one rank the collectives still run (the one-rank NCCL group of a
@@ -28,12 +38,9 @@ import torch
 import torch.distributed as dist
 
 from bbdm_tpu_torch.parallel.distributed import host_group, world
+from bbdm_tpu_torch.parallel.mesh import grid
 
 _rank_local = False  # draws of this rank alone (see rank_local)
-
-
-def _size() -> int:
-    return world().size
 
 
 def _grouped() -> bool:
@@ -64,12 +71,12 @@ def rank_local():
 
 
 def _draw(fn, shape):
-    """``fn(shape)`` at the global batch's shape, this rank's rows of it."""
-    w = world()
-    if w.size == 1 or _rank_local:
+    """``fn(shape)`` at the global batch's shape, this rank's data index's rows of it."""
+    g = grid()
+    if g.data_size == 1 or _rank_local:
         return fn(tuple(shape))
-    full = fn((shape[0] * w.size, *shape[1:]))
-    return full[local_rows(full.shape[0], w.rank, w.size)]
+    full = fn((shape[0] * g.data_size, *shape[1:]))
+    return full[local_rows(full.shape[0], g.data_index, g.data_size)]
 
 
 def randn(shape, *, generator=None, dtype=None, device=None) -> torch.Tensor:
@@ -89,13 +96,14 @@ def randint(low: int, high: int, shape, *, generator=None, device=None) -> torch
 
 @torch.no_grad()
 def all_reduce_mean_(tensors: list) -> None:
-    """Each tensor replaced, in place, by its mean over ranks: one collective
-    over a flat fp32 buffer in the list's order."""
+    """Each tensor replaced, in place, by its mean over the data group: one
+    collective over a flat fp32 buffer in the list's order."""
     if not _grouped() or not tensors:
         return
+    g = grid()
     flat = torch.cat([t.reshape(-1).float() for t in tensors])
-    dist.all_reduce(flat)
-    flat /= _size()
+    dist.all_reduce(flat, group=g.data_group)
+    flat /= g.data_size
     offset = 0
     for t in tensors:
         n = t.numel()
@@ -104,35 +112,66 @@ def all_reduce_mean_(tensors: list) -> None:
 
 
 def mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean of ``x`` over ranks (no gradient), a new tensor."""
+    """The mean of ``x`` over the data group (no gradient), a new tensor."""
     if not _grouped():
         return x
+    g = grid()
     x = x.detach().clone()
-    dist.all_reduce(x)
-    return x / _size()
+    dist.all_reduce(x, group=g.data_group)
+    return x / g.data_size
 
 
 class _BatchMean(torch.autograd.Function):
-    """Forward: the mean over ranks. Backward: the mean over ranks of the
+    """Forward: the mean over the data group. Backward: the mean over it of the
     incoming gradients, which, with the ranks' gradients then averaged, gives
     each rank its share of the global loss's gradient through the statistics."""
 
     @staticmethod
     def forward(ctx, x):
-        y = x.detach().clone()
-        dist.all_reduce(y)
-        return y / _size()
+        return mean(x)
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g)
-        return g / _size()
+        return mean(g.contiguous())
 
 
 def batch_mean(x: torch.Tensor) -> torch.Tensor:
-    """The mean over ranks of per-rank batch statistics, differentiable."""
+    """The mean over the data group of per-rank batch statistics, differentiable."""
     return _BatchMean.apply(x) if _grouped() else x
+
+
+def all_gather(x: torch.Tensor, dim: int = 0, axis: str = "data") -> torch.Tensor:
+    """The ranks of ``axis`` (``"data"`` or ``"model"``)'s ``x``, concatenated
+    along ``dim`` in their order (a new tensor)."""
+    group, size, _ = grid().axis(axis)
+    if size == 1:
+        return x.clone()
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(size)]
+    dist.all_gather(parts, x, group=group)
+    return torch.cat(parts, dim)
+
+
+def reduce_scatter_mean(x: torch.Tensor, dim: int = 0, axis: str = "data") -> torch.Tensor:
+    """This rank's part along ``dim`` of the mean over the ranks of ``axis`` of
+    ``x`` (``dim`` split in equal parts, one per rank, in their order), in x's dtype."""
+    group, size, index = grid().axis(axis)
+    if size == 1:
+        return x.clone()
+    parts = [p.float().contiguous() for p in x.chunk(size, dim)]
+    out = torch.empty_like(parts[index])
+    dist.reduce_scatter(out, parts, group=group)
+    return (out / size).to(x.dtype)
+
+
+def all_reduce_sum(x: torch.Tensor, axis: str = "model") -> torch.Tensor:
+    """The sum over the ranks of ``axis`` of ``x``, in x's dtype (a new tensor)."""
+    group, size, _ = grid().axis(axis)
+    if size == 1:
+        return x.clone()
+    y = x.to(torch.float32, memory_format=torch.contiguous_format, copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.dtype)
 
 
 @torch.no_grad()

@@ -29,9 +29,24 @@ which it broadcasts at each step boundary (a first SIGTERM on another rank is
 ignored). ``sample_to_eval`` writes each rank's own files; each node's first
 rank makes the directories, and a barrier follows them and ends :meth:`test`.
 
+FSDP and tensor parallelism (``training.fsdp``, ``training.model_parallel``),
+as the JAX runner on a ``data x model`` mesh: the ranks form the grid of
+``parallel/mesh.py`` (model peers take the same rows, so the loader splits
+the node's batch over its data ranks), and after the broadcast the train
+state becomes this rank's shards (``parallel/sharding.py``), a resume
+included. Sampling, validation and checkpoints gather the whole weights first;
+that gather is a collective, so every rank enters it where rank 0 alone then
+samples or writes (JAX's ``_cross_host_state`` rule). Checkpoints keep the
+full JAX layout.
+
+``training.mesh_devices`` (the JAX mesh's width) must equal the number of
+ranks, which ``--gpu_ids`` and the nodes set. ``training.debug_nan`` makes
+the train step raise at the first non-finite loss or averaged gradient, and
+turns on autograd's anomaly mode for the length of :meth:`train`, which names
+the backward op that made one.
+
 ``training.fuse_small_leaves`` and ``training.device_data_cache`` (TPU launch
-and transfer optimizations with identical results) are ignored;
-``training.model_parallel`` > 1 and ``training.fsdp`` raise.
+and transfer optimizations with identical results) are ignored.
 """
 
 from __future__ import annotations
@@ -56,6 +71,8 @@ from bbdm_tpu_torch.checkpoints.io import save_checkpoint
 from bbdm_tpu_torch.config import ConfigNode, device_from_gpu_ids, save_config
 from bbdm_tpu_torch.models.factory import resolve_device
 from bbdm_tpu_torch.parallel import collectives, is_main, world
+from bbdm_tpu_torch.parallel.mesh import make_grid
+from bbdm_tpu_torch.parallel.sharding import place_state
 from bbdm_tpu_torch.runners.utils import make_dir, make_save_dirs, remove_file
 from bbdm_tpu_torch.training.ema import ema_init, swapped_in
 from bbdm_tpu_torch.training.plateau import plateau_init
@@ -104,6 +121,11 @@ class BaseRunner(ABC):
                 save_config(config, os.path.join(result.ckpt_path, "config.yaml"))
                 self.writer = SummaryWriter(result.log_path)
         self.use_ema = config.model.EMA.use_ema if "EMA" in config.model else False
+        training = config.get("training") or ConfigNode()
+        self.model_parallel = int(training.get("model_parallel", 1) or 1)
+        self.fsdp = bool(training.get("fsdp", False))
+        self._check_mesh_devices(training.get("mesh_devices", None))
+        self.grid = make_grid(self.model_parallel)
         self.model = self.initialize_model(
             config, torch.Generator(self.device).manual_seed(self.seed))
         self.generator = _stream(self.device, _SAMPLE_STREAM, self.seed)
@@ -114,6 +136,10 @@ class BaseRunner(ABC):
             self.state = self.build_initial_state()
         self.load_model_from_checkpoint()
         self.broadcast_state()
+        if self.state is not None:
+            self.state.sharding = place_state(self.model, self.state,
+                                              model_parallel=self.model_parallel,
+                                              fsdp=self.fsdp)
 
     def logger(self, msg):
         if self.is_main:
@@ -125,11 +151,23 @@ class BaseRunner(ABC):
         if self.state is not None and getattr(self.state, "ema", None) is not None:
             collectives.broadcast_(list(self.state.ema.values()))
 
+    def _check_mesh_devices(self, n):
+        """``training.mesh_devices``: the JAX mesh's width, here the number of ranks."""
+        if not n:
+            return
+        if int(n) != self.world.size:
+            raise ValueError(f"training.mesh_devices={n} but the run has {self.world.size} "
+                             "ranks (--gpu_ids and the nodes set the width)")
+        self.logger(f"training.mesh_devices={n}: the {self.world.size} ranks of the run")
+
+    def full_weights(self):
+        """Every leaf of the train state whole for the block (a collective when
+        it is sharded: every rank enters)."""
+        sharding = getattr(self.state, "sharding", None)
+        return sharding.gathered() if sharding is not None else contextlib.nullcontext()
+
     def _check_training_config(self):
         training = self.config.training
-        if int(training.get("model_parallel", 1) or 1) > 1 or training.get("fsdp", False):
-            raise NotImplementedError("training.model_parallel > 1 and training.fsdp are not "
-                                      "ported (ROADMAP.md §1 item 6)")
         if training.get("fuse_small_leaves", False):
             self.logger("training.fuse_small_leaves is ignored: a TPU launch optimization with "
                         "identical results; the optimizer state keeps the per-leaf layout")
@@ -182,13 +220,14 @@ class BaseRunner(ABC):
     # ------------------------------------------------------------- batches
 
     def _loader(self, dataset, batch_size, shuffle):
-        """This rank's loader: its node's shard, its rows of each node batch."""
+        """This rank's loader: its node's shard, its data index's rows of each
+        node batch (the node's model peers take the same rows)."""
         from bbdm_tpu_torch.data import DataLoader
 
-        w = self.world
+        w, mp = self.world, self.grid.model_size
         return DataLoader(dataset, batch_size, shuffle=shuffle, seed=self.config.args.seed,
-                          shard_count=w.nodes, shard_index=w.node, local_count=w.local_size,
-                          local_index=w.local_rank)
+                          shard_count=w.nodes, shard_index=w.node,
+                          local_count=w.local_size // mp, local_index=w.local_rank // mp)
 
     def _build_loaders(self):
         """(train, val, test) loaders as ``bbdm_tpu/runners/base.py:359-377``
@@ -273,14 +312,16 @@ class BaseRunner(ABC):
     def validation_step(self, val_batch, epoch, step):
         """The global batch's eval loss (every rank takes part)."""
         x, y = self._put_batch(val_batch)
-        loss = float(self._eval_step(self.state, x, y, self.train_generator))
+        with self.full_weights():
+            loss = float(self._eval_step(self.state, x, y, self.train_generator))
         if self.writer is not None:
             self.writer.add_scalar("loss/val_step", loss, step)
         return loss
 
     def validation_epoch(self, val_loader, epoch):
-        losses = [float(self._eval_step(self.state, *self._put_batch(b), self.train_generator))
-                  for b in val_loader]
+        with self.full_weights():
+            losses = [float(self._eval_step(self.state, *self._put_batch(b),
+                                            self.train_generator)) for b in val_loader]
         average_loss = sum(losses) / max(len(losses), 1)
         if self.writer is not None:
             self.writer.add_scalar("val_epoch/loss", average_loss, epoch)
@@ -318,6 +359,9 @@ class BaseRunner(ABC):
         training = self.config.training
         self.logger(f"start training {self.config.model.model_name} on "
                     f"{self.config.data.dataset_name}, {epoch_length} iters per epoch")
+        self.logger(f"mesh {{'data': {self.grid.data_size}, 'model': {self.grid.model_size}}}"
+                    f" | model_parallel={self.model_parallel}"
+                    f" | fsdp={'on (ZeRO-3 state layout)' if self.fsdp else 'off'}")
         train_step = self.build_train_step()
         self._eval_step = self.build_eval_step()
         sample_every = max(int(training.sample_interval * epoch_length), 1)
@@ -377,6 +421,8 @@ class BaseRunner(ABC):
 
         average_loss = float("nan")
         self.model.train()
+        anomaly = torch.is_anomaly_enabled()
+        torch.autograd.set_detect_anomaly(anomaly or bool(training.get("debug_nan", False)))
         try:
             for epoch in range(self.global_epoch, training.n_epochs):
                 if self.global_step > training.n_steps:
@@ -402,8 +448,9 @@ class BaseRunner(ABC):
                         self.validation_step(next_val_batch(), epoch, self.global_step)
                     if self.global_step % sample_every == 0:
                         val_batch = next_val_batch()  # every rank: the val iterators stay aligned
-                        if self.is_main:
-                            self.sample_step(train_batch, val_batch)
+                        with self.full_weights():
+                            if self.is_main:
+                                self.sample_step(train_batch, val_batch)
                     if poll_stop():
                         break
                 if pending_log is not None and self.writer is not None:
@@ -424,12 +471,15 @@ class BaseRunner(ABC):
                     if stop_reason is not None:
                         self.logger(f"graceful stop ({stop_reason}): saving latest checkpoint, "
                                     "then returning cleanly")
-                    if self.is_main:
-                        self.logger("saving latest checkpoint...")
-                        model_states, optim_states = self.get_checkpoint_states(
-                            stage="graceful_stop" if stop_reason is not None else "epoch_end")
-                        self._save_checkpoints(epoch, model_states, optim_states, average_loss)
-                        del model_states, optim_states
+                    with self.full_weights():
+                        if self.is_main:
+                            self.logger("saving latest checkpoint...")
+                            model_states, optim_states = self.get_checkpoint_states(
+                                stage="graceful_stop" if stop_reason is not None
+                                else "epoch_end")
+                            self._save_checkpoints(epoch, model_states, optim_states,
+                                                   average_loss)
+                            del model_states, optim_states
 
                 if stop_reason is not None:
                     if self.is_main and stop_file and os.path.exists(stop_file):
@@ -437,17 +487,20 @@ class BaseRunner(ABC):
                     break
         except BaseException as e:
             unwinding = True
-            if self.is_main:
-                self.logger("exception save model start....")
-                model_states, optim_states = self.get_checkpoint_states(stage="exception")
-                ckpt_path = self.config.result.ckpt_path
-                save_checkpoint(model_states, os.path.join(ckpt_path, "last_model.ckpt"))
-                save_checkpoint(optim_states, os.path.join(ckpt_path, "last_optim_sche.ckpt"))
-                self.logger("exception save model success!")
+            with self.full_weights():
+                if self.is_main:
+                    self.logger("exception save model start....")
+                    model_states, optim_states = self.get_checkpoint_states(stage="exception")
+                    ckpt_path = self.config.result.ckpt_path
+                    save_checkpoint(model_states, os.path.join(ckpt_path, "last_model.ckpt"))
+                    save_checkpoint(optim_states,
+                                    os.path.join(ckpt_path, "last_optim_sche.ckpt"))
+                    self.logger("exception save model success!")
             print(f"rank {self.world.rank} str(e):", str(e))
             traceback.print_exc()
             raise  # a non-zero exit for the supervisor
         finally:
+            torch.autograd.set_detect_anomaly(anomaly)
             if profiler is not None:
                 profiler.close(self.global_step, self.logger)
             if old_handler is not None:
@@ -459,18 +512,21 @@ class BaseRunner(ABC):
 
     def test(self):
         """``bbdm_tpu/runners/base.py:714-744``: every rank samples its rows of
-        the test set, or rank 0 writes the grids of its first batch."""
+        the test set (the node's model peers the same rows, model index 0
+        writing them), or rank 0 writes the grids of its first batch."""
         _, val_loader, test_loader = self._build_loaders()
         if len(test_loader) == 0:
             test_loader = val_loader
-        if self.config.args.sample_to_eval:
-            self.sample_to_eval(test_loader, self.config.result.sample_to_eval_path)
-        elif self.is_main:
-            with collectives.rank_local():
-                for i, test_batch in enumerate(test_loader):
-                    self.sample(test_batch, os.path.join(self.config.result.sample_path, str(i)),
-                                stage="test")
-                    break
+        with self.full_weights():
+            if self.config.args.sample_to_eval:
+                self.sample_to_eval(test_loader, self.config.result.sample_to_eval_path)
+            elif self.is_main:
+                with collectives.rank_local():
+                    for i, test_batch in enumerate(test_loader):
+                        self.sample(test_batch,
+                                    os.path.join(self.config.result.sample_path, str(i)),
+                                    stage="test")
+                        break
         collectives.barrier()
 
 

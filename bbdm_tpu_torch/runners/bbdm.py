@@ -249,12 +249,14 @@ class BBDMRunner(BaseRunner):
         (``bbdm_tpu/runners/bbdm.py:329-384``). The PNGs of a batch are encoded
         on one writer thread while the card samples the next batch; at most
         two batches wait for it. Data parallel, each rank samples and writes
-        its rows of each batch (the loader gives them)."""
+        its rows of each batch (the loader gives them); the ranks of a model
+        group sample the same rows, and model index 0 writes them."""
         condition_path, gt_path, result_path = self.shared_dirs(
             os.path.join(sample_path, "condition"), os.path.join(sample_path, "ground_truth"),
             os.path.join(sample_path, str(self.config.model.BB.params.sample_step)))
         to_normal = self.config.data.dataset_config.to_normal
         sample_num = self.config.testing.sample_num
+        writes = self.grid.model_index == 0
 
         def write(samples, x, x_cond, x_names, cond_names):
             for i in range(x.shape[0]):
@@ -275,6 +277,8 @@ class BBDMRunner(BaseRunner):
             try:
                 for batch in test_loader:
                     samples = self.sample_batch(batch["x_cond"])
+                    if not writes:
+                        continue
                     while len(pending) >= 2:
                         pending.popleft().result()
                     pending.append(writer.submit(

@@ -95,7 +95,9 @@ class VQGANRunner(BaseRunner):
         elif loss_cfg.get("perceptual_weight", 1.0) > 0:
             self.logger("no lpips_weights configured: training with pixel L1 only")
         step = make_vqgan_train_step(self.model.vqgan, self.model.discriminator, loss_cfg,
-                                     lpips=lpips)
+                                     lpips=lpips,
+                                     debug_nan=bool(self.config.training.get("debug_nan",
+                                                                             False)))
         return lambda state, x, y, generator=None: step(state, x, generator)
 
     def build_eval_step(self):
@@ -191,13 +193,16 @@ class VQGANRunner(BaseRunner):
 
     def sample_to_eval(self, test_loader, sample_path):
         """Reconstruct the test set (for rFID and reconstruction metrics); data
-        parallel, each rank its rows of each batch."""
+        parallel, each rank its rows of each batch, model index 0 writing
+        those of its model group."""
         rec_path, gt_path = self.shared_dirs(os.path.join(sample_path, "reconstruction"),
                                              os.path.join(sample_path, "ground_truth"))
         to_normal = self.config.data.dataset_config.to_normal
         for batch in test_loader:
             x = np.asarray(batch["x"])
             xrec = self.reconstruct(x)
+            if self.grid.model_index:
+                continue
             for i, name in enumerate(batch["x_name"]):
                 save_single_image(x[i], gt_path, f"{name}.png", to_normal=to_normal)
                 save_single_image(xrec[i], rec_path, f"{name}.png", to_normal=to_normal)

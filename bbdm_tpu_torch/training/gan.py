@@ -23,12 +23,24 @@ Data parallel (``parallel/``), as the JAX step under a data-parallel mesh: the
 two last-layer gradients d_weight divides are averaged over ranks before their
 norms, the discriminator's train-mode BatchNorm takes global statistics
 (``models/discriminator.py``), both players' gradients are averaged over ranks
-in one flat collective, and the returned losses are means over ranks.
+in one flat collective, and the returned losses are means over ranks (all
+over the data group of the grid, ``parallel/mesh.py``).
+
+Sharded (``state.sharding``, ``parallel/sharding.py``): both players' losses
+and gradients are taken on the step form of the leaves, each gradient is
+reduce-scattered over the data group to its shard, and the optimizers update
+the shards. A decoder whose last layer is split over the model axis would need
+d_weight's norms summed over the model group: it raises.
+
+``debug_nan``: the step raises FloatingPointError at the first non-finite
+global loss or averaged gradient, naming the step.
 """
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
+from typing import Optional
 
 import torch
 
@@ -40,7 +52,9 @@ from bbdm_tpu_torch.models.gan_losses import (
     vanilla_d_loss,
 )
 from bbdm_tpu_torch.parallel import collectives
+from bbdm_tpu_torch.parallel import tensor as tp
 from bbdm_tpu_torch.training.optim import Optimizer
+from bbdm_tpu_torch.training.step import _check_finite
 
 
 @dataclass
@@ -51,6 +65,7 @@ class GANTrainState:
     gen_opt: Optimizer
     disc_opt: Optimizer
     lr: torch.Tensor  # 0-d fp32 on the device, both players' learning rate
+    sharding: Optional[object] = None  # parallel.sharding.ShardedState, when sharded
 
 
 def make_vqgan_losses(vq_model, disc_model, loss_config, *, lpips=None):
@@ -85,6 +100,10 @@ def make_vqgan_losses(vq_model, disc_model, loss_config, *, lpips=None):
         g = -disc_model(xrec, train=False).mean()
         if adaptive:
             w_last = vq_model.decoder.conv_out.weight
+            if tp.is_shard(w_last, vq_model.decoder.conv_out.out_ch):
+                raise NotImplementedError(
+                    "the adaptive d_weight of a decoder whose last layer is split over the "
+                    "model axis (model_parallel dividing its output channels)")
             nll_grad, = torch.autograd.grad(nll, w_last, retain_graph=True)
             g_grad, = torch.autograd.grad(g, w_last, retain_graph=True)
             collectives.all_reduce_mean_([nll_grad, g_grad])
@@ -122,7 +141,7 @@ def _grads(loss, params: dict, who: str):
     return list(grads)
 
 
-def make_vqgan_train_step(vq_model, disc_model, loss_config, *, lpips=None):
+def make_vqgan_train_step(vq_model, disc_model, loss_config, *, lpips=None, debug_nan=False):
     """``train_step(state, x, generator=None, *, u=None) -> metrics`` (0-d
     tensors: loss, d_loss, nll, g_loss, q_loss, d_weight, and temperature for
     the Gumbel quantizer), updating ``state`` in place. ``u``: the Gumbel
@@ -134,18 +153,29 @@ def make_vqgan_train_step(vq_model, disc_model, loss_config, *, lpips=None):
     def train_step(state: GANTrainState, x, generator=None, *, u=None):
         step = state.step + 1
         temp = gumbel_temperature(loss_config, step)
-        g_total, aux = gen_loss_fn(x, step, temp=temp, u=u, generator=generator)
-        g_grads = _grads(g_total, state.gen_params, "generator")
-        d_total = disc_loss_fn(x, aux["xrec"].detach(), step)
-        d_grads = _grads(d_total, state.disc_params, "discriminator")
-        collectives.all_reduce_mean_(g_grads + d_grads)
+        sharding = state.sharding
+        with sharding.step_form() if sharding is not None else contextlib.nullcontext():
+            g_total, aux = gen_loss_fn(x, step, temp=temp, u=u, generator=generator)
+            g_grads = _grads(g_total, state.gen_params, "generator")
+            d_total = disc_loss_fn(x, aux["xrec"].detach(), step)
+            d_grads = _grads(d_total, state.disc_params, "discriminator")
+            grads = g_grads + d_grads
+            if sharding is not None:
+                grads = sharding.reduce([*state.gen_params.values(),
+                                         *state.disc_params.values()], grads)
+            else:
+                collectives.all_reduce_mean_(grads)
+        losses = collectives.mean(torch.stack([
+            g_total.detach(), d_total.detach(), aux["nll"].detach(),
+            aux["g_loss"].detach(), aux["q_loss"].detach()]))
+        if debug_nan:
+            _check_finite(step, "loss", [losses])
+            _check_finite(step, "averaged gradient", grads)
+        g_grads, d_grads = grads[:len(g_grads)], grads[len(g_grads):]
         state.gen_opt.update(g_grads, state.lr)
         state.disc_opt.update(d_grads, state.lr)
         state.step = step
         d_weight = aux["d_weight"]
-        losses = collectives.mean(torch.stack([
-            g_total.detach(), d_total.detach(), aux["nll"].detach(),
-            aux["g_loss"].detach(), aux["q_loss"].detach()]))
         metrics = dict(zip(("loss", "d_loss", "nll", "g_loss", "q_loss"), losses.unbind(0)))
         metrics["d_weight"] = d_weight if torch.is_tensor(d_weight) \
             else torch.tensor(d_weight, dtype=torch.float32, device=x.device)

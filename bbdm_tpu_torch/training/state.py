@@ -24,3 +24,4 @@ class TrainState:
     optimizer: Optimizer
     plateau: PlateauState
     latent_stats: Optional[dict] = None  # LBBDM normalize_latent stats, [1, C, 1, 1]
+    sharding: Optional[object] = None  # parallel.sharding.ShardedState, when sharded

@@ -130,7 +130,24 @@ Phases, each of which must pass:
    rank (``BBDM_MULTIHOST``): the checkpoint files and keys of the same run
    without a process group, the kernels launched; (e) that plain run's
    ``training.profile_dir`` chrome trace of one microbatch: it names K1 and
-   K3, and its device total and top device kernels are printed.
+   K3, and its device total and top device kernels are printed;
+11. FSDP and tensor parallelism (``training.fsdp``, ``training.model_parallel``;
+   ``parallel/{mesh,sharding,tensor}.py``), 2 gloo ranks sharing card 0
+   against 1 rank and 1 rank in fp32 through the twins, from seeded random
+   weights: (a) ``Template-LBBDM-f4.yaml`` training with ``fsdp`` on a 2 x 1
+   grid (node batch 8, ``accumulate_grad_batches`` 2, 4 microbatches), then
+   the checkpoint written as ``train()`` writes it; (b) the same with
+   ``model_parallel: 2`` on a 1 x 2 grid (each rank all 8 rows, the
+   column-parallel convolutions gathering their channels); each rank's
+   K1/K2/K3 launches equal :func:`kernel_calls`' counts, losses and lr as 1
+   rank's, the losses and parameters no farther from 1 rank's than twice the
+   fp32 run's distance; seconds per update and the collectives' seconds in it,
+   each rank's train-state bytes (at most 0.55 of one rank's under ``fsdp``),
+   ``memory_allocated`` and peak; (c) ``Template-VQGAN-f4.yaml`` in fp32, 2
+   steps under ``fsdp`` and 1 step under ``model_parallel: 2`` at node batch 2,
+   each against 1 rank with its codes pinned, with phase 10 (c)'s bars; (d)
+   ``--sample_to_eval`` of 8 pairs from (a)'s checkpoint on the 1 x 2 grid
+   against 1 rank and the fp32 run, phase 10 (b)'s rule.
 
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
@@ -2374,23 +2391,27 @@ def dp_sample_job(rank, ranks, dev, path, out, fp32=False):
                                     "tree": runner.config.result.sample_to_eval_path})
 
 
-def dp_vqgan_job(rank, ranks, dev, path, out):
-    """Phase 10 (c) on one rank: ``DP_VQ_STEPS`` VQGAN-f4 steps (fp32) over this
-    rank's rows, with the first step's gradients as the optimizers get them
-    (averaged over ranks); the codes the one-rank run picks are recorded there
-    and pinned here (a near tie broken the other way moves a step far beyond
-    rounding: phase 7), counting the codes this rank would pick otherwise."""
+def dp_vqgan_job(rank, ranks, dev, path, out, tag="vqgan", steps=DP_VQ_STEPS):
+    """Phase 10 (c) on one rank (and phase 11 (c) under ``tag``): ``steps``
+    VQGAN-f4 steps (fp32) over this rank's rows, with the first step's
+    gradients as the optimizers get them (averaged over ranks; where the state
+    is sharded, its reduced shards gathered whole); the codes the one-rank run
+    picks are recorded there and pinned here (a near tie broken the other way
+    moves a step far beyond rounding: phase 7), counting the codes this rank
+    would pick otherwise."""
     from bbdm_tpu_torch.parallel import collectives
     from bbdm_tpu_torch.parallel.collectives import local_rows
+    from bbdm_tpu_torch.parallel.mesh import grid
     from bbdm_tpu_torch.runners.vqgan import VQGANRunner
 
-    runner = dp_runner(VQGANRunner, path, dev, os.path.join(out, f"vqgan-{ranks}"), "--train")
+    runner = dp_runner(VQGANRunner, path, dev, os.path.join(out, f"{tag}-{ranks}"), "--train")
     loader = runner._build_loaders()[0]
     step = runner.build_train_step()
     quantize = runner.model.vqgan.quantize
-    codes_path = os.path.join(out, "vqgan_codes.pt")
+    codes_path = os.path.join(out, f"{tag}_codes.pt")
     pinned = torch.load(codes_path) if ranks > 1 else None
     codes, flips = [], [0]
+    g = grid()
 
     def pin(nearest):
         def chosen(z):
@@ -2399,7 +2420,8 @@ def dp_vqgan_job(rank, ranks, dev, path, out):
                 codes.append(mine.cpu())
                 return mine
             theirs = pinned[len(codes)]
-            theirs = theirs[local_rows(theirs.shape[0], rank, ranks)].to(mine.device)
+            theirs = theirs[local_rows(theirs.shape[0], g.data_index, g.data_size)] \
+                .to(mine.device)
             codes.append(theirs)
             flips[0] += int((mine != theirs).sum())
             return theirs
@@ -2408,8 +2430,9 @@ def dp_vqgan_job(rank, ranks, dev, path, out):
     flat = lambda ts: torch.cat([t.detach().flatten() for t in ts]).cpu()
     model = runner.model
     n_gen = len(list(model.vqgan.parameters()))
-    before = {"vqgan": flat(model.vqgan.parameters()),
-              "discriminator": flat(model.discriminator.parameters())}
+    with runner.full_weights():
+        before = {"vqgan": flat(model.vqgan.parameters()),
+                  "discriminator": flat(model.discriminator.parameters())}
     grads = {}
 
     def first_grads(reduce):
@@ -2419,23 +2442,38 @@ def dp_vqgan_job(rank, ranks, dev, path, out):
                 grads.update(vqgan=flat(tensors[:n_gen]), discriminator=flat(tensors[n_gen:]))
         return wrapped
 
+    sharding = runner.state.sharding
+
+    def first_shards(reduce):
+        """The sharded step's reduced gradients, the first step's gathered whole."""
+        def wrapped(params, tensors):
+            out = reduce(params, tensors)
+            if not grads:
+                whole = sharding.whole(params, out)
+                grads.update(vqgan=flat(whole[:n_gen]), discriminator=flat(whole[n_gen:]))
+            return out
+        return wrapped
+
     model.train()
     metrics = []
     kernel_launches(reset=True)
     with patched(quantize, "nearest", pin), \
-            patched(collectives, "all_reduce_mean_", first_grads):
-        for _, batch in zip(range(DP_VQ_STEPS), loader):
+            (patched(collectives, "all_reduce_mean_", first_grads) if sharding is None
+             else patched(sharding, "reduce", first_shards)):
+        for _, batch in zip(range(steps), loader):
             x, _ = runner._put_batch(batch)
             m = step(runner.state, x, x, runner.train_generator)
             metrics.append({k: float(v) for k, v in m.items()})
     if pinned is None:
         torch.save(codes, codes_path)
-    dp_dump(out, "vqgan", rank, ranks, {
-        "launches": kernel_launches(), "metrics": metrics, "code_flips": flips[0],
-        "before": before, "grads": grads,
-        "after": {"vqgan": flat(model.vqgan.parameters()),
-                  "discriminator": flat(model.discriminator.parameters())},
-        "stats": {k: b.detach().cpu() for k, b in model.discriminator.named_buffers()}})
+    launches = kernel_launches()
+    with runner.full_weights():
+        dp_dump(out, tag, rank, ranks, {
+            "launches": launches, "metrics": metrics, "code_flips": flips[0],
+            "before": before, "grads": grads, "rows": int(x.shape[0]),
+            "after": {"vqgan": flat(model.vqgan.parameters()),
+                      "discriminator": flat(model.discriminator.parameters())},
+            "stats": {k: b.detach().cpu() for k, b in model.discriminator.named_buffers()}})
 
 
 def trace_kernels(path, top=8):
@@ -2509,12 +2547,32 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
         if any(g != want for g in got):
             raise AssertionError(f"{what}: launches {got} != {want}")
 
-    # (a) LBBDM-f4 training: 1 rank, 1 rank in fp32 through the twins, 2 ranks
+    # the one-rank runs of (a)-(c) (1 rank, and 1 rank in fp32 through the
+    # twins for (a) and (b)), then one spawn of 2 ranks running (a)-(c) in turn
     t0 = time.time()
     dp_train_job(0, 1, dev, path, work)
     dp_train_job(0, 1, dev, path, work, fp32=True)
+    dp_sample_job(0, 1, dev, path, work)
+    dp_sample_job(0, 1, dev, path, work, fp32=True)
+    vcfg = configs["vqgan"] if configs else load("VQGAN-f4")
+    vdata = os.path.join(work, "data-vqgan")
+    vbs = vcfg.data.train.batch_size
+    write_single_dataset(vdata, vcfg.data.dataset_config.image_size,
+                         (DP_VQ_STEPS * vbs, vbs, vbs), seed=14)
+    vcfg.data.dataset_config.dataset_path = vdata
+    vcfg.data.dataset_config.flip = False
+    vcfg.model.loss.disc_start, vcfg.model.loss.perceptual_weight = 0, 0.0
+    vcfg.model.loss.lpips_weights = None
+    vpath = os.path.join(work, "vqgan.yaml")
+    save_config(vcfg, vpath)
+    dp_vqgan_job(0, 1, dev, vpath, work)
     torch.cuda.empty_cache()
-    spawn_ranks(dev, dp_train_job, (path, work), setup)
+    t1 = time.time()
+    spawn_ranks(dev, sh_jobs, ([(dp_train_job, (path, work)), (dp_sample_job, (path, work)),
+                                (dp_vqgan_job, (vpath, work))],), setup)
+    out["wall_s"] = {"one_rank_runs": t1 - t0, "spawn": time.time() - t1}
+
+    # (a) LBBDM-f4 training: 1 rank, 1 rank in fp32 through the twins, 2 ranks
     (one, one_r), (f32, _), (two, two_r) = (read(n, r) for n, r in (
         ("train", 1), ("train-fp32", 1), ("train", DP_RANKS)))
     want = expected_launches(calls, microbatches=micro)
@@ -2538,8 +2596,7 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
                                                   zip(two["losses"], one["losses"])),
                           "fp32_vs_1": max(abs(p - q) for p, q in
                                            zip(f32["losses"], one["losses"]))},
-         "wall_s": time.time() - t0}
-    a["launches"] = two_r[0]["launches"]
+         "launches": two_r[0]["launches"]}
     out["train"] = a
     log(f"  (a) LBBDM-f4 train, {micro} microbatches ({micro // acc} updates) at node batch "
         f"{bs}: s per update 1 rank {a['s_per_update']['1']:.3f}, {DP_RANKS} ranks on one card "
@@ -2553,14 +2610,9 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
             raise AssertionError(f"(a): {k} of {DP_RANKS} ranks against 1 beyond twice bf16's "
                                  "distance from fp32")
     del one, two, f32, d_two, d_f32, update
-    log(f"  (a): ok ({time.time() - t0:.1f} s)")
+    log("  (a): ok")
 
     # (b) --sample_to_eval of the test pairs: 1 rank, 1 rank fp32 twins, 2 ranks
-    t0 = time.time()
-    dp_sample_job(0, 1, dev, path, work)
-    dp_sample_job(0, 1, dev, path, work, fp32=True)
-    torch.cuda.empty_cache()
-    spawn_ranks(dev, dp_sample_job, (path, work), setup)
     trees = {k: read_pngs(read(n, r)[0]["tree"]) for k, (n, r) in {
         "1": ("sample", 1), "fp32": ("sample-fp32", 1), "2": ("sample", DP_RANKS)}.items()}
     want = expected_launches(calls, steps=SAMPLE_STEP, draws=1,
@@ -2581,7 +2633,7 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
                              "fp32_vs_1": float((diff("fp32") > 0).mean())},
          "inputs_equal": all(np.array_equal(trees["2"][p], trees["1"][p]) for p in trees["1"]
                              if not p.startswith(str(SAMPLE_STEP))),
-         "launches": read("sample", DP_RANKS)[1][0]["launches"], "wall_s": time.time() - t0}
+         "launches": read("sample", DP_RANKS)[1][0]["launches"]}
     out["sample_to_eval"] = b
     log(f"  (b) sample_to_eval, {n_test} pairs: samples of {DP_RANKS} ranks against 1 rank, "
         "in uint8 codes, beside bf16 against fp32 (1 rank): " + json.dumps(b))
@@ -2591,21 +2643,6 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
                              "mean distance from fp32, or the copied inputs differ")
 
     # (c) VQGAN-f4 training in fp32: 1 rank, 2 ranks, the codes pinned
-    t0 = time.time()
-    vcfg = configs["vqgan"] if configs else load("VQGAN-f4")
-    vdata = os.path.join(work, "data-vqgan")
-    vbs = vcfg.data.train.batch_size
-    write_single_dataset(vdata, vcfg.data.dataset_config.image_size,
-                         (DP_VQ_STEPS * vbs, vbs, vbs), seed=14)
-    vcfg.data.dataset_config.dataset_path = vdata
-    vcfg.data.dataset_config.flip = False
-    vcfg.model.loss.disc_start, vcfg.model.loss.perceptual_weight = 0, 0.0
-    vcfg.model.loss.lpips_weights = None
-    vpath = os.path.join(work, "vqgan.yaml")
-    save_config(vcfg, vpath)
-    dp_vqgan_job(0, 1, dev, vpath, work)
-    torch.cuda.empty_cache()
-    spawn_ranks(dev, dp_vqgan_job, (vpath, work), setup)
     (one, one_r), (two, two_r) = read("vqgan", 1), read("vqgan", DP_RANKS)
     check_launches(f"(c) VQGAN train, {DP_RANKS} ranks (each as 1 rank)", two_r,
                    one_r[0]["launches"])
@@ -2627,7 +2664,7 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
                                     / vlr for n in players},
          "code_flips": [r["code_flips"] for r in two_r],
          "codes": DP_VQ_STEPS * vbs * (vcfg.data.dataset_config.image_size // 4) ** 2,
-         "launches": two_r[0]["launches"], "wall_s": time.time() - t0}
+         "launches": two_r[0]["launches"]}
     c["bars"] = {"loss": bars["gen_loss"], "d_loss": bars["disc_grad"],
                  "d_weight": bars["gen_grad"], "bn_stats": bars["disc_grad"],
                  "vqgan": bars["gen_grad"], "discriminator": bars["disc_grad"],
@@ -2725,6 +2762,339 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
         + json.dumps(every[:8]))
     if dev.type == "cuda" and not all(c > 0 for _, c in ours.values()):
         raise AssertionError(f"(e): the trace does not name K1 and K3: {ours}")
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
+# ------------------------------------------------------- FSDP and tensor parallel
+
+SH_MICRO, SH_ACC, SH_TP_MICRO, SH_TP_VQ_BATCH = 4, 2, 2, 2
+
+
+def state_bytes(runner) -> int:
+    """The bytes of the train state this rank keeps between steps: parameters
+    (the frozen VQGAN's too) and BatchNorm statistics, the optimizers'
+    moments, the EMA and the gradient accumulator (``.grad`` unsharded)."""
+    s = runner.state
+    if s.sharding is not None:
+        return s.sharding.persistent_bytes()
+    params = sum(p.nbytes for p in runner.model.parameters())
+    moments = sum(t.nbytes for v in s.optimizer.state.values() if isinstance(v, list) for t in v)
+    ema = sum(t.nbytes for t in s.ema.values()) if s.ema else 0
+    grads = sum(p.grad.nbytes for p in s.optimizer.params if p.grad is not None)
+    return params + moments + ema + grads
+
+
+def timed_collectives():
+    """(context that times every collective of ``parallel.collectives`` with
+    the card synchronised around it, [seconds so far])."""
+    from bbdm_tpu_torch.parallel import collectives
+
+    spent = [0.0]
+
+    def timed(fn):
+        def wrapped(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spent[0] += time.perf_counter() - t0
+            return out
+        return wrapped
+
+    stack = contextlib.ExitStack()
+    for name in ("all_gather", "reduce_scatter_mean", "all_reduce_sum", "all_reduce_mean_",
+                 "mean"):
+        stack.enter_context(patched(collectives, name, timed))
+    return stack, spent
+
+
+def sh_train_job(rank, ranks, dev, path, out, tag, micro=SH_MICRO, fp32=False):
+    """Phase 11 (a), (b) on one rank: ``micro`` microbatches of the LBBDM-f4
+    train step (``SH_ACC`` per update) on this rank's shards and rows; the
+    kernels' launches, seconds per update and the collectives' seconds in it,
+    the state's bytes and ``memory_allocated`` after the first microbatch (an
+    update accumulating), the peak over the updates, the trainable parameters
+    gathered after each update (outside the timing and the peak); under FSDP
+    then ``last_model.ckpt`` and ``last_optim_sche.ckpt`` as ``train()`` writes
+    them (every rank gathers, rank 0 writes; (d) samples from them). ``fp32``:
+    the fp32 model through the plain twins."""
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+
+    name = f"{tag}-fp32" if fp32 else tag
+    runner = dp_runner(BBDMRunner, path, dev, os.path.join(out, f"{name}-{ranks}"), "--train",
+                       fp32)
+    loader = runner._build_loaders()[0]
+    step = runner.build_train_step()
+    flat = lambda: torch.cat([p.detach().float().flatten()
+                              for p in runner.state.params.values()]).cpu()
+    updates, coll, losses, lrs, kept, after, peak = [], [], [], [], {}, [], 0
+    runner.model.train()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stack, spent = timed_collectives()
+    kernel_launches(reset=True)
+    with stack, plain_ops() if fp32 else contextlib.nullcontext():
+        t0 = time.perf_counter()
+        for _, batch in zip(range(micro), loader):
+            x, y = runner._put_batch(batch)
+            m = step(runner.state, x, y, runner.train_generator)
+            losses.append(float(m["loss"]))
+            lrs.append(float(m["lr"]))
+            if not kept:
+                torch.cuda.synchronize()
+                kept = {"state_bytes": state_bytes(runner),
+                        "memory_allocated": torch.cuda.memory_allocated()}
+            if runner.state.step % SH_ACC == 0:
+                torch.cuda.synchronize()
+                updates.append(time.perf_counter() - t0)
+                coll.append(spent[0])
+                peak = max(peak, torch.cuda.max_memory_allocated())
+                with runner.full_weights():  # outside the timing and the peak
+                    after.append(flat())
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0, spent[0] = time.perf_counter(), 0.0
+    launches = kernel_launches()
+    if tag == "fsdp":  # (d) samples from it
+        from bbdm_tpu_torch.checkpoints.io import save_checkpoint
+
+        with runner.full_weights():
+            if runner.is_main:
+                ckpt = runner.config.result.ckpt_path
+                for name_, states in zip(("last_model.ckpt", "last_optim_sche.ckpt"),
+                                         runner.get_checkpoint_states()):
+                    save_checkpoint(states, os.path.join(ckpt, name_))
+                del states
+    dp_dump(out, name, rank, ranks, {
+        "launches": launches, "losses": losses, "lrs": lrs, "rows": int(x.shape[0]),
+        "grid": [runner.grid.data_size, runner.grid.model_size], "s_per_update": updates[-1],
+        "collective_s_per_update": coll[-1], "peak_memory": peak, **kept,
+        "ckpt": runner.config.result.ckpt_path, "after": tuple(after)})
+
+
+def sh_jobs(rank, ranks, dev, jobs):
+    """Every 2-rank run of a phase (10 or 11) in one spawn: ``job(rank, ranks,
+    dev, *args)`` for each (job, args) in turn; each runner makes its grid."""
+    for job, args in jobs:
+        job(rank, ranks, dev, *args)
+        torch.cuda.empty_cache()
+
+
+def sharding_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
+    """Phase 11 (see the module docstring): (a)-(d). ``configs`` ({"lbbdm",
+    "vqgan"} ConfigNodes) and ``setup`` let a CPU rehearsal pass tiny models
+    and its stubs to the spawned ranks. The one-rank runs come first, then one
+    spawn of 2 ranks runs (a)-(d) in turn. Returns the phase's numbers."""
+    import shutil
+
+    import numpy as np
+
+    from bbdm_tpu_torch.config import load_config, save_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    load = lambda n: load_config(os.path.join(here, "configs", f"Template-{n}.yaml"))
+    cfg = configs["lbbdm"] if configs else load("LBBDM-f4")
+    size = cfg.data.dataset_config.image_size
+    work = os.path.join(root, "sharding")
+    data = os.path.join(work, "data")
+    n_train, n_val, n_test = pairs
+    write_dataset(data, size, n_test, seed=13, train=n_train, val=n_val)
+    cfg.data.dataset_config.dataset_path = data
+    cfg.model.VQGAN.params.ckpt_path = None  # seeded random, the same on every rank
+    cfg.model.BB.params.sample_step = SAMPLE_STEP
+    cfg.testing.sample_num = 1
+    cfg.training.accumulate_grad_batches = SH_ACC
+    paths = {}
+    for tag, (fsdp, mp) in (("one", (False, 1)), ("fsdp", (True, 1)), ("tp", (False, 2))):
+        cfg.training.fsdp, cfg.training.model_parallel = fsdp, mp
+        paths[tag] = os.path.join(work, f"lbbdm-{tag}.yaml")
+        save_config(cfg, paths[tag])
+    # (d) samples from the checkpoint (a) writes
+    ckpt = os.path.join(work, f"fsdp-{DP_RANKS}", cfg.data.dataset_name, cfg.model.model_name,
+                        "checkpoint", "last_model.ckpt")
+    spaths = {}
+    for tag in ("one", "tp"):
+        scfg = load_config(paths[tag])
+        scfg.model.model_load_path = ckpt
+        spaths[tag] = os.path.join(work, f"sample-{tag}.yaml")
+        save_config(scfg, spaths[tag])
+    vcfg = configs["vqgan"] if configs else load("VQGAN-f4")
+    vdata = os.path.join(work, "data-vqgan")
+    vbs = vcfg.data.train.batch_size
+    write_single_dataset(vdata, vcfg.data.dataset_config.image_size,
+                         (DP_VQ_STEPS * vbs, vbs, vbs), seed=14)
+    vcfg.data.dataset_config.dataset_path = vdata
+    vcfg.data.dataset_config.flip = False
+    vcfg.model.loss.disc_start, vcfg.model.loss.perceptual_weight = 0, 0.0
+    vcfg.model.loss.lpips_weights = None
+    vruns = {"fsdp": ((True, 1), DP_VQ_STEPS), "tp": ((False, 2), 1)}
+    vpaths = {}
+    for tag, (sharded, _) in vruns.items():
+        if tag == "tp":
+            for split in ("train", "val", "test"):
+                vcfg.data[split].batch_size = SH_TP_VQ_BATCH
+        for ranks, (fsdp, mp) in ((1, (False, 1)), (DP_RANKS, sharded)):
+            vcfg.training.fsdp, vcfg.training.model_parallel = fsdp, mp
+            vpaths[tag, ranks] = os.path.join(work, f"vqgan-{tag}-{ranks}.yaml")
+            save_config(vcfg, vpaths[tag, ranks])
+    bs = cfg.data.train.batch_size
+    log("reduced: " + json.dumps({
+        "phase": "11 (a, b, d)", "microbatches": {"fsdp": SH_MICRO, "tp": SH_TP_MICRO},
+        "accumulate_grad_batches": {"template": 4, "run": SH_ACC},
+        "train/val/test pairs": list(pairs), "sample_step": {"template": 200, "run": SAMPLE_STEP},
+        "sample_num": {"template": 5, "run": 1}, "weights": "random (seed), VQGAN too",
+        "ranks": f"1 and {DP_RANKS} on card 0 (gloo)"}))
+    out = {}
+
+    def read(name, ranks):
+        per_rank = []
+        for r in range(ranks):
+            with open(os.path.join(work, f"{name}_rank{r}_of{ranks}.json")) as f:
+                per_rank.append(json.load(f))
+        return torch.load(os.path.join(work, f"{name}_of{ranks}.pt")), per_rank
+
+    def check_launches(what, per_rank, want):
+        got = [r["launches"] for r in per_rank]
+        log(f"  {what}: launches per rank {got}, derived from the code {want}")
+        if any(g != want for g in got):
+            raise AssertionError(f"{what}: launches {got} != {want}")
+
+    # the one-rank runs, then one spawn of every 2-rank run, then (d)'s one-rank samples
+    t0 = time.time()
+    sh_train_job(0, 1, dev, paths["one"], work, "one")
+    sh_train_job(0, 1, dev, paths["one"], work, "one", fp32=True)
+    for tag, (_, steps) in vruns.items():
+        dp_vqgan_job(0, 1, dev, vpaths[tag, 1], work, f"vqgan-{tag}", steps)
+    torch.cuda.empty_cache()
+    t1 = time.time()
+    spawn_ranks(dev, sh_jobs, ([
+        (sh_train_job, (paths["fsdp"], work, "fsdp", SH_MICRO)),
+        (sh_train_job, (paths["tp"], work, "tp", SH_TP_MICRO)),
+        *((dp_vqgan_job, (vpaths[tag, DP_RANKS], work, f"vqgan-{tag}", steps))
+          for tag, (_, steps) in vruns.items()),
+        (dp_sample_job, (spaths["tp"], work))],), setup)
+    t2 = time.time()
+    dp_sample_job(0, 1, dev, spaths["one"], work)
+    dp_sample_job(0, 1, dev, spaths["one"], work, fp32=True)
+    out["wall_s"] = {"one_rank_runs": t1 - t0, "spawn": t2 - t1, "one_rank_samples":
+                     time.time() - t2}
+
+    # (a) FSDP and (b) tensor parallelism, against 1 rank and 1 rank in fp32
+    (one, one_r), (f32, _) = read("one", 1), read("one-fp32", 1)
+    ab = {"1": {k: one_r[0][k] for k in ("s_per_update", "state_bytes", "memory_allocated",
+                                          "peak_memory")}}
+    for tag, part, micro in (("fsdp", "a", SH_MICRO), ("tp", "b", SH_TP_MICRO)):
+        n = micro // SH_ACC - 1  # the last update's parameters
+        ref = {"loss_max_abs": max(abs(p - q) for p, q in
+                                   zip(f32["losses"][:micro], one["losses"][:micro])),
+               "param_max_abs": float((f32["after"][n] - one["after"][n]).abs().max())}
+        two, two_r = read(tag, DP_RANKS)
+        rows = two_r[0]["rows"]
+        check_launches(f"({part}) {tag} train", two_r,
+                       expected_launches(kernel_calls(cfg.model, rows), microbatches=micro))
+        r = {"grid": two_r[0]["grid"], "rows_per_rank": rows, "microbatches": micro,
+             "s_per_update": [x["s_per_update"] for x in two_r],
+             "collective_s_per_update": [x["collective_s_per_update"] for x in two_r],
+             "state_bytes": [x["state_bytes"] for x in two_r],
+             "state_share": [x["state_bytes"] / one_r[0]["state_bytes"] for x in two_r],
+             "memory_allocated": [x["memory_allocated"] for x in two_r],
+             "peak_memory": [x["peak_memory"] for x in two_r],
+             "loss_max_abs": max(abs(p - q) for p, q in zip(two["losses"], one["losses"])),
+             "param_max_abs": float((two["after"][n] - one["after"][n]).abs().max()),
+             "fp32_vs_1": ref, "launches": two_r[0]["launches"]}
+        ab[tag] = r
+        log(f"  ({part}) LBBDM-f4 train under {tag} on a {r['grid'][0]} x {r['grid'][1]} grid, "
+            f"{micro} microbatches at node batch {bs}: " + json.dumps(r)
+            + f"; 1 rank {json.dumps(ab['1'])}")
+        if two["lrs"] != one["lrs"][:micro] or \
+                [x["losses"] for x in two_r] != [two["losses"]] * DP_RANKS:
+            raise AssertionError(f"({part}): lr differs from 1 rank, or the ranks' losses differ")
+        for k in ("loss_max_abs", "param_max_abs"):
+            if r[k] > 2 * ref[k]:
+                raise AssertionError(f"({part}): {k} against 1 rank beyond twice bf16's "
+                                     "distance from fp32")
+        if tag == "fsdp" and max(r["state_share"]) > 0.55:
+            raise AssertionError(f"(a): a rank keeps {r['state_share']} of one rank's state")
+    out["train"] = ab
+    del one, f32, two
+
+    # (c) VQGAN-f4 in fp32: 2 steps under FSDP; 1 step under tensor
+    # parallelism at node batch SH_TP_VQ_BATCH; each against 1 rank, codes pinned
+    bars = VQ_STEP_BARS["norm_rel"]
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+    norm_rel = lambda a, b: float((a - b).norm() / b.norm())
+    vlr = float(vcfg.model.optimizer.lr)
+    players = ("vqgan", "discriminator")
+    c = {}
+    for tag, (_, steps) in vruns.items():
+        name = f"vqgan-{tag}"
+        (one, one_r), (two, two_r) = read(name, 1), read(name, DP_RANKS)
+        check_launches(f"(c) VQGAN train under {tag}, {DP_RANKS} ranks (each as 1 rank)",
+                       two_r, one_r[0]["launches"])
+        r = {"steps": steps, "node_batch": one_r[0]["rows"], "rows_per_rank": two_r[0]["rows"],
+             "metrics_rel": {k: max(rel(p[k], q[k]) for p, q in
+                                    zip(two["metrics"], one["metrics"]))
+                             for k in ("loss", "d_loss", "d_weight")},
+             "bn_stats_norm_rel": max(norm_rel(two["stats"][k], one["stats"][k])
+                                      for k in one["stats"]),
+             "grad_norm_rel": {n: norm_rel(two["grads"][n], one["grads"][n]) for n in players},
+             "params_beyond_lr_10": {n: float(((two["after"][n] - one["after"][n]).abs()
+                                               > vlr / 10).float().mean()) for n in players},
+             "params_max_abs_over_lr": {n: float((two["after"][n] - one["after"][n]).abs()
+                                                 .max()) / vlr for n in players},
+             "code_flips": [x["code_flips"] for x in two_r], "launches": two_r[0]["launches"]}
+        # Adam's first update from zero moments is lr * g / (|g| + eps): a
+        # gradient within rounding of 0 moves its element anywhere in
+        # [-lr, lr], so the parameters are held to 2 lr a step (and fp32's
+        # rounding of it), the gradients to phase 7's bars
+        r["bars"] = {"loss": bars["gen_loss"], "d_loss": bars["disc_grad"],
+                     "d_weight": bars["gen_grad"], "bn_stats": bars["disc_grad"],
+                     "vqgan": bars["gen_grad"], "discriminator": bars["disc_grad"],
+                     "params_max_abs_over_lr": 2 * steps * (1 + 1e-4)}
+        c[tag] = r
+        log(f"  (c) VQGAN-f4 train under {tag}, {steps} step(s) at node batch "
+            f"{r['node_batch']}, {DP_RANKS} ranks against 1: " + json.dumps(r))
+        over = [k for k in ("loss", "d_loss", "d_weight") if r["metrics_rel"][k] > r["bars"][k]]
+        over += ["bn_stats"] * (r["bn_stats_norm_rel"] > r["bars"]["bn_stats"])
+        over += [f"{n} gradient" for n in players if r["grad_norm_rel"][n] > r["bars"][n]]
+        over += [f"{n} params_max_abs_over_lr" for n in players
+                 if r["params_max_abs_over_lr"][n] > r["bars"]["params_max_abs_over_lr"]]
+        if over:
+            raise AssertionError(f"(c) {tag}: {over} beyond their bars")
+    out["vqgan_train"] = c
+
+    # (d) --sample_to_eval of the test pairs from (a)'s checkpoint: 2 ranks on
+    # the 1 x 2 grid (both sample every row, model index 0 writes) against 1
+    # rank, and 1 rank in fp32 through the twins
+    trees = {k: read_pngs(read(n, r)[0]["tree"]) for k, (n, r) in {
+        "1": ("sample", 1), "fp32": ("sample-fp32", 1), "2": ("sample", DP_RANKS)}.items()}
+    want = expected_launches(kernel_calls(cfg.model, cfg.data.test.batch_size),
+                             steps=SAMPLE_STEP, draws=1,
+                             batches=n_test // cfg.data.test.batch_size)
+    for ranks in (1, DP_RANKS):
+        check_launches(f"(d) sample_to_eval, {ranks} rank(s)", read("sample", ranks)[1], want)
+    names = [f"{i:04d}" for i in range(n_test)]
+    check_tree(read("sample", DP_RANKS)[0]["tree"], names, names, SAMPLE_STEP, 1, size)
+    if sorted(trees["2"]) != sorted(trees["1"]):
+        raise AssertionError("(d): the trees hold other files")
+    diff = lambda k: np.stack([np.abs(trees[k][p].astype(int) - trees["1"][p])
+                               for p in sorted(trees["1"]) if p.startswith(str(SAMPLE_STEP))])
+    d = {"codes_max": {f"{DP_RANKS}_vs_1": int(diff("2").max()),
+                       "fp32_vs_1": int(diff("fp32").max())},
+         "codes_mean": {f"{DP_RANKS}_vs_1": float(diff("2").mean()),
+                        "fp32_vs_1": float(diff("fp32").mean())},
+         "inputs_equal": all(np.array_equal(trees["2"][p], trees["1"][p]) for p in trees["1"]
+                             if not p.startswith(str(SAMPLE_STEP))),
+         "launches": read("sample", DP_RANKS)[1][0]["launches"]}
+    out["sample_to_eval"] = d
+    log(f"  (d) sample_to_eval of (a)'s checkpoint, {n_test} pairs, {DP_RANKS} ranks on a "
+        "1 x 2 grid against 1 rank, in uint8 codes, beside bf16 against fp32: " + json.dumps(d))
+    if not d["inputs_equal"] or d["codes_mean"][f"{DP_RANKS}_vs_1"] > \
+            2 * d["codes_mean"]["fp32_vs_1"]:
+        raise AssertionError("(d): the samples differ from 1 rank's by more than twice bf16's "
+                             "mean distance from fp32, or the copied inputs differ")
+    log("  wall s: " + json.dumps(out["wall_s"]))
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -2889,11 +3259,28 @@ def main() -> int:
             traceback.print_exc()
             failed.append("data parallel")
             dp = {}
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            sh = sharding_phase(dev, root)
+            for e in entries:
+                k = short[e["name"]]
+                e["launches_by_path"].update({
+                    "fsdp_train_per_rank": sh["train"]["fsdp"]["launches"][k],
+                    "tp_train_per_rank": sh["train"]["tp"]["launches"][k],
+                    "fsdp_vqgan_train_per_rank": sh["vqgan_train"]["fsdp"]["launches"][k],
+                    "tp_vqgan_train_per_rank": sh["vqgan_train"]["tp"]["launches"][k],
+                    "tp_sample_to_eval_per_rank": sh["sample_to_eval"]["launches"][k]})
+            log(f"fsdp and tensor parallel: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("fsdp and tensor parallel")
+            sh = {}
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
                     "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
                     "evaluation": evaluation, "latent_paths": paths, "parallel": dp,
-                    "card": card}))
+                    "sharding": sh, "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

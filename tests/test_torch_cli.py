@@ -159,11 +159,69 @@ def test_profile_dir_writes_a_trace(setup):
     assert any("conv" in n for n in names) and any("backward" in n.lower() for n in names)
 
 
+def train_variant(setup, name, **training):
+    return main_torch.main(["-c", variant(setup, name, **training), "--train", "--gpu_ids", "-1",
+                            "-r", str(setup / name)])
+
+
 @pytest.mark.parametrize("key,value", [("model_parallel", 2), ("fsdp", True)])
-def test_sharded_training_raises(setup, key, value):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.md §1 item 6"):
-        main_torch.main(["-c", variant(setup, key, **{key: value}), "--train", "--gpu_ids", "-1",
-                         "-r", str(setup / "train")])
+def test_sharded_training_on_one_rank(setup, key, value):
+    """``model_parallel`` 2 on one rank raises ValueError naming 1 and 2, as
+    JAX's ``make_mesh`` does over one device; ``fsdp`` on one rank is a data
+    width of 1, which JAX replicates (``bbdm_tpu/parallel/tp.py:75-77``): the
+    run writes the checkpoint a run without the key writes."""
+    from bbdm_tpu.checkpoints.io import load_checkpoint as jax_load
+    from bbdm_tpu.parallel import make_mesh
+    from test_torch_parallel import one_thread
+
+    if key == "model_parallel":
+        match = "1 devices not divisible by model_parallel=2"
+        with pytest.raises(ValueError, match=match):
+            make_mesh(jax.devices()[:1], model_parallel=2)
+        with pytest.raises(ValueError, match=match):
+            train_variant(setup, "mp2", model_parallel=value)
+        return
+    with one_thread():
+        runners = [train_variant(setup, "fsdp1", fsdp=value), train_variant(setup, "plain1")]
+    assert [r.state.sharding for r in runners] == [None, None]
+    for name in ("last_model.ckpt", "last_optim_sche.ckpt"):
+        got, want = (jax_load(os.path.join(ckpt_dir(str(setup / n)), name))
+                     for n in ("fsdp1", "plain1"))
+        jax.tree_util.tree_map(np.testing.assert_array_equal, got, want)
+
+
+def test_mesh_devices_that_disagree_with_the_ranks_raise(setup):
+    """``training.mesh_devices``, the JAX mesh's width, against the one rank of
+    the run (``mesh_devices: 1`` agrees: the other tests here)."""
+    with pytest.raises(ValueError, match=r"mesh_devices=2 but the run has 1 ranks"):
+        train_variant(setup, "mesh2", mesh_devices=2)
+
+
+def test_debug_nan_raises_at_the_first_non_finite_loss(setup, monkeypatch):
+    """``training.debug_nan`` with the loss forced to NaN: the port raises
+    FloatingPointError naming step 1 (before the backward; anomaly mode off
+    again after it), and so does the JAX runner (``jax_debug_nans``, reset
+    here after it)."""
+    import jax.numpy as jnp
+
+    from bbdm_tpu.models.latent import LatentBrownianBridgeModel as JaxLBBDM
+    from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel as PortLBBDM
+
+    port_loss = PortLBBDM.loss
+    monkeypatch.setattr(PortLBBDM, "loss", lambda self, x, y, *a, **kw:
+                        (port_loss(self, x, y, *a, **kw)[0] * float("nan"), {}))
+    path = variant(setup, "nan", debug_nan=True, mesh_devices=1)
+    with pytest.raises(FloatingPointError, match="non-finite loss at step 1"):
+        main_torch.main(["-c", path, "--train", "--gpu_ids", "-1", "-r", str(setup / "nan")])
+    assert not torch.is_anomaly_enabled()
+    monkeypatch.setattr(JaxLBBDM, "loss", lambda self, params, rng, x, y, *a, **kw:
+                        (jnp.nan * jnp.mean(x), {}))
+    try:
+        with pytest.raises(FloatingPointError, match="nan"):
+            run_jax(monkeypatch, ["-c", path, "--train", "--gpu_ids", "-1", "-r",
+                                  str(setup / "nan-jax")])
+    finally:
+        jax.config.update("jax_debug_nans", False)
 
 
 def test_train_writes_the_checkpoints_the_jax_cli_writes(setup, monkeypatch):
@@ -173,8 +231,8 @@ def test_train_writes_the_checkpoints_the_jax_cli_writes(setup, monkeypatch):
     removed, ``latest_*_2``, ``last_*``, the top pair), the same counters in
     them, and each model file's trees of the same structure; then the port
     resumes from its own ``last_*`` files for a third epoch. (``mesh_devices``
-    1: the JAX runner's mesh of one of the 8 test devices; the port reads no
-    mesh key.)"""
+    1: the JAX runner's mesh of one of the 8 test devices; the port's one
+    rank.)"""
     path = variant(setup, "train2", mesh_devices=1)
     argv = ["-c", path, "--train", "--gpu_ids", "-1", "--save_top", "--max_epoch", "2",
             "--max_steps", "10"]
