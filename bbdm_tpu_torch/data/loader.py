@@ -16,14 +16,23 @@ rank ``local_index`` of the node's ``local_count`` keeps its contiguous rows
 of each of them: it decodes only those. The union of a node's ranks' rows is
 the node's batch, row for row.
 
-A background thread decodes the next two batches while the caller works on the
-current one; an error there is raised to the caller.
+A background thread prepares the next two batches while the caller works on
+the current one; an error there is raised to the caller. It decodes each
+batch's items on ``num_workers`` threads (default ``min(8, os.cpu_count())``,
+as ``bbdm_tpu/data/loader.py:76-84``; 0 or 1: in that thread), in order, so
+the batches are the same for any ``num_workers``. The host library releases
+the GIL while it decodes, and so does ``zlib``. ``dataset.__getitem__`` is
+therefore called from several threads at once: the datasets keep no state
+that an item changes. ``set_epoch`` reseeds a dataset's per-epoch draws (the
+inpainting boxes) through its ``set_epoch_seed``, between epochs.
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
@@ -33,9 +42,9 @@ from bbdm_tpu_torch.parallel.collectives import local_rows
 
 def _collate(items) -> dict:
     return {
-        "x": np.stack([x for (x, _), _ in items]).astype(np.float32),
+        "x": np.stack([x for (x, _), _ in items]).astype(np.float32, copy=False),
         "x_name": [n for (_, n), _ in items],
-        "x_cond": np.stack([c for _, (c, _) in items]).astype(np.float32),
+        "x_cond": np.stack([c for _, (c, _) in items]).astype(np.float32, copy=False),
         "x_cond_name": [n for _, (_, n) in items],
     }
 
@@ -45,17 +54,23 @@ class DataLoader:
 
     def __init__(self, dataset, batch_size: int, *, shuffle: bool = False, seed: int = 0,
                  shard_count: int = 1, shard_index: int = 0, local_count: int = 1,
-                 local_index: int = 0):
+                 local_index: int = 0, num_workers: int | None = None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
         self.seed = seed
         self.shard_count, self.shard_index = shard_count, shard_index
         self.rows = local_rows(batch_size, local_index, local_count)  # raises if uneven
+        if num_workers is None:
+            num_workers = min(8, os.cpu_count() or 1)
+        self.num_workers = max(0, int(num_workers))
         self.epoch = 0
 
     def set_epoch(self, epoch: int):
+        """Shuffle for ``epoch``; reseed the dataset's per-epoch draws."""
         self.epoch = int(epoch)
+        if hasattr(self.dataset, "set_epoch_seed"):
+            self.dataset.set_epoch_seed(self.seed + self.epoch)
 
     def _indices(self) -> np.ndarray:
         idx = np.arange(len(self.dataset))
@@ -71,9 +86,15 @@ class DataLoader:
 
     def _batches(self) -> Iterator[dict]:
         idx = self._indices()
-        for b in range(len(self)):
-            chunk = idx[b * self.batch_size:(b + 1) * self.batch_size][self.rows]
-            yield _collate([self.dataset[int(i)] for i in chunk])
+        chunks = (idx[b * self.batch_size:(b + 1) * self.batch_size][self.rows].tolist()
+                  for b in range(len(self)))
+        if self.num_workers <= 1:
+            for chunk in chunks:
+                yield _collate([self.dataset[i] for i in chunk])
+            return
+        with ThreadPoolExecutor(self.num_workers, thread_name_prefix="bbdm-decode") as pool:
+            for chunk in chunks:  # map keeps the order and raises an item's error
+                yield _collate(list(pool.map(self.dataset.__getitem__, chunk)))
 
     def __iter__(self) -> Iterator[dict]:
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)

@@ -23,8 +23,6 @@ def get_dataset(data_config):
 
     kind = data_config.dataset_type
     if kind not in DATASETS:
-        raise NotImplementedError(
-            f"dataset_type {kind!r} is not ported (ported: {sorted(DATASETS)}; the "
-            "colorization and inpainting datasets are in ROADMAP.md §1)")
+        raise NotImplementedError(f"dataset_type {kind!r} is not one of {sorted(DATASETS)}")
     cls = DATASETS[kind]
     return tuple(cls(data_config.dataset_config, stage=s) for s in ("train", "val", "test"))

@@ -11,11 +11,11 @@ import os
 
 import numpy as np
 
-from bbdm_tpu_torch.utils.images import read_png, to_rgb
+from bbdm_tpu_torch.utils.images import read_image
 
 
 def _load_255(path: str) -> np.ndarray:
-    return to_rgb(read_png(path)).astype(np.float64)  # [0,255]
+    return read_image(path).astype(np.float64)  # [0,255]
 
 
 def calc_diversity(data_dir: str, num_samples: int = 5, use_names: bool = False) -> float:

@@ -5,8 +5,9 @@ caller passes ``device="cpu"``); the Fréchet distance is scipy's matrix square
 root in float64, as pytorch_fid computes it. Weights: ``weights_path`` or
 ``$BBDM_FID_WEIGHTS``, a torch ``.pth``/``.pt`` state dict (pytorch_fid's or
 torchvision's) or the JAX package's converted tree (``.ckpt``/``.msgpack``).
-Images are read with the port's PNG reader: a directory holding JPEG, BMP or
-WebP files raises (``ROADMAP.md`` §1 item 11).
+Images are read with ``utils/images.py:read_image`` (PNG, JPEG, BMP, as
+Pillow's ``convert("RGB")``); a directory holding WebP files raises
+(``ROADMAP.md`` §1 item 11).
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ from bbdm_tpu_torch.evaluation.inception import (
     state_dict_from_inception_tree,
 )
 from bbdm_tpu_torch.models.factory import resolve_device
-from bbdm_tpu_torch.utils.images import read_png, to_rgb
+from bbdm_tpu_torch.utils.images import WEBP_ROADMAP, read_image
 
 IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 
@@ -55,13 +56,12 @@ def activation_statistics(features: np.ndarray):
 
 
 def image_files(path: str):
-    """The sorted image files of a directory; any but PNG raises."""
+    """The sorted image files of a directory; a WebP file raises."""
     files = sorted(os.path.join(path, f) for f in os.listdir(path)
                    if os.path.splitext(f)[1].lower() in IMAGE_EXTENSIONS)
-    other = [f for f in files if os.path.splitext(f)[1].lower() != ".png"]
-    if other:
-        raise ValueError(f"{other[0]}: the PyTorch port reads PNG images only "
-                         "(ROADMAP.md §1 item 11)")
+    webp = [f for f in files if os.path.splitext(f)[1].lower() == ".webp"]
+    if webp:
+        raise ValueError(f"{webp[0]}: {WEBP_ROADMAP}")
     return files
 
 
@@ -105,7 +105,7 @@ def to_device(images: np.ndarray, device) -> torch.Tensor:
 
 def read_images(files) -> np.ndarray:
     """float32 [N, H, W, 3] in [0, 1]."""
-    return np.stack([to_rgb(read_png(f)).astype(np.float32) / 255.0 for f in files])
+    return np.stack([read_image(f).astype(np.float32) / 255.0 for f in files])
 
 
 def compute_features_for_path(path: str, model: FIDInceptionV3, batch_size: int = 32) -> np.ndarray:

@@ -29,7 +29,7 @@ import torch.nn as nn
 
 from bbdm_tpu_torch.evaluation.fid import IMAGE_EXTENSIONS, to_device
 from bbdm_tpu_torch.models.factory import resolve_device
-from bbdm_tpu_torch.utils.images import read_png, to_rgb
+from bbdm_tpu_torch.utils.images import read_image
 
 _SHIFT = np.array([-0.030, -0.088, -0.188], np.float32)
 _SCALE = np.array([0.458, 0.448, 0.450], np.float32)
@@ -198,7 +198,7 @@ def load_lpips(weights_path: str | None = None, net: str = "alex", device=None) 
 
 
 def _decode(path: str) -> np.ndarray:
-    img = to_rgb(read_png(path)).astype(np.float32) / 255.0
+    img = read_image(path).astype(np.float32) / 255.0
     return img * 2.0 - 1.0
 
 

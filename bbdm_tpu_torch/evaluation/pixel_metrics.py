@@ -8,11 +8,11 @@ import os
 
 import numpy as np
 
-from bbdm_tpu_torch.utils.images import read_png, to_rgb
+from bbdm_tpu_torch.utils.images import read_image
 
 
 def _load(path):
-    return to_rgb(read_png(path)).astype(np.float64)
+    return read_image(path).astype(np.float64)
 
 
 def _ssim(a: np.ndarray, b: np.ndarray, data_range: float = 255.0) -> float:

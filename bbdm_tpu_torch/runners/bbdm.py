@@ -47,6 +47,7 @@ from bbdm_tpu_torch.parallel import collectives
 from bbdm_tpu_torch.runners.base import BaseRunner
 from bbdm_tpu_torch.runners.utils import is_torch_file, make_dir
 from bbdm_tpu_torch.training.optim import Optimizer
+from bbdm_tpu_torch.utils.gif import write_gif
 from bbdm_tpu_torch.utils.images import get_image_grid, save_single_image, write_png
 
 
@@ -227,20 +228,33 @@ class BBDMRunner(BaseRunner):
             if log:
                 self.writer.add_image(f"{stage}_{name}", grid, self.global_step)
 
-    def save_images(self, all_samples, sample_path, grid_size=4, save_interval=100,
+    def save_images(self, all_samples, sample_path, grid_size=4, gif_interval=-1,
+                    save_interval=100, head_threshold=10000, tail_threshold=0,
                     writer_tag=None):
-        """``image_<i>.png`` every ``save_interval`` steps of a [S, B, H, W, C]
-        trajectory and ``image_out.png`` of its end, which also goes to
-        TensorBoard under ``writer_tag``
-        (``bbdm_tpu/runners/diffusion_base.py:21-49``, without the GIF)."""
+        """Grids of a [S, B, H, W, C] trajectory
+        (``bbdm_tpu/runners/diffusion_base.py:21-49``): ``image_<i>.png`` where
+        ``i % save_interval == 0``, ``i > head_threshold`` or ``i <
+        tail_threshold``; ``movie.gif`` of every ``gif_interval``-th step when
+        ``gif_interval > 0`` (``utils/gif.py``); ``image_out.png`` of the end,
+        which also goes to TensorBoard under ``writer_tag``."""
         to_normal = self.config.data.dataset_config.to_normal
-        for i in range(0, len(all_samples), save_interval):
-            write_png(os.path.join(sample_path, f"image_{i}.png"),
-                      get_image_grid(all_samples[i], grid_size, to_normal=to_normal))
+        frames = []
+        for i in range(len(all_samples)):
+            save_png = i % save_interval == 0 or i > head_threshold or i < tail_threshold
+            save_gif = gif_interval > 0 and i % gif_interval == 0
+            if not (save_png or save_gif):
+                continue
+            grid = get_image_grid(all_samples[i], grid_size, to_normal=to_normal)
+            if save_gif:
+                frames.append(grid)
+            if save_png:
+                write_png(os.path.join(sample_path, f"image_{i}.png"), grid)
         final = get_image_grid(all_samples[-1], grid_size, to_normal=to_normal)
         write_png(os.path.join(sample_path, "image_out.png"), final)
         if writer_tag is not None:
             self.writer.add_image(writer_tag, final, self.global_step)
+        if frames:
+            write_gif(os.path.join(sample_path, "movie.gif"), frames, duration=1, loop=0)
 
     def sample_to_eval(self, test_loader, sample_path: str) -> None:
         """Sample every batch of ``test_loader`` (an iterable of dicts with NHWC

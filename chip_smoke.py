@@ -147,7 +147,32 @@ Phases, each of which must pass:
    steps under ``fsdp`` and 1 step under ``model_parallel: 2`` at node batch 2,
    each against 1 rank with its codes pinned, with phase 10 (c)'s bars; (d)
    ``--sample_to_eval`` of 8 pairs from (a)'s checkpoint on the 1 x 2 grid
-   against 1 rank and the fp32 run, phase 10 (b)'s rule.
+   against 1 rank and the fp32 run, phase 10 (b)'s rule;
+12. the data layer (``data/``, ``utils/images.py``, the host library of
+   ``native/``, built with g++ after the kernels, its build seconds printed):
+   (a) every committed fixture of ``tests/data/torch_images/`` decoded against
+   its stored array (Pillow's RGB; OpenCV's LAB of ``cv2.imread``'s reading,
+   EXIF orientation and 16-bit gray included; the 256^2 JPEGs' digests), the
+   WebP refused; host ms per 256^2 image: PNG by row filter (the inflate, the
+   row filters undone in C++ and in numpy/Python, the C++ calls of
+   ``load_image``) and JPEG 4:2:0, 4:4:4 and progressive; the host's CPU count;
+   (b) batches per second of the train loader (batch 8) over a synthetic
+   256^2 tree whose rows are all filtered Paeth (64 train images, flipped to
+   128: 16 batches an epoch), with one thread and the default threads, and
+   with ``cache_in_ram`` cold and warm, each over 5 readings of 4 epochs (300
+   timed batches, the threads already running; median, min, max), and the
+   cache's bytes per image; (c) ``main_torch.main --train`` of
+   ``Template-LBBDM-f4.yaml`` at full width on that tree as
+   ``custom_inpainting`` with ``cache_in_ram`` and flip, 2 epochs of 16
+   microbatches, one validation epoch and one save: seconds per microbatch and
+   the idle share of each epoch (device busy from torch.profiler's kernels in
+   the epoch's window), the image decodes per epoch (128, then 0), K1/K2/K3
+   launches equal to :func:`kernel_calls`' counts, every served train item's
+   box equal to the numpy rule for its epoch's seed; (d) ``--sample_to_eval``
+   of 8 pairs (20 steps, 1 draw) from that checkpoint over a
+   ``custom_colorization_LAB`` tree of the committed JPEG fixtures (an
+   EXIF-rotated one among them): the output tree and the launches of all three
+   kernels.
 
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
@@ -854,24 +879,95 @@ def read_pngs(root):
     return out
 
 
-def png_decode_ms(size=256, reps=3):
-    """Host ms to decode a size^2 RGB PNG whose rows all use one filter, per filter."""
-    import zlib
-
+def textured_u8(size, seed):
+    """A smooth RGB image with some noise, uint8 [size, size, 3]."""
     import numpy as np
 
+    rs = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:size, 0:size] / size
+    img = np.sin(6 * yy[..., None] + 4 * xx[..., None] + rs.uniform(0, 2 * np.pi, 3))
+    return np.clip(img * 100 + 128 + rs.randint(0, 12, (size, size, 3)), 0, 255).astype(np.uint8)
+
+
+def filtered_rows(arr, filters):
+    """uint8 [H, W, C] -> PNG image data (a filter byte, then the row), row r
+    filtered by filters[r % len(filters)] (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth)."""
+    import numpy as np
+
+    H, W, C = arr.shape
+    img = arr.reshape(H, W * C).astype(np.int32)
+    out = []
+    for r in range(H):
+        cur = img[r]
+        up = img[r - 1] if r else np.zeros_like(cur)
+        left = np.concatenate([np.zeros(C, np.int32), cur[:-C]])
+        ul = np.concatenate([np.zeros(C, np.int32), up[:-C]])
+        f = filters[r % len(filters)]
+        if f == 0:
+            pred = 0
+        elif f == 1:
+            pred = left
+        elif f == 2:
+            pred = up
+        elif f == 3:
+            pred = (left + up) // 2
+        else:
+            p = left + up - ul
+            pa, pb, pc = np.abs(p - left), np.abs(p - up), np.abs(p - ul)
+            pred = np.where((pa <= pb) & (pa <= pc), left, np.where(pb <= pc, up, ul))
+        out.append(bytes([f]) + ((cur - pred) % 256).astype(np.uint8).tobytes())
+    return b"".join(out)
+
+
+def write_filtered_png(path, arr, filters):
+    import struct
+    import zlib
+
+    def chunk(kind, body):
+        return (struct.pack(">I", len(body)) + kind + body
+                + struct.pack(">I", zlib.crc32(kind + body) & 0xFFFFFFFF))
+
+    H, W, C = arr.shape
+    color = {1: 0, 2: 4, 3: 2, 4: 6}[C]
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, color, 0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(filtered_rows(arr, filters), 6))
+                + chunk(b"IEND", b""))
+
+
+def png_decode_ms(size=256, reps=3):
+    """Host ms per size^2 RGB PNG whose rows all use one filter, per filter: the
+    inflate (zlib), the row filters undone by the host library's C++ and by the
+    numpy/Python plain version, and the host library's two calls of
+    ``load_image`` after the inflate (unfilter; then resize to the same size,
+    flip, to [-1, 1] float32)."""
+    import zlib
+
+    from bbdm_tpu_torch.native import fastimage
     from bbdm_tpu_torch.utils import images
 
-    rs = np.random.RandomState(0)
-    rows = rs.randint(0, 256, (size, 1 + 3 * size)).astype(np.uint8)
-    out = {}
-    for f, name in enumerate(("none", "sub", "up", "average", "paeth")):
-        rows[:, 0] = f
-        data = zlib.decompress(zlib.compress(rows.tobytes()))
+    arr = textured_u8(size, 0)
+    out = {"inflate": {}, "cpp": {}, "python": {}, "cpp_load_image_pass": {}}
+
+    def ms(fn, n):
+        fn()
         t0 = time.perf_counter()
-        for _ in range(reps):
-            images._unfilter(data, size, size, 3)
-        out[name] = (time.perf_counter() - t0) / reps * 1e3
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    for f, name in enumerate(("none", "sub", "up", "average", "paeth")):
+        packed = zlib.compress(filtered_rows(arr, (f,)), 6)
+        rows = zlib.decompress(packed)
+        out["inflate"][name] = ms(lambda: zlib.decompress(packed), 10 * reps)
+        out["cpp"][name] = ms(lambda: fastimage.unfilter(rows, size, 3 * size, 3), 10 * reps)
+        out["python"][name] = ms(lambda: images._unfilter(rows, size, size, 3), reps)
+        out["cpp_load_image_pass"][name] = ms(
+            lambda: fastimage.preprocess_image(
+                fastimage.unfilter(rows, size, 3 * size, 3).reshape(size, size, 3),
+                (size, size), True, True),
+            10 * reps)
     return out
 
 
@@ -894,8 +990,8 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
         configs = {name: load_config(os.path.join(here, "configs", f"Template-{name}.yaml"))
                    for name in ("LBBDM-f4", "BBDM")}
     out = {"png_decode_ms_256": png_decode_ms()}
-    log("  PNG decode, host ms per 256^2 RGB image by row filter: "
-        + json.dumps(out["png_decode_ms_256"]))
+    log("  PNG decode, host ms per 256^2 RGB image by row filter (inflate; unfilter in C++ "
+        "and in numpy/Python): " + json.dumps(out["png_decode_ms_256"]))
     paths, emas = {}, {}
     for name, cfg in configs.items():
         size = cfg.data.dataset_config.image_size
@@ -3099,6 +3195,344 @@ def sharding_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
     return out
 
 
+# ---------------------------------------------------------------- data layer
+
+DATA_TRAIN, DATA_VAL, DATA_TEST, DATA_EPOCHS = 64, 8, 8, 2  # 256^2 Paeth PNGs; flipped: 128
+LOADER_READINGS, LOADER_EPOCHS = 5, 4  # 5 readings of 4 epochs of 15 timed batches each
+FIXTURES = os.path.join("tests", "data", "torch_images")
+
+
+def fixture_arrays(root):
+    """The committed fixtures' expected arrays and digests (``make_fixtures.py``)."""
+    import numpy as np
+
+    with np.load(os.path.join(root, FIXTURES, "expected.npz")) as z:
+        return {k: z[k].tobytes() if k.startswith("sha256:") else
+                np.cumsum(z[k], axis=1, dtype=np.uint8) for k in z.files}
+
+
+def codec_checks(root):
+    """Every committed fixture decoded against its stored array (LAB too), the
+    WebP refused; host ms per 256^2 image: PNG by row filter (C++ beside
+    numpy/Python) and JPEG 4:2:0 / 4:4:4 / progressive; the host's CPU count."""
+    import hashlib
+
+    from bbdm_tpu_torch.data.colors import rgb_to_lab
+    from bbdm_tpu_torch.native import fastimage
+    from bbdm_tpu_torch.utils.images import read_image
+
+    want = fixture_arrays(root)
+    fdir = os.path.join(root, FIXTURES)
+    checked = 0
+    for key, arr in sorted(want.items()):
+        kind, _, name = key.rpartition(":")
+        got = read_image(os.path.join(fdir, name), imread=kind == "lab")
+        if kind == "sha256":
+            ok = hashlib.sha256(got.tobytes()).digest() == arr
+        else:
+            ok = (rgb_to_lab(got) if kind == "lab" else got).tobytes() == arr.tobytes() \
+                and got.shape == arr.shape
+        if not ok:
+            raise AssertionError(f"fixture {key}: decoded array differs from the stored one")
+        checked += 1
+    try:
+        read_image(os.path.join(fdir, "image.webp"))
+    except ValueError as e:
+        if "ROADMAP.md" not in str(e):
+            raise
+    else:
+        raise AssertionError("the WebP fixture was read")
+    jpeg = {}
+    for name in sorted(os.listdir(os.path.join(fdir, "jpeg256"))):
+        with open(os.path.join(fdir, "jpeg256", name), "rb") as f:
+            data = f.read()
+        fastimage.decode_jpeg(data)
+        t0 = time.perf_counter()
+        for _ in range(20):
+            fastimage.decode_jpeg(data)
+        jpeg[name] = (time.perf_counter() - t0) / 20 * 1e3
+    return {"fixtures_checked": checked, "png_ms_256": png_decode_ms(),
+            "jpeg_decode_ms_256": jpeg, "host_cpu_count": os.cpu_count()}
+
+
+def write_paeth_tree(root, size, counts, seed):
+    """``<stage>/<i>.png`` (train, val, test), every row filtered Paeth."""
+    for stage, n in zip(("train", "val", "test"), counts):
+        os.makedirs(os.path.join(root, stage), exist_ok=True)
+        for i in range(n):
+            write_filtered_png(os.path.join(root, stage, f"{i:04d}.png"),
+                               textured_u8(size, seed + 100 * len(stage) + i), (4,))
+
+
+def loader_rates(cfg):
+    """Batches per second of the train loader (batch 8) over the Paeth tree:
+    one thread and the default threads with no cache; ``cache_in_ram`` cold
+    (cleared before each epoch) and warm (filled before the clock). Each epoch
+    is timed from its first batch to its last, so the decode threads and the
+    prefetch thread are running before the clock starts; a reading sums
+    LOADER_EPOCHS epochs, and each setting takes LOADER_READINGS readings
+    (median, min, max). Also the cache's bytes per image."""
+    import statistics as st
+
+    from bbdm_tpu_torch.data import DataLoader, get_dataset
+    from bbdm_tpu_torch.data.base import IMAGE_CACHE, clear_image_cache
+
+    out = {}
+    epoch = iter(range(1 << 30))
+
+    def reading(loader, cold):
+        n, secs = 0, 0.0
+        for _ in range(LOADER_EPOCHS):
+            if cold:
+                clear_image_cache()
+            loader.set_epoch(next(epoch))
+            batches = iter(loader)
+            next(batches)
+            t0 = time.perf_counter()
+            n += sum(1 for _ in batches)
+            secs += time.perf_counter() - t0
+        return n, n / secs
+
+    bs = cfg.data.train.batch_size
+    for label, workers, cache in (("one_thread", 0, False), ("default_threads", None, False),
+                                  ("cache_in_ram_cold", None, True),
+                                  ("cache_in_ram_warm", None, True)):
+        cfg.data.dataset_config.cache_in_ram = cache
+        clear_image_cache()
+        loader = DataLoader(get_dataset(cfg.data)[0], bs, shuffle=True, num_workers=workers)
+        if label == "cache_in_ram_warm":
+            sum(1 for _ in loader)  # fill the cache
+            out["cache_bytes_per_image"] = IMAGE_CACHE.nbytes / len(IMAGE_CACHE)
+        runs = [reading(loader, label == "cache_in_ram_cold") for _ in range(LOADER_READINGS)]
+        rates = [r for _, r in runs]
+        out[label] = {"median": st.median(rates), "min": min(rates), "max": max(rates),
+                      "batches": sum(n for n, _ in runs), "workers": loader.num_workers}
+    out["threads_over_one"] = out["default_threads"]["median"] / out["one_thread"]["median"]
+    clear_image_cache()
+    return out
+
+
+def vqgan_checkpoint(cfg, dev, path):
+    """A seeded random VQGAN for ``cfg``'s LBBDM, saved alone."""
+    from bbdm_tpu_torch.checkpoints.from_jax import jax_tree_from_state_dict
+    from bbdm_tpu_torch.checkpoints.io import save_checkpoint
+    from bbdm_tpu_torch.models import build_model
+
+    m = build_model(cfg.model, device=dev, generator=torch.Generator(dev).manual_seed(21))
+    save_checkpoint({"vqgan": jax_tree_from_state_dict(m)["vqgan"]}, path)
+    del m
+
+
+def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None):
+    """Phase 12 (see the module docstring): the host codec, the loader, LBBDM-f4
+    training on a ``custom_inpainting`` Paeth tree under ``cache_in_ram`` and
+    ``--sample_to_eval`` from a ``custom_colorization_LAB`` tree of the JPEG
+    fixtures, through ``main_torch.main``. ``config``/``lab_config`` let a CPU
+    rehearsal pass tiny models."""
+    import shutil
+    import statistics as st
+
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    import main_torch
+    from bbdm_tpu_torch.config import load_config, save_config
+    from bbdm_tpu_torch.data import base, custom, loader
+    from bbdm_tpu_torch.runners import base as runner_base
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    out = {"codec": codec_checks(here)}
+    c = out["codec"]
+    log(f"  codec: {c['fixtures_checked']} stored fixture arrays equal, WebP refused; host "
+        f"CPUs {c['host_cpu_count']}; JPEG decode ms per 256^2 image "
+        f"{json.dumps(c['jpeg_decode_ms_256'])}; PNG ms per 256^2 image by row filter "
+        f"{json.dumps(c['png_ms_256'])}")
+
+    work = os.path.join(root, "data-phase")
+    template = os.path.join(here, "configs", "Template-LBBDM-f4.yaml")
+    cfg = config or load_config(template)
+    size = cfg.data.dataset_config.image_size
+    tree = os.path.join(work, "paeth")
+    t0 = time.time()
+    write_paeth_tree(tree, 256, (DATA_TRAIN, DATA_VAL, DATA_TEST), seed=12)
+    t1 = time.time()
+    d = cfg.data.dataset_config
+    cfg.data.dataset_type = "custom_inpainting"
+    d.dataset_path, d.flip, d.cache_in_ram = tree, True, True
+    out["loader_batches_per_s"] = loader_rates(cfg)
+    log(f"  paeth tree of {DATA_TRAIN}/{DATA_VAL}/{DATA_TEST} 256^2 PNGs written in "
+        f"{t1 - t0:.1f} s; train loader (batch {cfg.data.train.batch_size}, "
+        f"custom_inpainting, flipped, at {size}^2; {time.time() - t1:.1f} s), batches per "
+        "s: " + json.dumps(out["loader_batches_per_s"]))
+
+    # (c) training through main_torch.main, cache_in_ram on
+    d.cache_in_ram = True
+    cfg.model.VQGAN.params.ckpt_path = os.path.join(work, "vqgan.ckpt")
+    vqgan_checkpoint(cfg, dev, cfg.model.VQGAN.params.ckpt_path)
+    t = cfg.training
+    t.sample_interval, t.save_interval, t.validation_interval = 1000, DATA_EPOCHS, DATA_EPOCHS
+    path = os.path.join(work, "train.yaml")
+    save_config(cfg, path)
+    bs = cfg.data.train.batch_size
+    micro_per_epoch = 2 * DATA_TRAIN // bs
+    calls = kernel_calls(cfg.model, bs)
+    log("reduced: " + json.dumps({
+        "n_epochs": {"template": 100, "run": DATA_EPOCHS}, "microbatches": DATA_EPOCHS
+        * micro_per_epoch, "train/val/test images": [DATA_TRAIN, DATA_VAL, DATA_TEST],
+        "dataset_type": "custom_inpainting (template: custom_aligned)", "flip": True,
+        "cache_in_ram": True, "sample_interval": "none during training",
+        "weights": "random UNet (seed), a smoke-made VQGAN (seed 21)"}))
+
+    marks = {"epoch": [], "steps": [], "val": [], "decodes": [], "served": [], "bad": []}
+
+    def on_set_epoch(fn):
+        def wrapped(self, epoch):
+            if isinstance(self.dataset, custom.CustomInpaintingDataset) and self.dataset.flip:
+                marks["epoch"].append((time.perf_counter(), int(epoch)))
+            return fn(self, epoch)
+        return wrapped
+
+    def timing_step(make):
+        def wrapped(*a, **kw):
+            step = make(*a, **kw)
+
+            def timed_step(*sa, **skw):
+                marks["steps"].append(time.perf_counter())
+                return step(*sa, **skw)
+            return timed_step
+        return wrapped
+
+    def span(fn):
+        def wrapped(*a, **kw):
+            marks["val"].append(time.perf_counter())
+            return fn(*a, **kw)
+        return wrapped
+
+    def counted_load(fn):
+        def wrapped(*a, **kw):
+            marks["decodes"].append(time.perf_counter())
+            return fn(*a, **kw)
+        return wrapped
+
+    def checked_item(fn):
+        def wrapped(self, index):
+            item = fn(self, index)
+            (x, _), (cond, _) = item
+            if self.flip:  # the train set: the box must follow the epoch's seed
+                rng = np.random.RandomState((self.mask_seed * 1_000_003 + index) % (2 ** 31))
+                mw, mh = rng.randint(128, 181), rng.randint(128, 181)
+                top, left = rng.randint(0, size - mh + 1), rng.randint(0, size - mw + 1)
+                inside = np.zeros(x.shape[:2], bool)
+                inside[top:top + mh, left:left + mw] = True
+                if (cond[inside] != 0).any() or not np.array_equal(cond[~inside], x[~inside]):
+                    marks["bad"].append((index, self.mask_seed))
+                marks["served"].append((index, self.mask_seed))
+            return item
+        return wrapped
+
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    base.clear_image_cache()
+    result = os.path.join(work, "results-train")
+    argv = ["-c", path, "--train", "--max_epoch", str(DATA_EPOCHS), "-r", result, "-s",
+            str(CLI_SEED), "--gpu_ids", gpu_ids]
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+    t0 = time.time()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(patched(loader.DataLoader, "set_epoch", on_set_epoch))
+        stack.enter_context(patched(runner_base, "make_train_step", timing_step))
+        stack.enter_context(patched(runner_base.BaseRunner, "validation_epoch", span))
+        stack.enter_context(patched(base, "_load_image", counted_load))
+        stack.enter_context(patched(custom.CustomInpaintingDataset, "__getitem__", checked_item))
+        prof = stack.enter_context(profile(activities=acts))
+        t_prof = time.perf_counter()
+        runner = main_torch.main(argv)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+    micro = DATA_EPOCHS * micro_per_epoch
+    val_batches = DATA_VAL // cfg.data.val.batch_size
+    want = expected_launches(calls, microbatches=micro + val_batches)
+    if runner.global_step != micro:
+        raise AssertionError(f"data train: {runner.global_step} steps, not {micro}")
+    if launches != want:
+        raise AssertionError(f"data train: launches {launches} != {want} (kernel_calls)")
+    kernels = [(e.time_range.start / 1e6 + t_prof, e.time_range.end / 1e6 + t_prof)
+               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    starts = [ts for ts, _ in marks["epoch"]]
+    if [e for _, e in marks["epoch"]] != list(range(DATA_EPOCHS)) or len(marks["val"]) != 1:
+        raise AssertionError(f"data train: epochs {marks['epoch']}, validations {marks['val']}")
+    bounds = starts + [marks["val"][0]]
+    epochs = []
+    for e in range(DATA_EPOCHS):
+        lo, hi = bounds[e], bounds[e + 1]
+        steps = [s for s in marks["steps"] if lo <= s < hi]
+        busy = sum(min(b, hi) - a for a, b in kernels if lo <= a < hi)
+        decodes = sum(1 for s in marks["decodes"] if lo <= s < hi)
+        deltas = [b - a for a, b in zip(steps, steps[1:])]
+        epochs.append({"microbatches": len(steps), "s_per_microbatch": (hi - lo) / len(steps),
+                       "median_step_delta_s": st.median(deltas) if deltas else None,
+                       "device_busy_s": busy, "idle_share": 1 - busy / (hi - lo),
+                       "decodes": decodes})
+    seeds = sorted({sd for _, sd in marks["served"]})
+    out["train"] = {"wall_s": wall, "launches": launches, "expected_launches": want,
+                    "epochs": epochs, "served_items": len(marks["served"]),
+                    "mask_seeds": seeds, "bad_masks": len(marks["bad"]),
+                    "checkpoint": sorted(os.listdir(runner.config.result.ckpt_path))}
+    log(f"  data train (main_torch --train, custom_inpainting, cache_in_ram): {wall:.1f} s, "
+        f"{micro} microbatches, launches {launches} (kernel_calls: {want}); per epoch "
+        + json.dumps(epochs) + f"; {len(marks['served'])} served train items checked against "
+        f"the box rule for seeds {seeds}: {len(marks['bad'])} wrong")
+    if marks["bad"] or seeds != [CLI_SEED + e for e in range(DATA_EPOCHS)] \
+            or len(marks["served"]) != micro * bs:
+        raise AssertionError("data train: the served masks do not follow the epoch seeds")
+    if epochs[0]["decodes"] != 2 * DATA_TRAIN or any(e["decodes"] for e in epochs[1:]):
+        raise AssertionError(f"data train: decodes per epoch {[e['decodes'] for e in epochs]}, "
+                             f"expected {2 * DATA_TRAIN} then 0 (cache_in_ram)")
+    ckpt = os.path.join(runner.config.result.ckpt_path, "last_model.ckpt")
+    del runner, prof
+
+    # (d) --sample_to_eval from a custom_colorization_LAB tree of the JPEG fixtures
+    jpegs = sorted(f for f in os.listdir(os.path.join(here, FIXTURES)) if f.endswith(".jpg"))
+    bs = cfg.data.test.batch_size
+    lab_tree = os.path.join(work, "lab")
+    for stage in ("train", "val", "test"):
+        os.makedirs(os.path.join(lab_tree, stage))
+        for f in jpegs[:bs]:
+            shutil.copy(os.path.join(here, FIXTURES, f), os.path.join(lab_tree, stage, f))
+    lab = lab_config or load_config(template)
+    lab.data.dataset_type = "custom_colorization_LAB"
+    lab.data.dataset_config.dataset_path = lab_tree
+    lab.model.VQGAN.params.ckpt_path = cfg.model.VQGAN.params.ckpt_path
+    lab.model.BB.params.sample_step = SAMPLE_STEP
+    lab.testing.sample_num = 1
+    lab_path = os.path.join(work, "lab.yaml")
+    save_config(lab, lab_path)
+    for mod, attr in counters.values():
+        getattr(mod, attr).launches = 0
+    t0 = time.time()
+    runner = main_torch.main(["-c", lab_path, "--sample_to_eval", "--resume_model", ckpt, "-r",
+                              os.path.join(work, "results-lab"), "-s", str(CLI_SEED),
+                              "--gpu_ids", gpu_ids])
+    wall = time.time() - t0
+    launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+    want = expected_launches(kernel_calls(lab.model, bs), steps=len(runner.model.coeffs.steps),
+                             draws=1, batches=1)
+    names = [os.path.splitext(f)[0] for f in jpegs[:bs]]
+    check_tree(runner.config.result.sample_to_eval_path, names, names, SAMPLE_STEP, 1,
+               lab.data.dataset_config.image_size)
+    out["lab_sample_to_eval"] = {"wall_s": wall, "launches": launches, "expected": want,
+                                 "names": names}
+    log(f"  LAB --sample_to_eval ({bs} JPEG fixtures, {SAMPLE_STEP} steps, 1 draw): "
+        f"{wall:.1f} s, launches {launches} (kernel_calls: {want}), tree checked")
+    if launches != want or min(launches.values()) <= 0:
+        raise AssertionError(f"LAB sample_to_eval: launches {launches} != {want}")
+    del runner
+    shutil.rmtree(work, ignore_errors=True)
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -3138,6 +3572,19 @@ def main() -> int:
     except Exception:
         traceback.print_exc()
         log("kernel build: FAILED")
+        return 1
+    try:
+        from bbdm_tpu_torch.native import build as host_build
+
+        t0 = time.time()
+        host_path = host_build.build()
+        host_build.library()
+        host_build_s = time.time() - t0
+        log(f"host image library build: {host_build_s:.1f} s ({os.path.basename(host_path)}, "
+            f"{host_build.compiler()} {' '.join(host_build.FLAGS)})")
+    except Exception:
+        traceback.print_exc()
+        log("host image library build: FAILED")
         return 1
 
     entries, counters = [], {}
@@ -3276,11 +3723,26 @@ def main() -> int:
             traceback.print_exc()
             failed.append("fsdp and tensor parallel")
             sh = {}
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            data = data_phase(dev, counters, root)
+            data["host_library_build_s"] = host_build_s
+            for e in entries:
+                k = short[e["name"]]
+                e["launches_by_path"].update({
+                    "data_inpainting_train": data["train"]["launches"][k],
+                    "data_lab_sample_to_eval": data["lab_sample_to_eval"]["launches"][k]})
+            log(f"data layer: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("data layer")
+            data = {}
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
                     "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
                     "evaluation": evaluation, "latent_paths": paths, "parallel": dp,
-                    "sharding": sh, "card": card}))
+                    "sharding": sh, "data": data, "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

@@ -160,9 +160,15 @@ def test_to_rgb_equals_pillow_convert_rgb(tmp_path, channels):
 
 
 def test_non_png_images_raise_naming_the_roadmap_item(tmp_path):
+    """JPEG and BMP files are listed (``read_image`` reads them); a WebP file,
+    the one format of the JAX list the port does not read, raises."""
     write_png(str(tmp_path / "a.png"), np.zeros((4, 4, 3), np.uint8))
     (tmp_path / "b.jpg").write_bytes(b"\xff\xd8")
-    with pytest.raises(ValueError, match=r"ROADMAP.md §1 item 11"):
+    (tmp_path / "c.bmp").write_bytes(b"BM")
+    assert [os.path.basename(f) for f in pfid.image_files(str(tmp_path))] == \
+        ["a.png", "b.jpg", "c.bmp"]
+    (tmp_path / "d.webp").write_bytes(b"RIFF")
+    with pytest.raises(ValueError, match=r"d\.webp: .*ROADMAP.md §1 item 11"):
         pfid.image_files(str(tmp_path))
 
 

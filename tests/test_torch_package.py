@@ -91,14 +91,20 @@ def test_png_writer_round_trips_through_pillow(tmp_path, channels):
     np.testing.assert_array_equal(decoded, u8[..., 0] if channels == 1 else u8)
 
 
-def test_import_needs_no_jax_yaml_or_pillow():
-    """The package (every module, ``evaluation/`` included), main_torch.py,
-    preprocess_and_evaluation_torch.py and chip_smoke.py import where jax, flax,
-    optax, yaml, PIL and msgpack are absent, and import no triton, nothing of
-    ``bbdm_tpu`` or ``tests`` and build nothing at import time."""
+def test_import_needs_no_jax_yaml_or_pillow(tmp_path):
+    """The package (every module, ``evaluation/`` and ``native/`` included),
+    main_torch.py, preprocess_and_evaluation_torch.py and chip_smoke.py import
+    where jax, flax, optax, yaml, PIL, cv2 and msgpack are absent, and import no
+    triton, nothing of ``bbdm_tpu`` or ``tests`` and build nothing at import
+    time: no compiler runs (``CXX`` names a file that records a call) and the
+    host library is not loaded."""
+    marker = tmp_path / "called"
+    cxx = tmp_path / "cxx"
+    cxx.write_text(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+    cxx.chmod(0o755)
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'msgpack'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'cv2', 'msgpack'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, bbdm_tpu_torch\n"
         "for mod in pkgutil.walk_packages(bbdm_tpu_torch.__path__, 'bbdm_tpu_torch.'):\n"
@@ -111,11 +117,15 @@ def test_import_needs_no_jax_yaml_or_pillow():
         "import preprocess_and_evaluation_torch\n"
         "import chip_smoke\n"
         "assert 'triton' not in sys.modules\n"
+        "assert 'bbdm_tpu_torch.native.fastimage' in sys.modules\n"
+        "from bbdm_tpu_torch.native import build\n"
+        "assert build._lib is None\n"
         "assert not any(m.split('.')[0] in ('bbdm_tpu', 'tests') for m in sys.modules)\n"
         "import torch\n"
         "assert not torch.backends.cudnn.allow_tf32 and not torch.backends.cuda.matmul.allow_tf32\n"
     )
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=REPO, CXX=str(cxx))
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+    assert not marker.exists()
