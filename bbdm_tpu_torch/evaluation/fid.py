@@ -5,9 +5,8 @@ caller passes ``device="cpu"``); the Fréchet distance is scipy's matrix square
 root in float64, as pytorch_fid computes it. Weights: ``weights_path`` or
 ``$BBDM_FID_WEIGHTS``, a torch ``.pth``/``.pt`` state dict (pytorch_fid's or
 torchvision's) or the JAX package's converted tree (``.ckpt``/``.msgpack``).
-Images are read with ``utils/images.py:read_image`` (PNG, JPEG, BMP, as
-Pillow's ``convert("RGB")``); a directory holding WebP files raises
-(``ROADMAP.md`` §1 item 11).
+Images are read with ``utils/images.py:read_image`` (PNG, JPEG, BMP, WebP,
+as Pillow's ``convert("RGB")``).
 """
 
 from __future__ import annotations
@@ -24,7 +23,7 @@ from bbdm_tpu_torch.evaluation.inception import (
     state_dict_from_inception_tree,
 )
 from bbdm_tpu_torch.models.factory import resolve_device
-from bbdm_tpu_torch.utils.images import WEBP_ROADMAP, read_image
+from bbdm_tpu_torch.utils.images import read_image
 
 IMAGE_EXTENSIONS = {".png", ".jpg", ".jpeg", ".bmp", ".webp"}
 
@@ -56,13 +55,9 @@ def activation_statistics(features: np.ndarray):
 
 
 def image_files(path: str):
-    """The sorted image files of a directory; a WebP file raises."""
-    files = sorted(os.path.join(path, f) for f in os.listdir(path)
-                   if os.path.splitext(f)[1].lower() in IMAGE_EXTENSIONS)
-    webp = [f for f in files if os.path.splitext(f)[1].lower() == ".webp"]
-    if webp:
-        raise ValueError(f"{webp[0]}: {WEBP_ROADMAP}")
-    return files
+    """The sorted image files of a directory."""
+    return sorted(os.path.join(path, f) for f in os.listdir(path)
+                  if os.path.splitext(f)[1].lower() in IMAGE_EXTENSIONS)
 
 
 def load_fid_params(weights_path: str | None = None) -> dict:

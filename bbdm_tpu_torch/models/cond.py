@@ -1,9 +1,9 @@
 """Condition-stage encoders (port of ``bbdm_tpu/models/cond.py:21-121``).
 
-``SpatialRescaler``: ``n_stages`` bilinear downscalings by ``multiplier`` (no
-antialiasing, half-pixel centres, as ``jax.image.resize`` with
-``antialias=False``), then an optional 1x1 ``channel_mapper`` conv without
-bias. LBBDM's ``condition_key: SpatialRescaler`` context.
+``SpatialRescaler``: ``n_stages`` rescalings by ``multiplier`` with the
+configured ``method``, computed as ``jax.image.resize(..., antialias=False)``
+computes them (:func:`resize`), then an optional 1x1 ``channel_mapper`` conv
+without bias. LBBDM's ``condition_key: SpatialRescaler`` context.
 
 ``ClassEmbedder`` and ``TransformerEmbedder``: cross-attention contexts
 [B, S, C] from class labels or token ids, for a UNet with
@@ -14,6 +14,7 @@ ported.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -32,13 +33,74 @@ from bbdm_tpu_torch.models.layers import (
 from bbdm_tpu_torch.parallel import collectives
 
 
+# jax.image.resize's method names -> its five methods
+RESIZE_METHODS = {"nearest": "nearest", "linear": "linear", "bilinear": "linear",
+                  "trilinear": "linear", "triangle": "linear", "cubic": "cubic",
+                  "bicubic": "cubic", "tricubic": "cubic", "lanczos3": "lanczos3",
+                  "lanczos5": "lanczos5"}
+
+
+def _kernel(kind, x):
+    """jax/_src/image/scale.py's kernels at distances x >= 0: the triangle, Keys
+    cubic with a = -0.5, Lanczos of radius 3 or 5."""
+    if kind == "linear":
+        return torch.clamp(1 - x, min=0)
+    if kind == "cubic":
+        out = ((1.5 * x - 2.5) * x) * x + 1.0
+        out = torch.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+        return torch.where(x >= 2.0, 0.0, out)
+    radius = 3.0 if kind == "lanczos3" else 5.0
+    y = radius * torch.sin(math.pi * x) * torch.sin(math.pi * x / radius)
+    out = torch.where(x > 1e-3, y / torch.where(x != 0, math.pi ** 2 * x ** 2, 1.0), 1.0)
+    return torch.where(x > radius, 0.0, out)
+
+
+def resize_weights(n_in, n_out, kind, device=None):
+    """float32 [n_in, n_out]: output sample j = sum_i input_i * w[i, j], as
+    ``jax.image.compute_weight_mat`` with ``antialias=False`` builds it: sample
+    points at half-pixel centres, each column renormalised over the taps that
+    fall inside the input, columns whose point lies outside it zero."""
+    inv_scale = n_in / n_out
+    sample = (torch.arange(n_out, dtype=torch.float32, device=device) + 0.5) * inv_scale - 0.5
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32, device=device)[:, None]).abs()
+    w = _kernel(kind, x)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * torch.finfo(torch.float32).eps,
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0)
+
+
+def resize(x, size, method="bilinear"):
+    """x: [B, C, H, W] -> [B, C, *size] as ``jax.image.resize(x, shape, method,
+    antialias=False)`` on the NHWC array: an axis whose size stays is left as
+    it is; ``nearest`` takes the input sample under each output pixel's centre,
+    the other methods contract each axis (H first) with :func:`resize_weights`.
+    An unknown ``method`` raises ValueError, as JAX raises."""
+    if method not in RESIZE_METHODS:
+        raise ValueError(f'Unknown resize method "{method}"')
+    kind = RESIZE_METHODS[method]
+    for dim, n_out in ((2, size[0]), (3, size[1])):
+        n_in = x.shape[dim]
+        if n_in == n_out:
+            continue
+        if kind == "nearest":
+            at = torch.floor((torch.arange(n_out, dtype=torch.float32, device=x.device) + 0.5)
+                             * n_in / n_out).long()
+            x = x.index_select(dim, at)
+        else:
+            w = resize_weights(n_in, n_out, kind, x.device).to(x.dtype)
+            x = torch.einsum("bchw,hk->bckw" if dim == 2 else "bchw,wk->bchk", x, w)
+    return x
+
+
 class SpatialRescaler(nn.Module):
     def __init__(self, in_channels=3, *, n_stages=1, method="bilinear", multiplier=0.5,
                  out_channels=None, bias=False, dtype=None, device=None):
         super().__init__()
-        if method != "bilinear":
-            raise NotImplementedError(f"SpatialRescaler method {method!r} is not ported")
-        self.n_stages, self.multiplier = n_stages, multiplier
+        if method not in RESIZE_METHODS:
+            raise ValueError(f'Unknown resize method "{method}"')
+        self.n_stages, self.method, self.multiplier = n_stages, method, multiplier
         self.channel_mapper = None
         if out_channels is not None:
             self.channel_mapper = conv1x1(in_channels, out_channels, bias=bias, dtype=dtype,
@@ -48,8 +110,7 @@ class SpatialRescaler(nn.Module):
         """x: [B, C, H, W] -> [B, C', H * m^n, W * m^n]."""
         for _ in range(self.n_stages):
             H, W = x.shape[-2:]
-            x = F.interpolate(x, size=(int(H * self.multiplier), int(W * self.multiplier)),
-                              mode="bilinear", align_corners=False, antialias=False)
+            x = resize(x, (int(H * self.multiplier), int(W * self.multiplier)), self.method)
         return self.channel_mapper(x) if self.channel_mapper is not None else x
 
     @staticmethod

@@ -34,6 +34,10 @@ _SIGNATURES = {
     "jpeg_info": [_P, _L, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, _I],
     # data, size, out uint8 [height, width, 3], err, err size
     "jpeg_decode": [_P, _L, _P, ctypes.c_char_p, _I],
+    # data, size, out [canvas height, canvas width], err, err size
+    "webp_info": [_P, _L, ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, _I],
+    # data, size, out uint8 [height, width, 3], err, err size
+    "webp_decode": [_P, _L, _P, ctypes.c_char_p, _I],
     # uint8 indices, count, out, out capacity -> length of the LZW stream, or -1
     "gif_lzw": [_P, _L, _P, _L],
 }

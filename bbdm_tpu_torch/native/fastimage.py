@@ -1,4 +1,5 @@
-"""numpy wrappers over the host image library (``fastimage.cpp``, ``jpeg.cpp``).
+"""numpy wrappers over the host image library (``fastimage.cpp``, ``jpeg.cpp``,
+``webp.cpp``).
 
 Each checks shapes and dtypes, hands contiguous buffers to one C entry (ctypes
 releases the GIL for the call, so loader threads decode in parallel) and
@@ -59,6 +60,20 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         raise ValueError(err.value.decode())
     out = np.empty((info[0], info[1], 3), np.uint8)
     if lib.jpeg_decode(data, len(data), out.ctypes.data, err, len(err)):
+        raise ValueError(err.value.decode())
+    return out
+
+
+def decode_webp(data: bytes) -> np.ndarray:
+    """WebP bytes -> uint8 [H, W, 3], as libwebp decodes them by default: the RGB
+    of a still image, or of an animation's first frame on its canvas."""
+    lib = library()
+    err = ctypes.create_string_buffer(256)
+    info = (ctypes.c_int * 2)()
+    if lib.webp_info(data, len(data), info, err, len(err)):
+        raise ValueError(err.value.decode())
+    out = np.empty((info[0], info[1], 3), np.uint8)
+    if lib.webp_decode(data, len(data), out.ctypes.data, err, len(err)):
         raise ValueError(err.value.decode())
     return out
 

@@ -9,10 +9,12 @@
 ``PIL.Image.open(path).convert("RGB")``, chosen by the file's signature: PNG
 (every colour type and bit depth, palettes, Adam7 interlace; the row filters
 undone by the host library, ``native/fastimage.cpp``), JPEG (the host
-library's decoder, ``native/jpeg.cpp``) and BMP (uncompressed 24/32-bit and
-1/4/8-bit palettes). WebP raises. With ``imread=True`` it reads as
-``cv2.imread`` does instead (the JAX package's ``custom_colorization_LAB``):
-the EXIF orientation applied and 16-bit gray kept as its high byte.
+library's decoder, ``native/jpeg.cpp``), BMP (uncompressed 24/32-bit and
+1/4/8-bit palettes) and WebP (lossy, lossless, with alpha, an animation's
+first frame; the host library's decoder, ``native/webp.cpp``). With
+``imread=True`` it reads as ``cv2.imread`` does instead (the JAX package's
+``custom_colorization_LAB``): the EXIF orientation applied and 16-bit gray
+kept as its high byte.
 
 :func:`read_png` and :func:`decode_png` are the plain version of the 8-bit PNG
 path, in numpy and Python: None, Sub and Up rows are undone in numpy; Average
@@ -30,7 +32,7 @@ import zlib
 
 import numpy as np
 
-from bbdm_tpu_torch.native.fastimage import decode_jpeg, unfilter
+from bbdm_tpu_torch.native.fastimage import decode_jpeg, decode_webp, unfilter
 
 PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
@@ -196,7 +198,6 @@ def to_rgb(img: np.ndarray) -> np.ndarray:
 
 # ------------------------------------------------------------ every format
 
-WEBP_ROADMAP = "WebP is not read by the PyTorch port (ROADMAP.md §1 item 11)"
 _ADAM7 = ((0, 0, 8, 8), (0, 4, 8, 8), (4, 0, 8, 4), (0, 2, 4, 4), (2, 0, 4, 2), (0, 1, 2, 2),
           (1, 0, 2, 1))  # (row start, column start, row step, column step) of each pass
 PNG_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
@@ -389,8 +390,9 @@ def _tiff_orientation(tiff: bytes) -> int:
 def exif_orientation(data: bytes) -> int:
     """The EXIF orientation (1-8; 1 is upright) that ``cv2.imread`` applies:
     from a JPEG's first APP1 segment (past its 6-byte ``Exif\\0\\0`` header,
-    which OpenCV does not check) or a PNG's ``eXIf`` chunk before the image
-    data; 1 for any other file."""
+    which OpenCV does not check), a PNG's ``eXIf`` chunk before the image
+    data or a WebP's ``EXIF`` chunk (a TIFF block from its first byte); 1 for
+    any other file."""
     if data[:3] == b"\xff\xd8\xff":
         pos = 2
         while pos + 4 <= len(data) and data[pos] == 0xFF:
@@ -410,6 +412,13 @@ def exif_orientation(data: bytes) -> int:
             if kind in (b"IDAT", b"IEND"):
                 break
             pos += 12 + n
+    elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
+        pos = 12
+        while pos + 8 <= len(data):
+            (n,), kind = struct.unpack("<I", data[pos + 4:pos + 8]), data[pos:pos + 4]
+            if kind == b"EXIF":
+                return _tiff_orientation(data[pos + 8:pos + 8 + n])
+            pos += 8 + n + (n & 1)
     return 1
 
 
@@ -444,9 +453,9 @@ def decode_image(data: bytes, imread: bool = False) -> np.ndarray:
     elif data[:2] == b"BM":
         img = decode_bmp_rgb(data)
     elif data[:4] == b"RIFF" and data[8:12] == b"WEBP":
-        raise ValueError(WEBP_ROADMAP)
+        img = decode_webp(data)
     else:
-        raise ValueError("not a PNG, JPEG or BMP file")
+        raise ValueError("not a PNG, JPEG, BMP or WebP file")
     if imread and (turn := _ORIENTED.get(exif_orientation(data))):
         img = np.ascontiguousarray(turn(img))
     return img

@@ -152,17 +152,22 @@ Phases, each of which must pass:
    ``native/``, built with g++ after the kernels, its build seconds printed):
    (a) every committed fixture of ``tests/data/torch_images/`` decoded against
    its stored array (Pillow's RGB; OpenCV's LAB of ``cv2.imread``'s reading,
-   EXIF orientation and 16-bit gray included; the 256^2 JPEGs' digests), the
-   WebP refused; host ms per 256^2 image: PNG by row filter (the inflate, the
-   row filters undone in C++ and in numpy/Python, the C++ calls of
-   ``load_image``) and JPEG 4:2:0, 4:4:4 and progressive; the host's CPU count;
+   EXIF orientation and 16-bit gray included; the 256^2 JPEGs' digests), and
+   every WebP fixture of its ``webp/`` directory (Pillow's RGB, ``cv2.imread``'s
+   of the EXIF-rotated file, the 256^2 files' digests); host ms per 256^2
+   image: PNG by row filter (the inflate, the row filters undone in C++ and in
+   numpy/Python, the C++ calls of ``load_image``), JPEG 4:2:0, 4:4:4 and
+   progressive, and WebP (VP8 q75, q90 and with ALPH of a photo-like image,
+   VP8L of it and of it quantized to 64 colours); the host's CPU count;
    (b) batches per second of the train loader (batch 8) over a synthetic
    256^2 tree whose rows are all filtered Paeth (64 train images, flipped to
    128: 16 batches an epoch), with one thread and the default threads, and
    with ``cache_in_ram`` cold and warm, each over 5 readings of 4 epochs (300
    timed batches, the threads already running; median, min, max), and the
-   cache's bytes per image; (c) ``main_torch.main --train`` of
-   ``Template-LBBDM-f4.yaml`` at full width on that tree as
+   cache's bytes per image; the same with one thread and the default threads
+   over a tree of VP8 q85 files (``webp/tree256/``: eight of the Paeth tree's
+   images re-encoded, copied to 64 train images); (c) ``main_torch.main
+   --train`` of ``Template-LBBDM-f4.yaml`` at full width on the Paeth tree as
    ``custom_inpainting`` with ``cache_in_ram`` and flip, 2 epochs of 16
    microbatches, one validation epoch and one save: seconds per microbatch and
    the idle share of each epoch (device busy from torch.profiler's kernels in
@@ -171,8 +176,9 @@ Phases, each of which must pass:
    box equal to the numpy rule for its epoch's seed; (d) ``--sample_to_eval``
    of 8 pairs (20 steps, 1 draw) from that checkpoint over a
    ``custom_colorization_LAB`` tree of the committed JPEG fixtures (an
-   EXIF-rotated one among them): the output tree and the launches of all three
-   kernels.
+   EXIF-rotated one among them), and another over a ``custom_aligned`` tree of
+   8 pairs of the 256^2 VP8 q85 files: each output tree and the launches of
+   all three kernels.
 
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
@@ -3202,57 +3208,66 @@ LOADER_READINGS, LOADER_EPOCHS = 5, 4  # 5 readings of 4 epochs of 15 timed batc
 FIXTURES = os.path.join("tests", "data", "torch_images")
 
 
-def fixture_arrays(root):
-    """The committed fixtures' expected arrays and digests (``make_fixtures.py``)."""
+def fixture_arrays(root, sub=""):
+    """The committed fixtures' expected arrays and digests (``make_fixtures.py``;
+    ``sub="webp"``: ``webp/make_webp_fixtures.py``)."""
     import numpy as np
 
-    with np.load(os.path.join(root, FIXTURES, "expected.npz")) as z:
+    with np.load(os.path.join(root, FIXTURES, sub, "expected.npz")) as z:
         return {k: z[k].tobytes() if k.startswith("sha256:") else
                 np.cumsum(z[k], axis=1, dtype=np.uint8) for k in z.files}
 
 
+def decode_ms(decode, paths, reps=20):
+    """Host ms per call of ``decode`` on each file's bytes (after one untimed call)."""
+    out = {}
+    for path in paths:
+        with open(path, "rb") as f:
+            data = f.read()
+        decode(data)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            decode(data)
+        out[os.path.basename(path)] = (time.perf_counter() - t0) / reps * 1e3
+    return out
+
+
 def codec_checks(root):
-    """Every committed fixture decoded against its stored array (LAB too), the
-    WebP refused; host ms per 256^2 image: PNG by row filter (C++ beside
-    numpy/Python) and JPEG 4:2:0 / 4:4:4 / progressive; the host's CPU count."""
+    """Every committed fixture decoded against its stored array (LAB, WebP,
+    WebP as ``cv2.imread`` too); host ms per 256^2 image: PNG by row filter
+    (C++ beside numpy/Python), JPEG 4:2:0 / 4:4:4 / progressive, WebP; the
+    host's CPU count."""
     import hashlib
 
     from bbdm_tpu_torch.data.colors import rgb_to_lab
     from bbdm_tpu_torch.native import fastimage
     from bbdm_tpu_torch.utils.images import read_image
 
-    want = fixture_arrays(root)
+    checked = {}
+    for sub in ("", "webp"):
+        fdir = os.path.join(root, FIXTURES, sub)
+        checked[sub or "png_jpeg_bmp"] = 0
+        for key, arr in sorted(fixture_arrays(root, sub).items()):
+            kind, _, name = key.rpartition(":")
+            got = read_image(os.path.join(fdir, name), imread=kind in ("lab", "imread"))
+            if kind == "sha256":
+                ok = hashlib.sha256(got.tobytes()).digest() == arr
+            else:
+                ok = (rgb_to_lab(got) if kind == "lab" else got).tobytes() == arr.tobytes() \
+                    and got.shape == arr.shape
+            if not ok:
+                raise AssertionError(f"fixture {sub}/{key}: decoded array differs from the "
+                                     "stored one")
+            checked[sub or "png_jpeg_bmp"] += 1
     fdir = os.path.join(root, FIXTURES)
-    checked = 0
-    for key, arr in sorted(want.items()):
-        kind, _, name = key.rpartition(":")
-        got = read_image(os.path.join(fdir, name), imread=kind == "lab")
-        if kind == "sha256":
-            ok = hashlib.sha256(got.tobytes()).digest() == arr
-        else:
-            ok = (rgb_to_lab(got) if kind == "lab" else got).tobytes() == arr.tobytes() \
-                and got.shape == arr.shape
-        if not ok:
-            raise AssertionError(f"fixture {key}: decoded array differs from the stored one")
-        checked += 1
-    try:
-        read_image(os.path.join(fdir, "image.webp"))
-    except ValueError as e:
-        if "ROADMAP.md" not in str(e):
-            raise
-    else:
-        raise AssertionError("the WebP fixture was read")
-    jpeg = {}
-    for name in sorted(os.listdir(os.path.join(fdir, "jpeg256"))):
-        with open(os.path.join(fdir, "jpeg256", name), "rb") as f:
-            data = f.read()
-        fastimage.decode_jpeg(data)
-        t0 = time.perf_counter()
-        for _ in range(20):
-            fastimage.decode_jpeg(data)
-        jpeg[name] = (time.perf_counter() - t0) / 20 * 1e3
+    jpeg = decode_ms(fastimage.decode_jpeg, sorted(
+        os.path.join(fdir, "jpeg256", f) for f in os.listdir(os.path.join(fdir, "jpeg256"))))
+    webp = decode_ms(fastimage.decode_webp, sorted(
+        os.path.join(fdir, "webp", f) for f in os.listdir(os.path.join(fdir, "webp"))
+        if f.endswith("_256.webp")))
     return {"fixtures_checked": checked, "png_ms_256": png_decode_ms(),
-            "jpeg_decode_ms_256": jpeg, "host_cpu_count": os.cpu_count()}
+            "jpeg_decode_ms_256": jpeg, "webp_decode_ms_256": webp,
+            "host_cpu_count": os.cpu_count()}
 
 
 def write_paeth_tree(root, size, counts, seed):
@@ -3264,10 +3279,28 @@ def write_paeth_tree(root, size, counts, seed):
                                textured_u8(size, seed + 100 * len(stage) + i), (4,))
 
 
-def loader_rates(cfg):
-    """Batches per second of the train loader (batch 8) over the Paeth tree:
-    one thread and the default threads with no cache; ``cache_in_ram`` cold
-    (cleared before each epoch) and warm (filled before the clock). Each epoch
+def write_webp_tree(root, counts):
+    """``<stage>/<i>.webp`` (train, val, test): the committed 256^2 VP8 q85
+    files (``webp/tree256/``) copied in turn."""
+    import shutil
+
+    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURES, "webp", "tree256")
+    files = sorted(os.listdir(src))
+    for stage, n in zip(("train", "val", "test"), counts):
+        os.makedirs(os.path.join(root, stage), exist_ok=True)
+        for i in range(n):
+            shutil.copy(os.path.join(src, files[i % len(files)]),
+                        os.path.join(root, stage, f"{i:04d}.webp"))
+
+
+LOADER_SETTINGS = ("one_thread", "default_threads", "cache_in_ram_cold", "cache_in_ram_warm")
+
+
+def loader_rates(cfg, settings=LOADER_SETTINGS):
+    """Batches per second of the train loader (batch 8) over cfg's tree, for
+    each of ``settings``: one thread and the default threads with no cache;
+    ``cache_in_ram`` cold (cleared before each epoch) and warm (filled before
+    the clock). Each epoch
     is timed from its first batch to its last, so the decode threads and the
     prefetch thread are running before the clock starts; a reading sums
     LOADER_EPOCHS epochs, and each setting takes LOADER_READINGS readings
@@ -3297,6 +3330,8 @@ def loader_rates(cfg):
     for label, workers, cache in (("one_thread", 0, False), ("default_threads", None, False),
                                   ("cache_in_ram_cold", None, True),
                                   ("cache_in_ram_warm", None, True)):
+        if label not in settings:
+            continue
         cfg.data.dataset_config.cache_in_ram = cache
         clear_image_cache()
         loader = DataLoader(get_dataset(cfg.data)[0], bs, shuffle=True, num_workers=workers)
@@ -3323,11 +3358,13 @@ def vqgan_checkpoint(cfg, dev, path):
     del m
 
 
-def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None):
+def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
+               aligned_config=None):
     """Phase 12 (see the module docstring): the host codec, the loader, LBBDM-f4
     training on a ``custom_inpainting`` Paeth tree under ``cache_in_ram`` and
     ``--sample_to_eval`` from a ``custom_colorization_LAB`` tree of the JPEG
-    fixtures, through ``main_torch.main``. ``config``/``lab_config`` let a CPU
+    fixtures and from a ``custom_aligned`` tree of WebP files, through
+    ``main_torch.main``. ``config``/``lab_config``/``aligned_config`` let a CPU
     rehearsal pass tiny models."""
     import shutil
     import statistics as st
@@ -3343,9 +3380,10 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None):
     here = os.path.dirname(os.path.abspath(__file__))
     out = {"codec": codec_checks(here)}
     c = out["codec"]
-    log(f"  codec: {c['fixtures_checked']} stored fixture arrays equal, WebP refused; host "
+    log(f"  codec: stored fixture arrays equal {json.dumps(c['fixtures_checked'])}; host "
         f"CPUs {c['host_cpu_count']}; JPEG decode ms per 256^2 image "
-        f"{json.dumps(c['jpeg_decode_ms_256'])}; PNG ms per 256^2 image by row filter "
+        f"{json.dumps(c['jpeg_decode_ms_256'])}; WebP decode ms per 256^2 image "
+        f"{json.dumps(c['webp_decode_ms_256'])}; PNG ms per 256^2 image by row filter "
         f"{json.dumps(c['png_ms_256'])}")
 
     work = os.path.join(root, "data-phase")
@@ -3364,6 +3402,15 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None):
         f"{t1 - t0:.1f} s; train loader (batch {cfg.data.train.batch_size}, "
         f"custom_inpainting, flipped, at {size}^2; {time.time() - t1:.1f} s), batches per "
         "s: " + json.dumps(out["loader_batches_per_s"]))
+    webp_tree = os.path.join(work, "webp")
+    write_webp_tree(webp_tree, (DATA_TRAIN, DATA_VAL, DATA_TEST))
+    d.dataset_path = webp_tree
+    t1 = time.time()
+    out["loader_batches_per_s_webp"] = loader_rates(cfg, LOADER_SETTINGS[:2])
+    log(f"  VP8 q85 tree of {DATA_TRAIN}/{DATA_VAL}/{DATA_TEST} 256^2 files, train loader "
+        f"({time.time() - t1:.1f} s), batches per s: "
+        + json.dumps(out["loader_batches_per_s_webp"]))
+    d.dataset_path = tree
 
     # (c) training through main_torch.main, cache_in_ram on
     d.cache_in_ram = True
@@ -3493,42 +3540,57 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None):
     ckpt = os.path.join(runner.config.result.ckpt_path, "last_model.ckpt")
     del runner, prof
 
-    # (d) --sample_to_eval from a custom_colorization_LAB tree of the JPEG fixtures
-    jpegs = sorted(f for f in os.listdir(os.path.join(here, FIXTURES)) if f.endswith(".jpg"))
+    # (d) --sample_to_eval from that checkpoint over a LAB tree of the JPEG
+    # fixtures and over a custom_aligned tree of WebP pairs
+    def sample_to_eval(key, label, c, kind, tree, names):
+        c.data.dataset_type = kind
+        c.data.dataset_config.dataset_path = tree
+        c.model.VQGAN.params.ckpt_path = cfg.model.VQGAN.params.ckpt_path
+        c.model.BB.params.sample_step = SAMPLE_STEP
+        c.testing.sample_num = 1
+        path = os.path.join(work, f"{key}.yaml")
+        save_config(c, path)
+        for mod, attr in counters.values():
+            getattr(mod, attr).launches = 0
+        t0 = time.time()
+        runner = main_torch.main(["-c", path, "--sample_to_eval", "--resume_model", ckpt, "-r",
+                                  os.path.join(work, f"results-{key}"), "-s", str(CLI_SEED),
+                                  "--gpu_ids", gpu_ids])
+        wall = time.time() - t0
+        launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+        want = expected_launches(kernel_calls(c.model, bs), steps=len(runner.model.coeffs.steps),
+                                 draws=1, batches=1)
+        check_tree(runner.config.result.sample_to_eval_path, names, names, SAMPLE_STEP, 1,
+                   c.data.dataset_config.image_size)
+        out[f"{key}_sample_to_eval"] = {"wall_s": wall, "launches": launches, "expected": want,
+                                        "names": names}
+        log(f"  {label} --sample_to_eval ({SAMPLE_STEP} steps, 1 draw): {wall:.1f} s, "
+            f"launches {launches} (kernel_calls: {want}), tree checked")
+        if launches != want or min(launches.values()) <= 0:
+            raise AssertionError(f"{label} sample_to_eval: launches {launches} != {want}")
+
     bs = cfg.data.test.batch_size
+    jpegs = sorted(f for f in os.listdir(os.path.join(here, FIXTURES)) if f.endswith(".jpg"))
     lab_tree = os.path.join(work, "lab")
     for stage in ("train", "val", "test"):
         os.makedirs(os.path.join(lab_tree, stage))
         for f in jpegs[:bs]:
             shutil.copy(os.path.join(here, FIXTURES, f), os.path.join(lab_tree, stage, f))
-    lab = lab_config or load_config(template)
-    lab.data.dataset_type = "custom_colorization_LAB"
-    lab.data.dataset_config.dataset_path = lab_tree
-    lab.model.VQGAN.params.ckpt_path = cfg.model.VQGAN.params.ckpt_path
-    lab.model.BB.params.sample_step = SAMPLE_STEP
-    lab.testing.sample_num = 1
-    lab_path = os.path.join(work, "lab.yaml")
-    save_config(lab, lab_path)
-    for mod, attr in counters.values():
-        getattr(mod, attr).launches = 0
-    t0 = time.time()
-    runner = main_torch.main(["-c", lab_path, "--sample_to_eval", "--resume_model", ckpt, "-r",
-                              os.path.join(work, "results-lab"), "-s", str(CLI_SEED),
-                              "--gpu_ids", gpu_ids])
-    wall = time.time() - t0
-    launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
-    want = expected_launches(kernel_calls(lab.model, bs), steps=len(runner.model.coeffs.steps),
-                             draws=1, batches=1)
-    names = [os.path.splitext(f)[0] for f in jpegs[:bs]]
-    check_tree(runner.config.result.sample_to_eval_path, names, names, SAMPLE_STEP, 1,
-               lab.data.dataset_config.image_size)
-    out["lab_sample_to_eval"] = {"wall_s": wall, "launches": launches, "expected": want,
-                                 "names": names}
-    log(f"  LAB --sample_to_eval ({bs} JPEG fixtures, {SAMPLE_STEP} steps, 1 draw): "
-        f"{wall:.1f} s, launches {launches} (kernel_calls: {want}), tree checked")
-    if launches != want or min(launches.values()) <= 0:
-        raise AssertionError(f"LAB sample_to_eval: launches {launches} != {want}")
-    del runner
+    sample_to_eval("lab", f"LAB ({bs} JPEG fixtures)", lab_config or load_config(template),
+                   "custom_colorization_LAB", lab_tree,
+                   [os.path.splitext(f)[0] for f in jpegs[:bs]])
+    src = os.path.join(here, FIXTURES, "webp", "tree256")
+    webps = sorted(os.listdir(src))[:bs]
+    aligned_tree = os.path.join(work, "aligned-webp")
+    for stage in ("train", "val", "test"):
+        for side, shift in (("A", 0), ("B", 1)):
+            os.makedirs(os.path.join(aligned_tree, stage, side))
+            for i, f in enumerate(webps):
+                shutil.copy(os.path.join(src, webps[(i + shift) % len(webps)]),
+                            os.path.join(aligned_tree, stage, side, f))
+    sample_to_eval("webp", f"WebP ({bs} custom_aligned VP8 q85 pairs)",
+                   aligned_config or load_config(template), "custom_aligned", aligned_tree,
+                   [os.path.splitext(f)[0] for f in webps])
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -3732,7 +3794,8 @@ def main() -> int:
                 k = short[e["name"]]
                 e["launches_by_path"].update({
                     "data_inpainting_train": data["train"]["launches"][k],
-                    "data_lab_sample_to_eval": data["lab_sample_to_eval"]["launches"][k]})
+                    "data_lab_sample_to_eval": data["lab_sample_to_eval"]["launches"][k],
+                    "data_webp_sample_to_eval": data["webp_sample_to_eval"]["launches"][k]})
             log(f"data layer: ok ({time.time() - t0:.1f} s)")
         except Exception:
             traceback.print_exc()

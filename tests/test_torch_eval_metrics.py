@@ -160,16 +160,18 @@ def test_to_rgb_equals_pillow_convert_rgb(tmp_path, channels):
 
 
 def test_non_png_images_raise_naming_the_roadmap_item(tmp_path):
-    """JPEG and BMP files are listed (``read_image`` reads them); a WebP file,
-    the one format of the JAX list the port does not read, raises."""
+    """``image_files`` lists the formats of the JAX package's list, WebP
+    among them, and ``read_images`` reads a WebP file as Pillow reads it."""
     write_png(str(tmp_path / "a.png"), np.zeros((4, 4, 3), np.uint8))
     (tmp_path / "b.jpg").write_bytes(b"\xff\xd8")
     (tmp_path / "c.bmp").write_bytes(b"BM")
-    assert [os.path.basename(f) for f in pfid.image_files(str(tmp_path))] == \
-        ["a.png", "b.jpg", "c.bmp"]
-    (tmp_path / "d.webp").write_bytes(b"RIFF")
-    with pytest.raises(ValueError, match=r"d\.webp: .*ROADMAP.md §1 item 11"):
-        pfid.image_files(str(tmp_path))
+    (tmp_path / "e.txt").write_bytes(b"RIFF")
+    rgb = image(np.random.RandomState(4), 3)
+    Image.fromarray(rgb).save(tmp_path / "d.webp", format="WEBP", quality=80)
+    files = pfid.image_files(str(tmp_path))
+    assert [os.path.basename(f) for f in files] == ["a.png", "b.jpg", "c.bmp", "d.webp"]
+    want = np.asarray(Image.open(tmp_path / "d.webp").convert("RGB"), np.float32) / 255.0
+    np.testing.assert_array_equal(pfid.read_images(files[3:]), want[None])
 
 
 # ------------------------------------------------------------------- metrics

@@ -70,8 +70,14 @@ def test_the_256_jpegs_equal_pillow_and_their_digest(name):
 
 
 def test_webp_raises_naming_the_file_and_the_roadmap():
-    with pytest.raises(ValueError, match=r"image\.webp: WebP .*ROADMAP.md §1 item 11"):
-        read_image(os.path.join(FIXTURES, "image.webp"))
+    """The WebP fixture of this directory reads as Pillow reads it (the WebP
+    decoder's own tests are ``test_torch_webp.py``); a file that is not an
+    image raises naming the file."""
+    path = os.path.join(FIXTURES, "image.webp")
+    with open(path, "rb") as f:
+        np.testing.assert_array_equal(read_image(path), pillow_rgb(f.read()))
+    with pytest.raises(ValueError, match=r"make_fixtures\.py: not a PNG, JPEG, BMP or WebP"):
+        read_image(os.path.join(FIXTURES, "make_fixtures.py"))
 
 
 @pytest.mark.parametrize("quality", [5, 30, 50, 75, 90, 95, 100])
