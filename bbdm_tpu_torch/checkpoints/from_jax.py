@@ -5,7 +5,8 @@ The port's module names are the flax names, so the mapping is mechanical:
 [out, in], a 3-D ``DenseGeneral`` kernel as it is: the port keeps flax's
 layout), ``a.b.scale`` (GroupNorm, LayerNorm) -> ``a.b.weight``, ``bias``,
 the codebook's and ``nn.Embed``'s ``embedding`` and free parameters such as
-``pos_emb`` as they are. A reference ``.pth`` loads as
+``pos_emb`` as they are; a ``BERTEmbedder``'s ``transformer/...`` tree maps
+to its ``transformer.`` entries by the same rule. A reference ``.pth`` loads as
 ``checkpoints/torch_import.py`` composed with this function. Latent
 statistics are NHWC ``[1, 1, 1, C]`` in a checkpoint, ``[1, C, 1, 1]`` in the
 port. The optimizer's moments and the plateau state convert both ways too,

@@ -166,6 +166,30 @@ class BrownianBridgeModel(nn.Module):
                 for m in mods:
                     m.combined = None
 
+    @torch.inference_mode()
+    def q_sample_loop(self, x0, y, *, generator: Optional[torch.Generator] = None,
+                      noise=None):
+        """The forward-bridge trajectory (``bbdm_tpu/models/bridge.py:227-238``):
+        [T, B, C, H, W], entry t the :meth:`q_sample` draw of x_t at t, each t
+        with fresh noise in x0's dtype, drawn from ``generator`` at the global
+        batch's shape (this rank's rows kept) unless ``noise`` (T tensors of
+        x0's shape, e.g. the JAX package's draws) is given. As in JAX, the
+        fp32 schedule promotes a 16-bit x0 to an fp32 trajectory."""
+        T, B = self.num_timesteps, x0.shape[0]
+        if noise is not None and len(noise) != T:
+            raise ValueError(f"need {T} noise tensors, got {len(noise)}")
+        out = None
+        for t in range(T):
+            eps = (noise[t].to(x0.dtype) if noise is not None else
+                   collectives.randn(x0.shape, generator=generator, dtype=x0.dtype,
+                                     device=x0.device))
+            tt = torch.full((B,), t, dtype=torch.long, device=x0.device)
+            x_t, _ = self.q_sample(x0, y, tt, eps)
+            if out is None:
+                out = x_t.new_empty((T, *x_t.shape))
+            out[t] = x_t
+        return out
+
     def noised_steps(self) -> int:
         """How many noise tensors one ``p_sample_loop`` draws (its ``noise=`` length)."""
         return len(self.coeffs.steps) - (self.sampler == "heun")

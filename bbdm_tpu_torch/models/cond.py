@@ -7,14 +7,19 @@ without bias. LBBDM's ``condition_key: SpatialRescaler`` context.
 
 ``ClassEmbedder`` and ``TransformerEmbedder``: cross-attention contexts
 [B, S, C] from class labels or token ids, for a UNet with
-``use_spatial_transformer``. The JAX package's ``BERTEmbedder`` needs a
-pretrained tokenizer vocabulary the repository does not hold, and is not
-ported.
+``use_spatial_transformer``. ``BERTEmbedder``: a ``TransformerEmbedder`` fed
+by ``BERTTokenizer``, a plain-Python WordPiece tokenizer that gives
+``transformers.BertTokenizerFast``'s ids from a local vocabulary directory
+(``vocab.txt``, the user's to supply; nothing is downloaded).
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
+import re
+import unicodedata
 from typing import Optional
 
 import torch
@@ -183,3 +188,208 @@ class TransformerEmbedder(_Init):
             f = layer(f"ff_in_{i}")(layer(f"ln_ff_{i}")(h))
             h = h + layer(f"ff_out_{i}")(F.gelu(f, approximate="tanh"))
         return self.ln_final(h).float()
+
+
+# ------------------------------------------------------------------ BERT
+
+# the special tokens BertTokenizerFast matches in the raw text, and the order in
+# which it gives new ids to those the vocabulary lacks
+_SPECIALS = (("unk_token", "[UNK]"), ("sep_token", "[SEP]"), ("pad_token", "[PAD]"),
+             ("cls_token", "[CLS]"), ("mask_token", "[MASK]"))
+_CJK = ((0x4E00, 0x9FFF), (0x3400, 0x4DBF), (0x20000, 0x2A6DF), (0x2A700, 0x2B73F),
+        (0x2B740, 0x2B81F), (0x2B920, 0x2CEAF), (0xF900, 0xFAFF), (0x2F800, 0x2FA1F))
+# Unicode White_Space (Rust's char::is_whitespace), on which the pre-tokenizer splits
+_WHITESPACE = frozenset(map(chr, [*range(0x9, 0xE), 0x20, 0x85, 0xA0, 0x1680,
+                                  *range(0x2000, 0x200B), 0x2028, 0x2029, 0x202F, 0x205F,
+                                  0x3000]))
+
+
+# the "other" categories whose chars the normalizer drops; unassigned code points
+# (Cn) stay, as the fast tokenizer's tables have none
+_CONTROL = frozenset(("Cc", "Cf", "Co", "Cs"))
+
+
+def _is_cjk(c: str) -> bool:
+    o = ord(c)
+    return any(lo <= o <= hi for lo, hi in _CJK)
+
+
+def _is_punctuation(c: str) -> bool:
+    o = ord(c)
+    return (33 <= o <= 47 or 58 <= o <= 64 or 91 <= o <= 96 or 123 <= o <= 126
+            or unicodedata.category(c).startswith("P"))
+
+
+class BERTTokenizer:
+    """Text -> int32 token ids [B, max_length], the ids
+    ``BertTokenizerFast.from_pretrained(name_or_path)`` gives under the call of
+    ``bbdm_tpu/models/cond.py:123-155`` (truncation to ``max_length``
+    including ``[CLS]``/``[SEP]``, padded right with ``[PAD]``), in plain
+    Python: no ``transformers``.
+
+    ``name_or_path`` is a directory holding ``vocab.txt`` (one token a line,
+    id = line number, a repeated token keeping its last line) and optionally
+    ``tokenizer_config.json``, of which ``do_lower_case`` (True),
+    ``strip_accents`` (None), ``tokenize_chinese_chars`` (True) and the
+    special tokens' names are read (``tokenizer.json`` and added tokens are
+    not). Anything else raises FileNotFoundError naming ``vocab.txt``: there
+    is no download.
+
+    The pipeline is the fast tokenizer's: the special tokens written in the
+    text are matched first, leftmost-longest, in the raw text; each piece
+    between them is normalized (Cc, Cf, Co and Cs chars but tab, newline and return, U+0000
+    and U+FFFD dropped,
+    whitespace to spaces, CJK ideographs padded with spaces, accents stripped
+    through NFD where ``strip_accents`` is set or, unset, where lowercasing,
+    then lowercased char by char), split on whitespace and around each
+    punctuation char, and each word split by greedy longest-match WordPiece
+    (``##`` continuations; ``[UNK]`` for a word of more than 100 chars or one
+    that does not split).
+    """
+
+    max_input_chars_per_word = 100
+
+    def __init__(self, vq_interface: bool = True, max_length: int = 77,
+                 name_or_path: str = "bert-base-uncased"):
+        vocab_path = os.path.join(name_or_path, "vocab.txt")
+        if not os.path.isfile(vocab_path):
+            raise FileNotFoundError(
+                f"{vocab_path}: no such file; BERTTokenizer reads the vocabulary from a "
+                f"local directory (name_or_path) and downloads nothing")
+        if max_length < 2:
+            raise ValueError(f"max_length {max_length} < 2 leaves no room for [CLS] and [SEP]")
+        self.vq_interface, self.max_length = vq_interface, max_length
+        self.vocab = {}
+        with open(vocab_path, encoding="utf-8") as f:
+            for i, line in enumerate(f):
+                self.vocab[line.rstrip("\n")] = i
+        cfg = {}
+        cfg_path = os.path.join(name_or_path, "tokenizer_config.json")
+        if os.path.isfile(cfg_path):
+            with open(cfg_path, encoding="utf-8") as f:
+                cfg = json.load(f)
+        self.lowercase = cfg.get("do_lower_case", True)
+        strip = cfg.get("strip_accents", None)
+        self.strip_accents = self.lowercase if strip is None else strip
+        self.chinese_chars = cfg.get("tokenize_chinese_chars", True)
+        self.special = {}  # role -> token
+        added = {}  # specials the vocabulary lacks: the next ids, as the fast tokenizer adds them
+        for role, default in _SPECIALS:
+            tok = cfg.get(role, default)
+            tok = tok["content"] if isinstance(tok, dict) else tok
+            self.special[role] = tok
+            if tok not in self.vocab and tok not in added:
+                added[tok] = len(self.vocab) + len(added)
+        self.ids = {**self.vocab, **added}
+        specials = sorted(set(self.special.values()), key=len, reverse=True)
+        self._special_re = re.compile("|".join(map(re.escape, specials)))
+
+    def _normalize(self, text: str) -> str:
+        out = []
+        for c in text:
+            o = ord(c)
+            if o == 0 or o == 0xFFFD or (c not in "\t\n\r"
+                                          and unicodedata.category(c) in _CONTROL):
+                continue
+            if c in _WHITESPACE:
+                out.append(" ")
+            elif self.chinese_chars and _is_cjk(c):
+                out.append(f" {c} ")
+            else:
+                out.append(c)
+        text = "".join(out)
+        if self.strip_accents:
+            text = "".join(c for c in unicodedata.normalize("NFD", text)
+                           if unicodedata.category(c) != "Mn")
+        if self.lowercase:
+            text = "".join(c.lower() for c in text)
+        return text
+
+    def _words(self, text: str):
+        word = []
+        for c in text:
+            if c in _WHITESPACE or _is_punctuation(c):
+                if word:
+                    yield "".join(word)
+                    word = []
+                if c not in _WHITESPACE:
+                    yield c
+            else:
+                word.append(c)
+        if word:
+            yield "".join(word)
+
+    def _wordpiece(self, word: str) -> list:
+        unk = [self.ids[self.special["unk_token"]]]
+        if len(word) > self.max_input_chars_per_word:
+            return unk
+        pieces, start = [], 0
+        while start < len(word):
+            end = len(word)
+            while end > start:
+                sub = word[start:end] if start == 0 else "##" + word[start:end]
+                if sub in self.vocab:
+                    pieces.append(self.vocab[sub])
+                    break
+                end -= 1
+            else:
+                return unk
+            start = end
+        return pieces
+
+    def tokenize_one(self, text: str) -> list:
+        """The ids of one text, before [CLS]/[SEP], truncation and padding."""
+        ids, at = [], 0
+        for m in [*self._special_re.finditer(text), None]:
+            piece = text[at:m.start() if m else len(text)]
+            for word in self._words(self._normalize(piece)):
+                ids.extend(self._wordpiece(word))
+            if m:
+                ids.append(self.ids[m.group()])
+                at = m.end()
+        return ids
+
+    def __call__(self, text) -> torch.Tensor:
+        texts = [text] if isinstance(text, str) else list(text)
+        sp = {role: self.ids[tok] for role, tok in self.special.items()}
+        rows = []
+        for t in texts:
+            ids = ([sp["cls_token"]] + self.tokenize_one(t)[:self.max_length - 2]
+                   + [sp["sep_token"]])
+            rows.append(ids + [sp["pad_token"]] * (self.max_length - len(ids)))
+        return torch.tensor(rows, dtype=torch.int32).reshape(len(rows), self.max_length)
+
+    def encode(self, text):
+        tokens = self(text)
+        if not self.vq_interface:
+            return tokens
+        return None, None, [None, None, tokens]
+
+    def decode(self, text):
+        return text
+
+
+class BERTEmbedder(nn.Module):
+    """BERT-tokenized text -> a [B, S, n_embed] fp32 context
+    (``bbdm_tpu/models/cond.py:158-187``): the :class:`TransformerEmbedder`
+    ``transformer`` (8 heads) over token ids; :meth:`tokenize` is the host-side
+    step from text (or, without ``use_tokenizer``, ids as they are)."""
+
+    def __init__(self, n_embed, n_layer, vocab_size=30522, max_seq_len=77,
+                 use_tokenizer=True, embedding_dropout=0.0, *, dtype=None, device=None):
+        super().__init__()
+        self.max_seq_len, self.use_tokenizer = max_seq_len, use_tokenizer
+        self.transformer = TransformerEmbedder(
+            n_embed, n_layer, vocab_size, max_seq_len=max_seq_len,
+            embedding_dropout=embedding_dropout, dtype=dtype, device=device)
+
+    def tokenize(self, text, name_or_path: str = "bert-base-uncased") -> torch.Tensor:
+        """int32 ids [B, max_seq_len] on the module's device."""
+        device = self.transformer.pos_emb.device
+        if not self.use_tokenizer:
+            return torch.as_tensor(text, dtype=torch.int32, device=device)
+        return BERTTokenizer(vq_interface=False, max_length=self.max_seq_len,
+                             name_or_path=name_or_path)(text).to(device)
+
+    def forward(self, tokens, *, generator: Optional[torch.Generator] = None):
+        return self.transformer(tokens, generator=generator)

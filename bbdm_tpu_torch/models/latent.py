@@ -88,6 +88,11 @@ class LatentBrownianBridgeModel(BrownianBridgeModel):
         quant, _, _ = self.vqgan.quantize_latent(z)
         return self.vqgan.decode_from_quant(quant)
 
+    def sample_vqgan(self, x):
+        """The VQGAN roundtrip (``bbdm_tpu/models/latent.py:173-176``): image
+        [B, 3, H, W] -> encode, quantize, decode (``VQModel.roundtrip``)."""
+        return self.vqgan.roundtrip(x)
+
     def get_cond_stage_context(self, x_cond):
         """The UNet's context; the SpatialRescaler's keeps its graph (it trains)."""
         if self.condition_key == "SpatialRescaler":

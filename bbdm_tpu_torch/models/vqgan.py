@@ -26,6 +26,7 @@ from bbdm_tpu_torch.models.layers import (
     UpsampleConv3x3,
     _Init,
     avg_pool_2x,
+    eval_mode,
     torch_default_init,
     upsample_nearest_2x,
 )
@@ -327,6 +328,15 @@ class VQModel(nn.Module):
         quant, qloss, _ = self.quantize_latent(self.encode_latent(x), temp=temp, train=train,
                                                u=u, generator=generator)
         return self.decode_from_quant(quant), qloss
+
+    @torch.no_grad()
+    def roundtrip(self, x):
+        """The reconstruction of image ``x`` [B, C, H, W] in eval mode without
+        gradient: encode, quantize, decode (the decoder's up-convs through the
+        subpixel kernel)."""
+        with eval_mode(self):
+            rec, _ = self(x.contiguous())
+        return rec
 
     @staticmethod
     def from_config(vq_params, *, dtype=None, device=None) -> "VQModel":

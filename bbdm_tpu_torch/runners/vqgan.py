@@ -175,9 +175,7 @@ class VQGANRunner(BaseRunner):
 
     def reconstruct(self, x: np.ndarray) -> np.ndarray:
         """NHWC float images -> NHWC float32 reconstructions (eval mode)."""
-        vq = self.model.vqgan
-        with eval_mode(vq), torch.no_grad():
-            xrec, _ = vq(self._to_device(x))
+        xrec = self.model.vqgan.roundtrip(self._to_device(x))
         return xrec.float().permute(0, 2, 3, 1).cpu().numpy()
 
     def sample(self, batch, sample_path, stage="train"):

@@ -178,7 +178,30 @@ Phases, each of which must pass:
    ``custom_colorization_LAB`` tree of the committed JPEG fixtures (an
    EXIF-rotated one among them), and another over a ``custom_aligned`` tree of
    8 pairs of the 256^2 VP8 q85 files: each output tree and the launches of
-   all three kernels.
+   all three kernels;
+13. the tools (``bbdm_tpu_torch/tools``): (a) ``bench_torch.py`` as its own
+   process at the full width of ``Template-LBBDM-f4.yaml`` (batch 8, 200 euler
+   steps, seeded weights): its JSON line, ``flops_per_sample`` equal to the
+   port's ``sampling_flops_per_image``, a finite output, and K1/K2/K3 launches
+   equal to :func:`kernel_calls`' counts over its 4 calls (1 warm-up, 3 timed);
+   (b) the same with ``BENCH_SAMPLER=heun BENCH_STEPS=20`` (39 UNet
+   evaluations a call); (c) ``tools.bench_train`` on the same template at batch
+   8 (11 train steps: the launches of 11 microbatches, a finite loss); (d)
+   none for ``tools.convert_checkpoint``, host code that launches no kernel
+   (the CPU tests hold it against the JAX script); (e) ``tools.vqgan_recon``
+   over phase 5's ``ground_truth`` tree with its VQGAN in bf16 and with
+   ``--fp32``: the launches of its batches, K2 and K3 all bf16 or all fp32 by
+   the entry each call took, PSNR/SSIM finite; (f) ``tools.sampler_sweep``
+   with ``euler:20,heun:10`` over phase 5's config and VQGAN and a seeded
+   bridge checkpoint: each report's ``nfe``, the launches of both variants,
+   and a second invocation that skips both and launches nothing; (g)
+   ``q_sample_loop`` over the 1000 steps at the f4 latent of batch 8 in bf16
+   against its fp32 self with the same noise, each element within 2^-7 of
+   |x0| + |y| + sigma_t |noise| (twice the bound of the bf16 rounding of the
+   inputs, 2^-8 relative), and its CUDA-event ms; (h) ``BERTEmbedder`` at LDM
+   txt2img-1.4B's width (n_embed 1280, 32 layers) on [8, 77] tokens that the
+   port's ``BERTTokenizer`` makes from a vocabulary the smoke writes, bf16
+   against fp32 within 3e-2 relative (Frobenius), and its ms.
 
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
@@ -2372,15 +2395,10 @@ def free_port():
 
 def kernel_launches(reset=False):
     """{K1, K2, K3: launches} of this process's kernel wrappers, after setting
-    them to 0 when ``reset``."""
-    from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+    them to 0 when ``reset`` (the benches' count, imported when called)."""
+    from bbdm_tpu_torch.tools.bench import kernel_launches as launches
 
-    fns = {"K1": group_norm.group_norm_cuda, "K2": upsample_conv.upsample_conv_cuda,
-           "K3": attention.flash_attention_cuda}
-    for f in fns.values():
-        if reset:
-            f.launches = 0
-    return {k: f.launches for k, f in fns.items()}
+    return launches(reset)
 
 
 def dp_rank(rank, ranks, port, dev, job, args, setup=None):
@@ -3595,6 +3613,254 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
     return out
 
 
+# ------------------------------------------------------------------ tools
+
+TOOLS_STEPS, TOOLS_HEUN_STEPS, TOOLS_BENCH_CALLS, TOOLS_TRAIN_STEPS = 200, 20, 4, 11
+# of |x0| + |y| + sigma_t |noise|, elementwise: twice the bound (2^-8 relative) of the
+# inputs' bf16 rounding
+Q_SAMPLE_BAR = 2.0 ** -7
+BERT_WIDTH, BERT_LAYERS, BERT_TOKENS = 1280, 32, 77  # LDM txt2img-1p4B's BERTEmbedder
+BERT_REL_BAR = 3e-2  # bf16 vs fp32, relative Frobenius; the CPU at depth 32, width 256: 1.3e-2
+BERT_TEXTS = ["a photograph of an astronaut riding a horse", "The cats sat, unaffable!",
+              "zebra crossing [SEP] at night", "Café au lait, naïve résumé",
+              "中文 and English mixed", "", "one two three " * 40,
+              "a painting of a lighthouse in a storm"]
+
+
+def run_tool(argv, env):
+    """One tool as its own process from the checkout's root: its output lines
+    logged, the JSON object of its last line returned; a non-zero exit raises."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable] + argv, cwd=here, env=env, capture_output=True,
+                          text=True, timeout=900)
+    for line in proc.stdout.strip().splitlines():
+        log("    " + line)
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+        raise AssertionError(f"{' '.join(argv)} exited {proc.returncode}")
+    return json.loads(proc.stdout.strip().splitlines()[-1])
+
+
+@contextlib.contextmanager
+def dtype_calls(seen):
+    """Count K2's and K3's launches by dtype in ``seen`` (the fp32 entries go
+    through ``_upconv_f32``/``_flash_f32``, the bf16 ones through
+    ``_upconv_bf16``/``_flash_bf16``)."""
+    from bbdm_tpu_torch.ops import attention, upsample_conv
+
+    saved = []
+    for mod, key, attr in ((upsample_conv, ("K2", "fp32"), "_upconv_f32"),
+                           (upsample_conv, ("K2", "bf16"), "_upconv_bf16"),
+                           (attention, ("K3", "fp32"), "_flash_f32"),
+                           (attention, ("K3", "bf16"), "_flash_bf16")):
+        fn = getattr(mod, attr)
+        saved.append((mod, attr, fn))
+
+        def counted(*a, _fn=fn, _key=key, **kw):
+            seen[_key] = seen.get(_key, 0) + 1
+            return _fn(*a, **kw)
+
+        setattr(mod, attr, counted)
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def write_vocab(path):
+    """A WordPiece vocabulary: the specials, letters, digits and their ``##``
+    pieces, punctuation, a few words and CJK characters (ids < 200)."""
+    letters = "abcdefghijklmnopqrstuvwxyz0123456789"
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]", "a", "the", "cat", "##s", "at",
+             "photo", "##graph", "of", "an", "astronaut", "horse", "painting", "light",
+             "##house", "in", "storm", "night", "one", "two", "three", "cafe", "au", "lait",
+             "naive", "resume", "and", "english", "mixed", "中", "文", "zebra", "crossing"]
+    toks = words + list(letters) + ["##" + c for c in letters] + list(",.!?;:'\"()[]-")
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "vocab.txt"), "w", encoding="utf-8") as f:
+        f.write("\n".join(toks) + "\n")
+
+
+def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
+                bench_env=None, steps=TOOLS_STEPS, heun_steps=TOOLS_HEUN_STEPS,
+                bert=(BERT_WIDTH, BERT_LAYERS)):
+    """Phase 13 (see the module docstring): the benches and the tools over phase
+    5's ``sample_to_eval`` tree ``tree``, its config ``config_path`` and VQGAN
+    ``vqgan_path``. ``template``, ``bench_env``, ``steps``, ``heun_steps`` and
+    ``bert`` let a CPU rehearsal pass a tiny model (on the CPU the benches'
+    subprocesses launch no kernel and their counts are not checked)."""
+    import numpy as np
+
+    from bbdm_tpu_torch.config import load_config
+    from bbdm_tpu_torch.models import build_model
+    from bbdm_tpu_torch.models.cond import BERTEmbedder
+    from bbdm_tpu_torch.models.layers import init_parameters
+    from bbdm_tpu_torch.tools import sampler_sweep, vqgan_recon
+    from bbdm_tpu_torch.utils.flops import sampling_flops_per_image, training_flops_per_image
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    template = template or os.path.join(here, "configs", "Template-LBBDM-f4.yaml")
+    on_card = dev.type == "cuda"
+    cpu = [] if on_card else ["--cpu"]
+    out, by_path = {}, {}
+
+    def check_launches(label, got, want, needed=("K1", "K2", "K3")):
+        by_path[label] = got
+        log(f"  {label}: launches {got}, expected {want}")
+        if got != want or not all(want[k] > 0 for k in needed):
+            raise AssertionError(f"{label}: launches {got}, expected {want} (kernel_calls), "
+                                 f"each of {needed} at least once")
+
+    # (a, b) the sampling bench, euler at full depth and heun; (c) the train bench
+    cfg = load_config(template)
+    batch = cfg.data.test.batch_size
+    calls = kernel_calls(cfg.model, batch)
+    env = dict(os.environ, PYTHONPATH=here, BENCH_CONFIG=template, BENCH_BATCH=str(batch),
+               **(bench_env or {}))
+    for label, sampler, n_steps in (("bench_euler", "euler", steps),
+                                    ("bench_heun", "heun", heun_steps)):
+        t0 = time.time()
+        line = run_tool(["bench_torch.py"], dict(env, BENCH_STEPS=str(n_steps),
+                                                 BENCH_SAMPLER=sampler))
+        d = line["detail"]
+        run_cfg = load_config(template).model
+        run_cfg.BB.params.sample_step, run_cfg.BB.params.sampler = n_steps, sampler
+        if d["flops_per_sample"] != sampling_flops_per_image(run_cfg):
+            raise AssertionError(f"{label}: flops_per_sample {d['flops_per_sample']} is not the "
+                                 "port's sampling_flops_per_image")
+        if not np.isfinite(d["output_mean"]) or line["value"] <= 0:
+            raise AssertionError(f"{label}: output mean {d['output_mean']}, {line['value']}/s")
+        nfe = 2 * (n_steps - 1) + 1 if sampler == "heun" else n_steps
+        if on_card:
+            check_launches(label, d["launches"], expected_launches(
+                calls, steps=nfe, draws=1, batches=TOOLS_BENCH_CALLS))
+        line["wall_s"] = time.time() - t0
+        out[label] = line
+    t0 = time.time()
+    line = run_tool(["-m", "bbdm_tpu_torch.tools.bench_train"], env)
+    d = line["detail"]
+    if d["flops_per_image"] != training_flops_per_image(load_config(template).model):
+        raise AssertionError("bench_train: flops_per_image is not training_flops_per_image")
+    if not np.isfinite(d["loss"]):
+        raise AssertionError(f"bench_train: loss {d['loss']}")
+    if on_card:
+        check_launches("bench_train", d["launches"],  # training runs no K2 (naive up-conv)
+                       expected_launches(calls, microbatches=TOOLS_TRAIN_STEPS), ("K1", "K3"))
+    line["wall_s"] = time.time() - t0
+    out["bench_train"] = line
+
+    # (e) the VQGAN roundtrip over phase 5's ground truth, bf16 and fp32
+    gt = os.path.join(tree, "ground_truth")
+    images = len(os.listdir(gt))
+    p5 = load_config(config_path)
+    recon_calls = kernel_calls(p5.model, p5.data.test.batch_size)
+    for fp32 in (False, True):
+        label = "vqgan_recon_" + ("fp32" if fp32 else "bf16")
+        kernel_launches(reset=True)
+        seen = {}
+        t0 = time.time()
+        with dtype_calls(seen):
+            line = vqgan_recon.main(
+                ["--config", config_path, "--vq-ckpt", vqgan_path, "--data", gt,
+                 "--out", os.path.join(root, label), "--batch",
+                 str(p5.data.test.batch_size)] + (["--fp32"] if fp32 else []) + cpu)
+        line["wall_s"] = time.time() - t0
+        if line["count"] != images or not np.isfinite(line["psnr"]):
+            raise AssertionError(f"{label}: {line}")
+        check_launches(label, kernel_launches(), expected_launches(
+            recon_calls, draws=1, batches=images // p5.data.test.batch_size))
+        if on_card:
+            want = {(k, "fp32" if fp32 else "bf16"): by_path[label][k] for k in ("K2", "K3")}
+            log(f"  {label}: K2/K3 launches by dtype {seen}")
+            if seen != want:
+                raise AssertionError(f"{label}: launches by dtype {seen} != {want}")
+        line["launches_by_dtype"] = {f"{k}_{dt}": n for (k, dt), n in seen.items()}
+        out[label] = line
+
+    # (f) the sampler sweep from a seeded bridge checkpoint, then its resume
+    bridge = os.path.join(root, "tools-bridge.ckpt")
+    write_checkpoints(p5, dev, bridge)
+    argv = ["--lbbdm-config", config_path, "--vq-ckpt", vqgan_path, "--bridge-ckpt", bridge,
+            "--variants", f"euler:{steps // 10},heun:{steps // 20}",
+            "--result", os.path.join(root, "sweep")] + cpu
+    batches = len(os.listdir(gt)) // p5.data.test.batch_size
+    kernel_launches(reset=True)
+    t0 = time.time()
+    rows = sampler_sweep.main(argv)
+    sweep_s = time.time() - t0
+    want = {k: a + b for (k, a), b in zip(
+        expected_launches(recon_calls, steps=steps // 10, draws=1, batches=batches).items(),
+        expected_launches(recon_calls, steps=2 * (steps // 20 - 1) + 1, draws=1,
+                          batches=batches).values())}
+    check_launches("sampler_sweep", kernel_launches(), want)
+    if [(r["sampler"], r["nfe"]) for r in rows] != [("euler", steps // 10),
+                                                    ("heun", 2 * (steps // 20 - 1) + 1)]:
+        raise AssertionError(f"sampler sweep rows {rows}")
+    kernel_launches(reset=True)
+    again = sampler_sweep.main(argv)
+    if again != json.loads(json.dumps(rows, default=float)) or any(kernel_launches().values()):
+        raise AssertionError("sampler sweep: the second invocation did not skip both variants")
+    os.remove(bridge)
+    out["sampler_sweep"] = {"rows": rows, "wall_s": sweep_s}
+
+    # (g) q_sample_loop at the latent of phase 5's config, bf16 against its fp32 self
+    model = build_model(p5.model, device=dev)
+    dd = p5.model.VQGAN.params.ddconfig
+    side = dd.resolution // 2 ** (len(dd.ch_mult) - 1)
+    g = torch.Generator(dev).manual_seed(13)
+    x0, y = (torch.randn((batch, dd.z_channels, side, side), generator=g, device=dev)
+             for _ in range(2))
+    noise = torch.randn((model.num_timesteps,) + x0.shape, generator=g, device=dev)
+
+    def loop(dt):
+        return model.q_sample_loop(x0.to(dt), y.to(dt), noise=noise)
+
+    ms = {"fp32": cuda_ms(lambda: loop(torch.float32), runs=3, warmup=1) if on_card else None,
+          "bf16": cuda_ms(lambda: loop(torch.bfloat16), runs=3, warmup=1) if on_card else None}
+    ref, low = loop(torch.float32), loop(torch.bfloat16)
+    sigma = torch.sqrt(model._variance_t).view(-1, 1, 1, 1, 1)
+    bar = Q_SAMPLE_BAR * (x0.abs() + y.abs() + sigma * noise.abs())
+    excess = float(((low - ref).abs() / bar).max())
+    drawn = model.q_sample_loop(x0.bfloat16(), y.bfloat16(), generator=g)
+    out["q_sample_loop"] = {"shape": list(ref.shape), "ms": ms, "bf16_vs_fp32_over_bar": excess,
+                            "max_abs": float((low - ref).abs().max()),
+                            "bytes_fp32_out": ref.numel() * 4}
+    log(f"  q_sample_loop {list(ref.shape)}: ms {ms}, bf16 vs fp32 max |d| "
+        f"{out['q_sample_loop']['max_abs']:.3g} = {excess:.3f} of the bar")
+    if excess > 1 or drawn.shape != ref.shape or not torch.isfinite(drawn).all():
+        raise AssertionError("q_sample_loop: bf16 beyond its bar, or a non-finite draw")
+    del model, ref, low, noise, drawn, bar
+
+    # (h) BERTEmbedder at LDM txt2img's width, bf16 against fp32, tokens from a vocabulary
+    vocab = os.path.join(root, "bert-vocab")
+    write_vocab(vocab)
+    width, depth = bert
+    m32 = BERTEmbedder(width, depth, device=dev)
+    init_parameters(m32, torch.Generator(dev).manual_seed(14))
+    m16 = BERTEmbedder(width, depth, dtype=torch.bfloat16, device=dev)
+    m16.load_state_dict(m32.state_dict())
+    tokens = m32.tokenize(BERT_TEXTS, vocab)
+    with torch.no_grad():
+        a, b = m32.eval()(tokens), m16.eval()(tokens)
+        ms = ({k: cuda_ms(lambda m=m: m(tokens), runs=5) for k, m in (("fp32", m32),
+                                                                        ("bf16", m16))}
+              if on_card else None)
+    rel = float((b - a).norm() / a.norm())
+    out["bert_embedder"] = {"width": width, "layers": depth, "tokens": list(tokens.shape),
+                            "rel_fro_bf16_vs_fp32": rel,
+                            "max_abs": float((b - a).abs().max()),
+                            "max_ref": float(a.abs().max()), "ms": ms}
+    log(f"  BERTEmbedder {width} x {depth} on tokens {list(tokens.shape)}: bf16 vs fp32 "
+        f"relative {rel:.4f} (bar {BERT_REL_BAR}), ms {ms}")
+    if tokens.shape != (len(BERT_TEXTS), BERT_TOKENS) or not torch.isfinite(b).all() \
+            or rel > BERT_REL_BAR:
+        raise AssertionError("BERTEmbedder: bf16 beyond its bar or bad tokens")
+    del m32, m16
+    out["launches"] = by_path
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -3801,11 +4067,26 @@ def main() -> int:
             traceback.print_exc()
             failed.append("data layer")
             data = {}
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            tools = tools_phase(dev, root, cli["f4_euler_sample_to_eval"]["tree"],
+                                os.path.join(root, "LBBDM-f4-euler-1.yaml"),
+                                os.path.join(root, "LBBDM-f4-vqgan.ckpt"))
+            for e in entries:
+                k = short[e["name"]]
+                e["launches_by_path"].update({f"tools_{p}": n[k]
+                                              for p, n in tools["launches"].items()})
+            log(f"tools: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("tools")
+            tools = {}
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
                     "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
                     "evaluation": evaluation, "latent_paths": paths, "parallel": dp,
-                    "sharding": sh, "data": data, "card": card}))
+                    "sharding": sh, "data": data, "tools": tools, "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

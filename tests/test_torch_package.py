@@ -92,9 +92,10 @@ def test_png_writer_round_trips_through_pillow(tmp_path, channels):
 
 
 def test_import_needs_no_jax_yaml_or_pillow(tmp_path):
-    """The package (every module, ``evaluation/`` and ``native/`` included),
-    main_torch.py, preprocess_and_evaluation_torch.py and chip_smoke.py import
-    where jax, flax, optax, yaml, PIL, cv2 and msgpack are absent, and import no
+    """The package (every module, ``evaluation/``, ``native/`` and ``tools/``
+    included), main_torch.py, bench_torch.py, preprocess_and_evaluation_torch.py
+    and chip_smoke.py import where jax, flax, optax, yaml, PIL, cv2, msgpack and
+    transformers are absent, and import no
     triton, nothing of ``bbdm_tpu`` or ``tests`` and build nothing at import
     time: no compiler runs (``CXX`` names a file that records a call) and the
     host library is not loaded."""
@@ -104,7 +105,8 @@ def test_import_needs_no_jax_yaml_or_pillow(tmp_path):
     cxx.chmod(0o755)
     code = (
         "import sys\n"
-        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'cv2', 'msgpack'):\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'yaml', 'PIL', 'cv2', 'msgpack',\n"
+        "          'transformers'):\n"
         "    sys.modules[m] = None\n"
         "import importlib, pkgutil, bbdm_tpu_torch\n"
         "for mod in pkgutil.walk_packages(bbdm_tpu_torch.__path__, 'bbdm_tpu_torch.'):\n"
@@ -113,7 +115,12 @@ def test_import_needs_no_jax_yaml_or_pillow(tmp_path):
         "assert 'bbdm_tpu_torch.training.step' in sys.modules\n"
         "assert 'bbdm_tpu_torch.evaluation.lpips' in sys.modules\n"
         "assert 'bbdm_tpu_torch.evaluation.cli' in sys.modules\n"
+        "for t in ('bench', 'bench_train', 'convert_checkpoint', 'vqgan_recon',\n"
+        "          'sampler_sweep'):\n"
+        "    assert 'bbdm_tpu_torch.tools.' + t in sys.modules\n"
+        "assert 'bbdm_tpu_torch.utils.flops' in sys.modules\n"
         "import main_torch\n"
+        "import bench_torch\n"
         "import preprocess_and_evaluation_torch\n"
         "import chip_smoke\n"
         "assert 'triton' not in sys.modules\n"
