@@ -31,7 +31,7 @@ Phases, each of which must pass:
    weights, same noise), then ``BBDMRunner.sample_to_eval`` over synthetic
    batches into a temporary directory, with every kernel's launch count;
 5. the CLI, ``main_torch.main``, on synthetic ``custom_aligned`` PNG datasets
-   (16 test pairs, 256^2 for LBBDM-f4, 64^2 for pixel BBDM) with text copies
+   (8 test pairs, 256^2 for LBBDM-f4, 64^2 for pixel BBDM) with text copies
    of ``configs/Template-{LBBDM-f4,BBDM}.yaml`` (cut to 20 steps) and model
    checkpoints whose ``model`` and ``ema`` weights differ, at full width:
    LBBDM-f4 euler ``--sample_to_eval`` (2 draws), LBBDM-f4 heun
@@ -89,17 +89,17 @@ Phases, each of which must pass:
    1e-4 of their norm and per-pair LPIPS alex and vgg distances within 1e-5
    relative; then InceptionV3 at batch 32 (299^2, and 256^2 resized) and
    LPIPS alex and vgg at batch 32 at 256^2 (CUDA-event ms, images or pairs per
-   second), and one ``-f FID`` run split into its wall, the host's PNG decode
-   and Fréchet (scipy sqrtm) seconds and its device busy ms;
+   second), and the card's ``-f FID`` run, traced, split into its wall, the
+   host's PNG decode and Fréchet (scipy sqrtm) seconds and its device busy ms;
 9. the other latent paths through ``main_torch.main`` at full width from seeded
-   random weights, each on a synthetic 256^2 ``custom_aligned`` dataset (16
-   train pairs, flipped to 32 where the template flips, 8 val, 8 test):
+   random weights, each on a synthetic 256^2 ``custom_aligned`` dataset (8
+   train pairs, flipped to 16 where the template flips, 8 val, 8 test):
    ``Template-LBBDM-f8.yaml`` and ``Template-LBBDM-f16.yaml`` as they stand and
    ``Template-LBBDM-f4.yaml`` with the cross-attention UNet
    (``use_spatial_transformer``, depth 1, ``condition_key: SpatialRescaler``,
-   ``context_dim`` 3, ``in_channels`` 6), each cut to 20 sampling steps and 1
+   ``context_dim`` 3, ``in_channels`` 6), each cut to 10 sampling steps and 1
    draw: one ``--sample_to_eval`` batch of 8 and a one-epoch ``--train`` run
-   (4, 4 and 2 microbatches, one validation epoch, one save). Each run's
+   (2, 2 and 1 microbatches, one validation epoch, one save). Each run's
    K1/K2/K3 launches must equal the counts derived from the code
    (:func:`kernel_calls`: the modules walked on the meta device). Printed:
    seconds per batch, per sampler step (with device busy and idle share) and
@@ -162,7 +162,7 @@ Phases, each of which must pass:
    (b) batches per second of the train loader (batch 8) over a synthetic
    256^2 tree whose rows are all filtered Paeth (64 train images, flipped to
    128: 16 batches an epoch), with one thread and the default threads, and
-   with ``cache_in_ram`` cold and warm, each over 5 readings of 4 epochs (300
+   with ``cache_in_ram`` cold and warm, each over 3 readings of 4 epochs (180
    timed batches, the threads already running; median, min, max), and the
    cache's bytes per image; the same with one thread and the default threads
    over a tree of VP8 q85 files (``webp/tree256/``: eight of the Paeth tree's
@@ -203,6 +203,28 @@ Phases, each of which must pass:
    port's ``BERTTokenizer`` makes from a vocabulary the smoke writes, bf16
    against fp32 within 3e-2 relative (Frobenius), and its ms.
 
+14. the demonstrations (``bbdm_tpu_torch/tools``) as users run them, on
+   ``tools.synthetic`` trees of 16 train, 8 val and 8 test pairs (restore at
+   256^2, stochastic at 64^2), each part's K1/K2/K3 launches equal to the
+   counts :func:`kernel_calls` derives and its wall time printed: (a)
+   ``tools.chain_demo`` at full width (``configs/runs/VQGAN-f4-syn256-v2.yaml``
+   in fp32 and ``LBBDM-f4-syn256-v2.yaml``), each training phase cut by a 2 s
+   wall budget, phase C over the 8 test images at 200 steps with the
+   roundtrip ceiling, phase D at 5 draws over 8 images (a warm-up batch, then
+   the timed one): the reports, PSNR/SSIM finite, the delivered samples/s; (b)
+   ``tools.pixel_demo`` on ``BBDM-synpix64.yaml``: one epoch, phase E (euler
+   200), phase S ``euler:20,heun:10``; (c) ``tools.stochastic_demo`` on
+   ``BBDM-synstoch64.yaml``: its phase S, ``euler:20`` at 2 draws with the mode
+   scores, from (b)'s weights (the same network) named by (b)'s phase-T report
+   copied into its result directory (the demo's resume); (d)
+   ``tools.read_tboard`` over (a)'s event files: its rows equal to every
+   scalar the runners logged; (e) ``tools.run_parity`` on (a)'s bridge
+   written as a reference ``.pth`` and (a)'s VQGAN, with random LPIPS alex
+   weights from ``tools.random_lpips``: its samples (converted from the
+   ``.pth``) within 1 uint8 level of (a)'s phase C (the same weights, seed and
+   images), LPIPS finite. Phase 9's depth is cut to pay for it
+   (``PATH_PAIRS``, ``PATH_STEP``).
+
 Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
 bf16 and fp32) through their autograd Functions: the output equal to the kernel's and the
 gradients equal, bit for bit, to the twin's autograd gradients (the backward
@@ -231,7 +253,7 @@ import traceback
 import torch
 
 SAMPLE_STEP, SAMPLE_NUM, BATCHES, BATCH = 20, 2, 2, 8
-CLI_TEST_PAIRS, CLI_SEED = 16, 1234
+CLI_TEST_PAIRS, CLI_SEED = 8, 1234  # 16 before PR 15's phase 14
 SHORT = {"group_norm": "K1", "subpixel_upconv": "K2", "flash_attention": "K3"}
 
 
@@ -882,14 +904,17 @@ def write_checkpoints(cfg, dev, path, vqgan_path=None):
     from bbdm_tpu_torch.checkpoints.from_jax import jax_tree_from_state_dict
     from bbdm_tpu_torch.checkpoints.io import save_checkpoint
     from bbdm_tpu_torch.models import build_model
+    from bbdm_tpu_torch.models.layers import init_parameters
 
-    trees = []
-    for seed in (11, 12):
-        m = build_model(cfg.model, device=dev, generator=torch.Generator(dev).manual_seed(seed))
-        trees.append(jax_tree_from_state_dict(m))
-        del m
-    model, other = trees
-    ema = dict(model, **{k: other[k] for k in ("unet", "cond_stage") if k in other})
+    m = build_model(cfg.model, device=dev, generator=torch.Generator(dev).manual_seed(11))
+    model = jax_tree_from_state_dict(m)
+    ema = dict(model)
+    g = torch.Generator(dev).manual_seed(12)
+    for part in ("unet", "cond_stage"):  # the EMA's own draws; the frozen VQGAN is shared
+        if part in model:
+            init_parameters(getattr(m, part), g)
+            ema[part] = jax_tree_from_state_dict(getattr(m, part))
+    del m
     if vqgan_path:
         save_checkpoint({"vqgan": model["vqgan"]}, vqgan_path)
     save_checkpoint({"model": model, "ema": ema, "step": 1000, "epoch": 10}, path)
@@ -1115,7 +1140,7 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
     # the card's idle share over one CLI batch (PNG writes included)
     batch = next(iter(loader))
     wall, busy, _ = measure(lambda: euler.sample_to_eval([batch], os.path.join(root, "idle")),
-                            2, 1)
+                            1, 1)
     out["f4_euler_batch_wall_ms"], out["f4_euler_batch_device_busy_ms"] = wall, busy
     out["f4_euler_batch_idle_share"] = 1 - busy / wall
     log(f"  f4 euler sample_to_eval batch: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
@@ -1972,8 +1997,11 @@ def eval_phase(dev, root, tree, step=SAMPLE_STEP, draws=SAMPLE_NUM):
         "FID": ["-s", flat, "-t", gt, "--weights", weights["inception"]],
         "psnr_ssim": ["-s", flat, "-t", gt]}
     for mode, args in metric.items():
-        (a, text_a, wall_a), (b, text_b, wall_b) = (run(["-f", mode] + args, c)
-                                                    for c in (False, True))
+        if mode == "FID" and card:  # the card run, split into its parts (one sqrtm, not two)
+            (a, text_a, wall_a), out["fid_cli_split"] = fid_cli_split(run, ["-f", mode] + args)
+        else:
+            a, text_a, wall_a = run(["-f", mode] + args, False)
+        b, text_b, wall_b = run(["-f", mode] + args, True)
         va, vb = (np.asarray(list(v.values()) if isinstance(v, dict) else v, np.float64)
                   for v in (a, b))
         rel = float(np.abs(va - vb).max() / max(np.abs(vb).max(), 1e-30))
@@ -2021,7 +2049,6 @@ def eval_phase(dev, root, tree, step=SAMPLE_STEP, draws=SAMPLE_NUM):
             raise AssertionError(f"LPIPS {net}: card vs CPU beyond {EVAL_DISTANCE_RTOL}")
     if card:
         out["rates"] = eval_rates(dev, models[dev], weights)
-        out["fid_cli_split"] = fid_cli_split(run, ["-f", "FID"] + metric["FID"])
     return out
 
 
@@ -2047,7 +2074,8 @@ def eval_rates(dev, inception, weights):
 
 
 def fid_cli_split(run, argv):
-    """One ``-f FID`` run on the card: its wall, the host's PNG decode and Fréchet
+    """One ``-f FID`` run on the card, traced: ``run``'s (value, stdout, wall s)
+    and the split of that run: its wall, the host's PNG decode and Fréchet
     (scipy sqrtm) seconds in it, and its device busy ms (torch.profiler)."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -2066,24 +2094,25 @@ def fid_cli_split(run, argv):
         return make
 
     with patched(fid, "read_images", timer("decode_s")), \
-            patched(fid, "frechet_distance", timer("frechet_s")):
-        _, _, wall = run(argv, False)
-        out = {"wall_s": wall, "decode_s": sum(spans["decode_s"]),
-               "decoded_batches": len(spans["decode_s"]), "frechet_s": sum(spans["frechet_s"])}
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            run(argv, False)
-            torch.cuda.synchronize()
+            patched(fid, "frechet_distance", timer("frechet_s")), \
+            profile(activities=[ProfilerActivity.CUDA]) as prof:
+        result = run(argv, False)
+        torch.cuda.synchronize()
+    wall = result[2]
+    out = {"wall_s": wall, "decode_s": sum(spans["decode_s"]),
+           "decoded_batches": len(spans["decode_s"]), "frechet_s": sum(spans["frechet_s"])}
     busy = sum(e.self_device_time_total for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
     out["device_busy_ms"] = busy
     out["idle_share"] = 1 - busy / 1e3 / wall
     log("  FID CLI on the card, split: " + json.dumps(out))
-    return out
+    return result, out
 
 
 # ------------------------------------------------ latent paths: f8, f16, xattn
 
-PATH_PAIRS = (16, 8, 8)  # train (flipped in f8/f16: 32), val, test pairs at 256^2
+PATH_PAIRS = (8, 8, 8)  # train (flipped in f8/f16: 16), val, test pairs at 256^2
+PATH_STEP = 10  # sampling steps (phase 14 paid with these: 16 train pairs and 20 steps before)
 
 
 def path_configs():
@@ -2105,8 +2134,9 @@ def path_configs():
 
 
 def kernel_calls(model_config, batch):
-    """The calls of an LBBDM that launch a kernel on a CUDA tensor, from its
-    modules: the UNet in eval and in training mode, the VQGAN encoder and decoder
+    """The calls of an LBBDM (or a pixel BBDM, whose encoder and decoder parts
+    are empty) that launch a kernel on a CUDA tensor, from its modules: the UNet
+    in eval and in training mode, the VQGAN encoder and decoder
     walked on the meta device (no memory, no arithmetic) at ``batch`` with
     recorders in place of the three ops. {part: Counter of (kernel, shape)};
     K1 every GroupNorm (N, C, H, W); K2 every eval-mode up-conv (N, ci, h, w,
@@ -2114,6 +2144,7 @@ def kernel_calls(model_config, batch):
     D % 128 == 0 (B, H, Tq, D, Tk)."""
     from collections import Counter
 
+    from bbdm_tpu_torch.models.bridge import BrownianBridgeModel
     from bbdm_tpu_torch.models.latent import LatentBrownianBridgeModel
     from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
 
@@ -2140,24 +2171,30 @@ def kernel_calls(model_config, batch):
     out = {}
     try:
         meta = torch.device("meta")
-        model = LatentBrownianBridgeModel(model_config, device=meta).eval()
-        dd = model_config.VQGAN.params.ddconfig
-        size = dd.resolution
-        z = (batch, dd.z_channels, size // 2 ** (len(dd.ch_mult) - 1),
-             size // 2 ** (len(dd.ch_mult) - 1))
         u = model_config.BB.params.UNetParams
+        if model_config.model_type == "LBBDM":
+            model = LatentBrownianBridgeModel(model_config, device=meta).eval()
+            dd = model_config.VQGAN.params.ddconfig
+            size = dd.resolution
+            z = (batch, dd.z_channels, size // 2 ** (len(dd.ch_mult) - 1),
+                 size // 2 ** (len(dd.ch_mult) - 1))
+        else:  # pixel BBDM: no first stage, the UNet at the image size
+            model = BrownianBridgeModel(model_config, device=meta).eval()
+            z = (batch, u.out_channels, u.image_size, u.image_size)
         ctx = None
         if model.condition_key != "nocond":
             ctx = torch.empty(batch, u.in_channels - u.out_channels, z[2], z[3], device=meta)
         t = torch.zeros(batch, dtype=torch.int32, device=meta)
+        parts = [("unet", lambda: model.unet.eval()(torch.empty(z, device=meta), t, ctx)),
+                 ("unet_train", lambda: model.unet.train()(torch.empty(z, device=meta), t,
+                                                            ctx))]
+        if model_config.model_type == "LBBDM":
+            parts += [("encoder", lambda: model.vqgan.encoder(
+                          torch.empty(batch, 3, size, size, device=meta))),
+                      ("decoder", lambda: model.vqgan.decoder(torch.empty(z, device=meta)))]
+        out.update(encoder=Counter(), decoder=Counter())
         with torch.no_grad():
-            for part, run in (
-                    ("unet", lambda: model.unet.eval()(torch.empty(z, device=meta), t, ctx)),
-                    ("unet_train", lambda: model.unet.train()(torch.empty(z, device=meta), t,
-                                                               ctx)),
-                    ("encoder", lambda: model.vqgan.encoder(
-                        torch.empty(batch, 3, size, size, device=meta))),
-                    ("decoder", lambda: model.vqgan.decoder(torch.empty(z, device=meta)))):
+            for part, run in parts:
                 seen.clear()
                 run()
                 out[part] = Counter(seen)
@@ -2177,7 +2214,7 @@ def expected_launches(calls, *, steps=0, draws=0, batches=0, microbatches=0):
             for k in ("K1", "K2", "K3")}
 
 
-def latent_paths_phase(dev, counters, root, gpu_ids="0", configs=None, step=SAMPLE_STEP,
+def latent_paths_phase(dev, counters, root, gpu_ids="0", configs=None, step=PATH_STEP,
                        pairs=PATH_PAIRS):
     """Phase 9 (see the module docstring): each of :func:`path_configs` through
     ``main_torch.main`` at full width; ``configs`` lets a CPU rehearsal pass
@@ -2206,6 +2243,12 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
     from bbdm_tpu_torch.runners.bbdm import BBDMRunner
     from bbdm_tpu_torch.training.step import make_train_step
 
+    laps, lap = {}, [time.time()]
+
+    def done(what):  # the wall seconds of each part of the path
+        laps[what] = time.time() - lap[0]
+        lap[0] = time.time()
+
     size = cfg.data.dataset_config.image_size
     n_train, n_val, n_test = pairs
     data = os.path.join(work, "data")
@@ -2232,7 +2275,8 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
         "n_epochs": {"template": 100, "run": 1}, "microbatches": micro,
         "train/val/test pairs": list(pairs), "sample_interval": "none during training",
         "weights": "random (seeds 11, 12), VQGAN written by the smoke"}))
-    out = {}
+    out = {"laps_s": laps}
+    done("inputs")
 
     def counted(argv, sweeps=None):
         for mod, attr in counters.values():
@@ -2261,6 +2305,7 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
         calls, steps=len(runner.model.coeffs.steps), draws=1, batches=batches))
     names = [f"{i:04d}" for i in range(n_test)]
     check_tree(runner.config.result.sample_to_eval_path, names, names, step, 1, size)
+    done("sample_to_eval")
     out["sample_to_eval"] = {"wall_s": wall, "launches": launches,
                              "batch_s": sweeps[0] / batches,
                              "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
@@ -2269,7 +2314,7 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
 
     batch = next(iter(DataLoader(get_dataset(runner.config.data)[2], bs)))
     wall_ms, busy_ms, _ = measure(
-        lambda: runner.sample_to_eval([batch], os.path.join(work, "idle")), 2, 1)
+        lambda: runner.sample_to_eval([batch], os.path.join(work, "idle")), 1, 1)
     out["sample_to_eval"].update(batch_wall_ms=wall_ms, batch_device_busy_ms=busy_ms,
                                  idle_share=1 - busy_ms / wall_ms)
     # the latent through the kernels against the twins (same weights and noise)
@@ -2297,6 +2342,7 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
     agree = {"encode_kernel_vs_plain": d(y, y_p), "encode_bf16_vs_fp32": d(y_p, y_32),
              "latent_kernel_vs_plain": d(z_k, z_p), "latent_bf16_vs_fp32": d(z_p, z_32)}
     out["agreement"] = agree
+    done("idle_and_agreement")
     s = out["sample_to_eval"]
     log(f"  {name} sample_to_eval: {wall:.1f} s in main_torch.main, {s['batch_s']:.3f} s per "
         f"batch of {bs} (1 draw, {step} steps), sampler step {step_ms:.2f} ms (device busy "
@@ -2320,6 +2366,7 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
         calls, microbatches=micro + n_val // cfg.data.val.batch_size))
     if runner.global_step != micro:
         raise AssertionError(f"{name} train: {runner.global_step} steps, not {micro}")
+    done("train")
     ckpt = runner.config.result.ckpt_path
     files = {f: os.path.getsize(os.path.join(ckpt, f)) for f in sorted(os.listdir(ckpt))}
     if {"last_model.ckpt", "last_optim_sche.ckpt"} - set(files):
@@ -2376,6 +2423,8 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
         f"checkpoints {files}")
     if absent or not finite:
         raise AssertionError(f"{name} train: gradients absent {absent[:3]}, finite {finite}")
+    done("train_timing_and_gradients")
+    log(f"  {name}: seconds by part {json.dumps({k: round(v, 1) for k, v in laps.items()})}")
     return out
 
 
@@ -3222,7 +3271,7 @@ def sharding_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
 # ---------------------------------------------------------------- data layer
 
 DATA_TRAIN, DATA_VAL, DATA_TEST, DATA_EPOCHS = 64, 8, 8, 2  # 256^2 Paeth PNGs; flipped: 128
-LOADER_READINGS, LOADER_EPOCHS = 5, 4  # 5 readings of 4 epochs of 15 timed batches each
+LOADER_READINGS, LOADER_EPOCHS = 3, 4  # 3 readings of 4 epochs of 15 timed batches each
 FIXTURES = os.path.join("tests", "data", "torch_images")
 
 
@@ -3861,6 +3910,340 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
     return out
 
 
+# ------------------------------------------------------------ demonstrations
+
+DEMO_PAIRS = (16, 8, 8)  # train, val, test pairs: the restore tree at 256^2, stochastic at 64^2
+DEMO_WALL_S = 2.0  # the chain's --wall-a and --wall-b
+DEMO_DRAWS = 5  # the chain's phase D (the reference protocol's sample_num)
+DEMO_VARIANTS = "euler:20,heun:10"  # the pixel demo's phase S
+DEMO_STOCH_VARIANT, DEMO_STOCH_DRAWS = ("euler", 20), 2
+
+
+def demo_configs():
+    """{name: ConfigNode} of the demonstrations' run configs (``configs/runs/``)."""
+    from bbdm_tpu_torch.config import load_config
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    return {n: load_config(os.path.join(here, "configs", "runs", f"{n}.yaml"))
+            for n in ("VQGAN-f4-syn256-v2", "LBBDM-f4-syn256-v2", "BBDM-synpix64",
+                      "BBDM-synstoch64")}
+
+
+def reference_pth(states, model_config, path):
+    """A model checkpoint of the JAX package's layout (``states``) written as the
+    reference repo's training ``.pth``: the UNet under ``denoise_fn.``, the VQGAN
+    under ``vqgan.``, the EMA shadow of the UNet alone, NCHW latent statistics
+    (the inverse of ``checkpoints/torch_import.convert_reference_checkpoint``)."""
+    import re
+
+    import numpy as np
+
+    from bbdm_tpu_torch.checkpoints import torch_import as ti
+
+    inverse = {ti._t_conv2d: lambda a: a.transpose(3, 2, 0, 1), ti._t_linear: lambda a: a.T,
+               ti._t_conv1d: lambda a: a.T[:, :, None], ti._ident: lambda a: a}
+    dense = {"weight": (("kernel",), ti._t_linear), "bias": (("bias",), ti._ident)}
+    top = {"time_embed.0": ("time_dense_0", dense), "time_embed.2": ("time_dense_1", dense),
+           "out.0": ("out_norm", {"weight": (("scale",), ti._ident),
+                                  "bias": (("bias",), ti._ident)}),
+           "out.2": ("out_conv", {"weight": (("kernel",), ti._t_conv2d),
+                                  "bias": (("bias",), ti._ident)})}
+    modules = dict(ti.unet_module_map(model_config.BB.params.UNetParams), **top)
+
+    def unet(tree):
+        out = {}
+        for prefix, (name, pmap) in modules.items():
+            for suffix, (leaf, tf) in pmap.items():
+                node = tree["unet"].get(name, {})
+                for k in leaf:
+                    node = node.get(k, {}) if isinstance(node, dict) else {}
+                if not isinstance(node, dict):
+                    out[f"denoise_fn.{prefix}.{suffix}"] = inverse[tf](np.asarray(node))
+        return out
+
+    def flat(tree, prefix=""):
+        for k, v in tree.items():
+            yield from flat(v, f"{prefix}{k}.") if isinstance(v, dict) else [(prefix + k, v)]
+
+    def module(name):
+        for pattern, form in ((r"(down|up)_(\d+)_(block|attn)_(\d+)", r"\1.\2.\3.\4"),
+                              (r"(down|up)_(\d+)_(downsample|upsample)", r"\1.\2.\3"),
+                              (r"mid_(block_1|attn_1|block_2)", r"mid.\1")):
+            if re.fullmatch(pattern, name):
+                return re.sub(pattern, form, name)
+        return name
+
+    model = unet(states["model"])
+    for key, arr in flat(states["model"]["vqgan"]):
+        parts = key.split(".")
+        if parts[0] in ("encoder", "decoder"):
+            parts[1] = module(parts[1])
+        arr = np.asarray(arr)
+        if parts[-1] == "embedding":
+            parts.append("weight")
+        elif parts[-1] in ("kernel", "scale"):
+            arr = arr.transpose(3, 2, 0, 1) if parts[-1] == "kernel" else arr
+            parts[-1] = "weight"
+        model["vqgan." + ".".join(parts)] = arr
+    tensors = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+                         for k, v in d.items()}
+    raw = {"model": tensors(model), "ema": tensors(unet(states["ema"])),
+           "step": int(states["step"]), "epoch": int(states["epoch"])}
+    for k in ("ori_latent_mean", "ori_latent_std", "cond_latent_mean", "cond_latent_std"):
+        raw[k] = torch.from_numpy(np.asarray(states[k], np.float32).transpose(0, 3, 1, 2).copy())
+    torch.save(raw, path)
+
+
+@contextlib.contextmanager
+def training_runs(store):
+    """``(runner class, global_step, global_epoch, stop_reason)`` of each
+    ``BaseRunner.train`` in the block, and every scalar the runners log as
+    ``(tag, step, float32 value)``."""
+    import numpy as np
+
+    from bbdm_tpu_torch.runners.base import BaseRunner
+    from bbdm_tpu_torch.utils.tboard import SummaryWriter
+
+    train, add_scalar = BaseRunner.train, SummaryWriter.add_scalar
+    store.update(runs=[], scalars=[])
+
+    def traced_train(self):
+        try:
+            return train(self)
+        finally:
+            store["runs"].append((type(self).__name__, self.global_step, self.global_epoch,
+                                  getattr(self, "stop_reason", None)))
+
+    def traced_scalar(self, tag, value, step):
+        store["scalars"].append((tag, int(step), float(np.float32(value))))
+        return add_scalar(self, tag, value, step)
+
+    BaseRunner.train, SummaryWriter.add_scalar = traced_train, traced_scalar
+    try:
+        yield store
+    finally:
+        BaseRunner.train, SummaryWriter.add_scalar = train, add_scalar
+
+
+def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, stoch_size=64,
+                wall=DEMO_WALL_S, draws=DEMO_DRAWS):
+    """Phase 14 (see the module docstring): the chain, pixel and stochastic
+    demonstrations, ``read_tboard`` and ``run_parity`` as a user runs them, each
+    part's launches against :func:`kernel_calls`. ``configs`` (the four of
+    :func:`demo_configs`), the tree sizes, ``wall`` and ``draws`` let a CPU
+    rehearsal pass tiny models. Returns {part: results}."""
+    import shutil
+
+    import numpy as np
+
+    from bbdm_tpu_torch.checkpoints.io import load_checkpoint
+    from bbdm_tpu_torch.config import save_config
+    from bbdm_tpu_torch.tools import (
+        chain_demo,
+        pixel_demo,
+        random_lpips,
+        read_tboard,
+        run_parity,
+        stochastic_demo,
+    )
+    from bbdm_tpu_torch.tools.sampler_sweep import nfe
+    from bbdm_tpu_torch.tools.synthetic import write_stage
+
+    configs = configs or demo_configs()
+    cpu = [] if dev.type == "cuda" else ["--cpu"]
+    work = os.path.join(root, "demos")
+    n_train, n_val, n_test = pairs
+    trees = {"restore": os.path.join(work, "synpix256"),
+             "stochastic": os.path.join(work, "synstoch64")}
+    t0 = time.time()
+    for task, tree in trees.items():
+        for stage, n, seed in (("train", n_train, 0), ("val", n_val, 1_000_000),
+                               ("test", n_test, 2_000_000)):
+            write_stage(tree, stage, n, size if task == "restore" else stoch_size, seed,
+                        task=task)
+    log(f"  demo trees written in {time.time() - t0:.1f} s: {pairs} pairs, restore at "
+        f"{size}^2, stochastic at {stoch_size}^2 (tools.synthetic)")
+    paths = {}
+    for name, cfg in configs.items():
+        cfg.data.dataset_config.dataset_path = trees[
+            "stochastic" if "stoch" in name else "restore"]
+        paths[name] = os.path.join(work, f"{name}.yaml")
+        save_config(cfg, paths[name])
+    vq_cfg, lb_cfg, px_cfg, st_cfg = configs.values()
+    log("reduced: " + json.dumps({
+        "phase": 14, "pairs": {"run": list(pairs), "JAX round 4": [3000, 64, 64]},
+        "chain": {"wall_a_s": wall, "wall_b_s": wall, "n_epochs": [vq_cfg.training.n_epochs,
+                                                                    lb_cfg.training.n_epochs],
+                  "phase_d_images": {"run": n_test, "default": 32}},
+        "pixel": {"epochs": {"run": 1, "config": px_cfg.training.n_epochs},
+                  "variants": {"run": DEMO_VARIANTS,
+                               "default": "euler:100,euler:50,euler:20,heun:25,heun:10"}},
+        "stochastic": {"phase_t": "(b)'s weights, resumed from (b)'s report",
+                       "variants": {"run": "%s:%d" % DEMO_STOCH_VARIANT,
+                                    "default": "euler:200,...,heun:10"},
+                       "sample_num": {"run": DEMO_STOCH_DRAWS, "default": 5}}}))
+    out, launches = {}, {}
+
+    def run(label, fn, argv, want, needed):
+        for mod, attr in counters.values():
+            getattr(mod, attr).launches = 0
+        store = {}
+        t0 = time.time()
+        with training_runs(store):
+            result = fn(argv + cpu)
+        wall_s = time.time() - t0
+        got = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+        want = want(store) if callable(want) else want
+        launches[label] = got
+        log(f"  {label}: {wall_s:.1f} s, launches {got}, derived from the code {want}; "
+            f"training runs (class, steps, epoch, stop) {store['runs']}")
+        if got != want or not all(want[k] > 0 for k in needed):
+            raise AssertionError(f"{label}: launches {got} != {want} (kernel_calls), or one of "
+                                 f"{needed} never launched")
+        out[label] = {"wall_s": wall_s, "launches": got, "result": result}
+        torch.cuda.empty_cache()
+        return result, store
+
+    add = lambda *ds: {k: sum(d[k] for d in ds) for k in ("K1", "K2", "K3")}
+
+    # (a) the chain: VQGAN-f4 (fp32), then LBBDM-f4 on it, phase C, phase D
+    chain = os.path.join(work, "chain")
+    test_bs = lb_cfg.data.test.batch_size
+    lb_calls = kernel_calls(lb_cfg.model, test_bs)
+    vq_calls = kernel_calls(lb_cfg.model, vq_cfg.data.train.batch_size)
+    steps = lb_cfg.model.BB.params.sample_step
+    test_batches = n_test // test_bs
+    train_batches = n_train // lb_cfg.data.train.batch_size
+
+    def chain_launches(store):
+        (_, vq_steps, vq_epoch, vq_stop), (_, micro, lb_epoch, lb_stop) = store["runs"]
+        if not (vq_stop or "").startswith("wall budget") or \
+                not (lb_stop or "").startswith("wall budget"):
+            raise AssertionError(f"chain: training stopped by {vq_stop!r}, {lb_stop!r}")
+        out["chain_steps"] = {"vqgan": vq_steps, "lbbdm_microbatches": micro}
+        val_epochs = lambda cfg, epoch: epoch // cfg.training.validation_interval  # unstopped
+        # a VQGAN step runs the encoder and the decoder in training mode (no K2:
+        # the naive up-conv); its validation steps (every 50), validation epochs
+        # (custom_single: A and B images) and sample grids (a train and a val
+        # batch every sample_interval epochs) in eval mode
+        vq_bs = vq_cfg.data.train.batch_size
+        grid_every = max(int(vq_cfg.training.sample_interval * 2 * n_train // vq_bs), 1)
+        vq_evals = (vq_steps // 50 + val_epochs(vq_cfg, vq_epoch) * (2 * n_val // vq_bs)
+                    + 2 * (vq_steps // grid_every))
+        vq = expected_launches(vq_calls, draws=1, batches=vq_steps)
+        lb_evals = (micro // 50
+                    + val_epochs(lb_cfg, lb_epoch) * (n_val // lb_cfg.data.val.batch_size))
+        return add({"K1": vq["K1"], "K2": 0, "K3": vq["K3"]},
+                   expected_launches(vq_calls, draws=1, batches=vq_evals),
+                   expected_launches(lb_calls, batches=4 * train_batches,  # latent statistics
+                                     microbatches=micro + lb_evals),
+                   expected_launches(lb_calls, steps=steps, draws=1, batches=test_batches),
+                   expected_launches(lb_calls, draws=1, batches=test_batches),  # the ceiling
+                   expected_launches(lb_calls, steps=steps, draws=draws, batches=2))
+
+    reports, store = run("demo_chain", chain_demo.main, [
+        "--result", chain, "--vqgan-config", paths["VQGAN-f4-syn256-v2"],
+        "--lbbdm-config", paths["LBBDM-f4-syn256-v2"], "--wall-a", str(wall),
+        "--wall-b", str(wall), "--bench-sample-num", str(draws),
+        "--bench-images", str(test_bs)], chain_launches, ("K1", "K2", "K3"))
+    ev, tput = reports["eval"], reports["throughput"]
+    for key in ("sample_vs_gt", "condition_vs_gt_floor", "vqgan_roundtrip_ceiling"):
+        if ev[key]["count"] != n_test or not np.isfinite(ev[key]["psnr"]):
+            raise AssertionError(f"chain phase C {key}: {ev[key]}")
+    if (tput["samples"], tput["sample_num"]) != (test_bs * draws, draws):
+        raise AssertionError(f"chain phase D: {tput}")
+    check_png(os.path.join(ev["eval_root"], str(steps), "test_00000.png"), size, size)
+    log(f"  chain: {out['chain_steps']}; PSNR/SSIM sample {ev['sample_vs_gt']['psnr']:.2f} / "
+        f"{ev['sample_vs_gt']['ssim']:.3f}, floor {ev['condition_vs_gt_floor']['psnr']:.2f}, "
+        f"ceiling {ev['vqgan_roundtrip_ceiling']['psnr']:.2f}; phase D "
+        f"{tput['delivered_samples_per_sec']} samples/s delivered ({tput['samples']} samples, "
+        f"{tput['wall_sec']} s; first batch {tput['first_batch_wall_sec_incl_compile']} s)")
+
+    # (d) read_tboard over (a)'s event files: the scalars the runners logged
+    t0 = time.time()
+    rows = read_tboard.main([chain] + cpu)
+    got = sorted((tag, step, value) for tag, step, _, value in rows)
+    if got != sorted(store["scalars"]) or not any(r[0] == "loss/train" for r in got):
+        raise AssertionError(f"read_tboard: {len(got)} rows, the runners logged "
+                             f"{len(store['scalars'])}: {got[:3]} vs {store['scalars'][:3]}")
+    out["demo_read_tboard"] = {"wall_s": time.time() - t0, "rows": len(rows)}
+    log(f"  demo_read_tboard: {len(rows)} rows equal to the logged scalars "
+        f"({time.time() - t0:.1f} s)")
+
+    # (e) run_parity over (a)'s checkpoints: the bridge as a reference .pth
+    bridge = load_checkpoint(reports["bridge"]["ckpt"])
+    pth = os.path.join(work, "bridge-reference.pth")
+    reference_pth(bridge, lb_cfg.model, pth)
+    lpips_w = random_lpips.main(["--out", os.path.join(work, "lpips_alex.pth")] + cpu)
+    parity_out = os.path.join(work, "parity")
+    scores, _ = run("demo_run_parity", run_parity.main, [
+        "--vqgan", reports["vqgan"]["ckpt"], "--bbdm", pth, "--config",
+        paths["LBBDM-f4-syn256-v2"], "--data", trees["restore"], "--out", parity_out,
+        "--n", str(n_test), "--lpips-weights", lpips_w],
+        expected_launches(lb_calls, steps=steps, draws=1, batches=test_batches), ("K1", "K2"))
+    del bridge
+    parity_tree = os.path.join(parity_out, "parity", lb_cfg.model.model_name, "sample_to_eval",
+                               str(steps))
+    a, b = read_pngs(parity_tree), read_pngs(os.path.join(ev["eval_root"], str(steps)))
+    worst = max(int(np.abs(a[k].astype(int) - b[k]).max()) for k in b)
+    out["demo_run_parity"].update(vs_phase_c_max_uint8=worst, scores=scores)
+    log(f"  run_parity: LPIPS (random alex) {scores.get('LPIPS/port')}; its samples vs the "
+        f"chain's phase C (the same weights, seed and images): max {worst} uint8 level(s)")
+    if sorted(a) != sorted(b) or worst > 1 or "LPIPS/port" not in scores:
+        raise AssertionError("run_parity: its samples differ from phase C's, or no LPIPS")
+    shutil.rmtree(chain, ignore_errors=True)  # a few GB of checkpoints
+    shutil.rmtree(parity_out, ignore_errors=True)
+
+    # (b) the pixel demo: one epoch, phase E, phase S
+    px_calls = kernel_calls(px_cfg.model, px_cfg.data.test.batch_size)
+    px_test = n_test // px_cfg.data.test.batch_size
+    sweep = [(s, int(n)) for s, n in (v.split(":") for v in DEMO_VARIANTS.split(","))]
+
+    def pixel_launches(store):
+        ((_, micro, _, _),) = store["runs"]
+        val = n_val // px_cfg.data.val.batch_size  # the validation epoch's loss evaluations
+        return add(expected_launches(px_calls, microbatches=micro + val),
+                   *(expected_launches(px_calls, steps=nfe(s, n), draws=1, batches=px_test)
+                     for s, n in [("euler", 200)] + sweep))
+
+    rows, _ = run("demo_pixel", pixel_demo.main, [
+        "--result", os.path.join(work, "pixel"), "--config", paths["BBDM-synpix64"],
+        "--epochs", "1", "--variants", DEMO_VARIANTS], pixel_launches, ("K1", "K2"))
+    if [(r["sampler"], r["steps"]) for r in rows] != [("euler", 200)] + sweep or any(
+            r["sample_vs_gt"]["count"] != n_test or not np.isfinite(r["sample_vs_gt"]["psnr"])
+            for r in rows):
+        raise AssertionError(f"pixel demo rows: {rows}")
+    for r in rows:
+        log(f"  pixel {r['sampler']}:{r['steps']} PSNR/SSIM {r['sample_vs_gt']['psnr']:.2f} / "
+            f"{r['sample_vs_gt']['ssim']:.3f} (floor {r['condition_vs_gt_floor']['psnr']:.2f}),"
+            f" {r['wall_sec_incl_compile']} s")
+
+    # (c) the stochastic demo, phase S: one variant of DEMO_STOCH_DRAWS draws from
+    # (b)'s weights (the same network), named by (b)'s phase-T report copied in:
+    # the demo's resume; (b) drove phase T's code at these shapes
+    st_calls = kernel_calls(st_cfg.model, st_cfg.data.test.batch_size)
+    sampler, n = DEMO_STOCH_VARIANT
+    stoch = os.path.join(work, "stoch")
+    os.makedirs(stoch)
+    shutil.copy(os.path.join(work, "pixel", "report_train.json"), stoch)
+    rows, _ = run("demo_stochastic", stochastic_demo.main, [
+        "--result", stoch, "--config", paths["BBDM-synstoch64"], "--variants", f"{sampler}:{n}",
+        "--sample-num", str(DEMO_STOCH_DRAWS)],
+        expected_launches(st_calls, steps=nfe(sampler, n), draws=DEMO_STOCH_DRAWS,
+                          batches=n_test // st_cfg.data.test.batch_size), ("K1", "K2"))
+    (r,) = rows
+    if (r["images"], sum(r["mode_histogram"])) != (n_test, n_test * DEMO_STOCH_DRAWS) or \
+            not np.isfinite(r["best_mode_psnr_mean"]):
+        raise AssertionError(f"stochastic demo: {r}")
+    log(f"  stochastic {sampler}:{n} x {DEMO_STOCH_DRAWS}: best-mode PSNR "
+        f"{r['best_mode_psnr_mean']}, margin {r['commit_margin_db_mean']} dB, coverage "
+        f"{r['mode_coverage_mean']}, histogram {r['mode_histogram']}, diversity "
+        f"{r['diversity']}, floor {r['condition_floor_best_mode_psnr']}")
+    shutil.rmtree(work, ignore_errors=True)
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     if not os.path.isdir(os.path.join(here, "bbdm_tpu_torch")):
@@ -4082,11 +4465,24 @@ def main() -> int:
             traceback.print_exc()
             failed.append("tools")
             tools = {}
+        torch.cuda.empty_cache()
+        try:
+            t0 = time.time()
+            demos = demos_phase(dev, counters, root)
+            for e in entries:
+                k = short[e["name"]]
+                e["launches_by_path"].update({p: n[k] for p, n in demos["launches"].items()})
+            log(f"demos: ok ({time.time() - t0:.1f} s)")
+        except Exception:
+            traceback.print_exc()
+            failed.append("demos")
+            demos = {}
 
     log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
                     "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
                     "evaluation": evaluation, "latent_paths": paths, "parallel": dp,
-                    "sharding": sh, "data": data, "tools": tools, "card": card}))
+                    "sharding": sh, "data": data, "tools": tools, "demos": demos,
+                    "card": card}))
     if failed:
         log(f"FAILED phases: {failed}")
         return 1

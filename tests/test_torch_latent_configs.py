@@ -92,7 +92,8 @@ def test_template_builds_the_jax_parameter_tree(name):
 
 def jax_kernel_calls(cfg, batch):
     """The JAX modules' calls of the three ops, as ``chip_smoke.kernel_calls``
-    counts the port's: ``jax.eval_shape`` of the UNet's and the VQGAN's init
+    counts the port's: ``jax.eval_shape`` of the UNet's and the VQGAN's (none
+    for a pixel BBDM) init
     (one forward each, in eval mode) with recorders in the modules' namespaces;
     shapes NCHW as the port's."""
     from bbdm_tpu.models import layers as jl
@@ -129,9 +130,10 @@ def jax_kernel_calls(cfg, batch):
         jax.eval_shape(lambda r: model.unet.init(r, x, jnp.zeros((batch,), jnp.int32), ctx),
                        jax.random.PRNGKey(0))
         out["unet"], seen = seen, Counter()
-        res = cfg.model.VQGAN.params.ddconfig.resolution
-        jax.eval_shape(lambda r: model.vqgan.init(r, jnp.zeros((batch, res, res, 3))),
-                       jax.random.PRNGKey(0))
+        if cfg.model.model_type == "LBBDM":  # a pixel BBDM has no first stage
+            res = cfg.model.VQGAN.params.ddconfig.resolution
+            jax.eval_shape(lambda r: model.vqgan.init(r, jnp.zeros((batch, res, res, 3))),
+                           jax.random.PRNGKey(0))
         out["vqgan"] = seen
     finally:
         mp.undo()

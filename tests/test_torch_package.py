@@ -116,7 +116,9 @@ def test_import_needs_no_jax_yaml_or_pillow(tmp_path):
         "assert 'bbdm_tpu_torch.evaluation.lpips' in sys.modules\n"
         "assert 'bbdm_tpu_torch.evaluation.cli' in sys.modules\n"
         "for t in ('bench', 'bench_train', 'convert_checkpoint', 'vqgan_recon',\n"
-        "          'sampler_sweep'):\n"
+        "          'sampler_sweep', 'synthetic', 'read_tboard', 'pixel_demo',\n"
+        "          'stochastic_demo', 'chain_demo', 'random_inception', 'random_lpips',\n"
+        "          'run_parity'):\n"
         "    assert 'bbdm_tpu_torch.tools.' + t in sys.modules\n"
         "assert 'bbdm_tpu_torch.utils.flops' in sys.modules\n"
         "import main_torch\n"
