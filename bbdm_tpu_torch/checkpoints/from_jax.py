@@ -45,26 +45,42 @@ def state_dict_from_jax(params, model) -> dict:
     out = {}
     for key, arr in _flatten(params):
         mod, leaf = key.rsplit(".", 1) if "." in key else ("", key)
-        if leaf == "kernel":
-            name = f"{mod}.weight" if mod else "weight"
-            if arr.ndim == 4:
-                arr = arr.transpose(3, 2, 0, 1)
-            elif arr.ndim == 2:
-                arr = arr.T  # a 3-D DenseGeneral kernel keeps flax's layout
-        elif leaf == "scale":
-            name = f"{mod}.weight" if mod else "weight"
-        else:
-            name = key
+        name = (f"{mod}.weight" if mod else "weight") if leaf in ("kernel", "scale") else key
         if name not in expected:
             raise KeyError(f"unused JAX parameter {key!r} (no port parameter {name!r})")
-        if tuple(arr.shape) != tuple(expected[name].shape):
-            raise ValueError(f"{key!r}: shape {arr.shape} != port {tuple(expected[name].shape)}")
-        out[name] = torch.from_numpy(np.array(arr)).to(expected[name].dtype)
+        out[name] = _port_array(name, arr, expected[name])
     missing = sorted(set(expected) - set(out))
     if missing:
         raise KeyError(f"port parameters missing from the JAX tree: {missing[:5]}"
                        f"{' ...' if len(missing) > 5 else ''}")
     return out
+
+
+def _jax_path(name: str, t) -> tuple:
+    """The JAX tree's key path of the port entry ``name`` (tensor ``t``)."""
+    mod, leaf = name.rsplit(".", 1) if "." in name else ("", name)
+    if leaf == "weight":
+        leaf = "kernel" if t.ndim > 1 else "scale"
+    return (*(mod.split(".") if mod else ()), leaf)
+
+
+def _jax_array(name: str, t: torch.Tensor) -> np.ndarray:
+    """The port entry ``name`` in the JAX layout, fp32 numpy: a kernel's conv
+    OIHW -> HWIO, dense [out, in] -> [in, out]."""
+    arr = t.detach().float().cpu().numpy()
+    if _jax_path(name, t)[-1] == "kernel" and arr.ndim in (2, 4):
+        arr = np.ascontiguousarray(arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T)
+    return arr
+
+
+def _port_array(name: str, arr: np.ndarray, t: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`_jax_array` for the port entry ``name`` like ``t`` (a
+    3-D ``DenseGeneral`` kernel keeps flax's layout)."""
+    if _jax_path(name, t)[-1] == "kernel" and arr.ndim in (2, 4):
+        arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr.T
+    if tuple(arr.shape) != tuple(t.shape):
+        raise ValueError(f"{name!r}: shape {arr.shape} != port {tuple(t.shape)}")
+    return torch.from_numpy(np.array(arr)).to(t.dtype)
 
 
 def jax_tree_from_state_dict(state, *, masked=()) -> dict:
@@ -77,19 +93,11 @@ def jax_tree_from_state_dict(state, *, masked=()) -> dict:
     masked = set(masked)
     tree: dict = {}
     for name, t in state.items():
-        mod, leaf = name.rsplit(".", 1) if "." in name else ("", name)
-        if leaf == "weight":
-            leaf = "kernel" if t.ndim > 1 else "scale"
+        *mods, leaf = _jax_path(name, t)
         node = tree
-        for part in mod.split(".") if mod else ():
+        for part in mods:
             node = node.setdefault(part, {})
-        if name in masked:
-            node[leaf] = {}
-            continue
-        arr = t.detach().float().cpu().numpy()
-        if leaf == "kernel" and arr.ndim in (2, 4):
-            arr = arr.transpose(2, 3, 1, 0) if arr.ndim == 4 else arr.T
-        node[leaf] = np.ascontiguousarray(arr)
+        node[leaf] = {} if name in masked else _jax_array(name, t)
     return tree
 
 
@@ -129,15 +137,73 @@ def load_model_checkpoint(states, model: nn.Module, use_ema: bool) -> tuple:
 
 _MOMENTS = {"Adam": ("mu", "nu"), "RMSProp": ("nu",), "SGD": ("trace",)}
 
+# Under ``training.fuse_small_leaves`` (``bbdm_tpu/training/bucket.py``) each
+# moment is {"bucket": vec, "big": {str(i): leaf}}: ``i`` counts every leaf of
+# the parameter tree in its flatten order (sorted keys at every level); the
+# trainable leaves of at most ``training.fuse_threshold`` elements are
+# flattened in the JAX layout and concatenated in that order as fp32 into
+# ``vec``, and every other leaf stays under "big" ({} where it is frozen).
 
-def opt_state_to_jax(optimizer, model: nn.Module) -> dict:
-    """The optimizer's state as the JAX package's ``opt_state`` tree for ``model``."""
+
+class LeafBucket:
+    """``SmallLeafBucketer``'s layout over ``model``'s entries: ``small`` the
+    bucketed names in order, ``big`` {flatten index: name} of the rest."""
+
+    def __init__(self, model: nn.Module, trainable, threshold: int = 65536):
+        sd = model.state_dict()
+        order = sorted(sd, key=lambda n: _jax_path(n, sd[n]))
+        trainable = set(trainable)
+        self.small = [n for n in order if n in trainable and sd[n].numel() <= threshold]
+        small = set(self.small)
+        self.big = {str(i): n for i, n in enumerate(order) if n not in small}
+        self.total = sum(sd[n].numel() for n in self.small)
+        self.jax_shapes = {n: _jax_array(n, torch.empty(sd[n].shape)).shape
+                           for n in self.small}
+
+    def to_jax(self, tensors: dict) -> dict:
+        """{name: port tensor} of the trainable entries -> one bucketed moment."""
+        vec = [_jax_array(n, tensors[n]).ravel() for n in self.small]
+        return {"bucket": np.concatenate(vec) if vec else np.zeros(0, np.float32),
+                "big": {i: _jax_array(n, tensors[n]) if n in tensors else {}
+                        for i, n in self.big.items()}}
+
+    def from_jax(self, moment, expected: dict) -> dict:
+        """One bucketed moment -> {name: tensor} for the ``expected``
+        (trainable) entries; raises where the moment does not fit."""
+        vec = np.asarray(moment["bucket"], np.float32)
+        if vec.shape != (self.total,):
+            raise ValueError(f"a bucket of {vec.shape} where this model's is ({self.total},)")
+        if sorted(moment["big"]) != sorted(self.big):
+            raise ValueError("the bucketed state's 'big' leaves are not this model's")
+        out, at = {}, 0
+        for n in self.small:
+            t = expected[n]
+            out[n] = _port_array(n, vec[at:at + t.numel()].reshape(self.jax_shapes[n]), t)
+            at += t.numel()
+        for i, n in self.big.items():
+            if n in expected:
+                out[n] = _port_array(n, np.asarray(moment["big"][i]), expected[n])
+            elif not isinstance(moment["big"][i], Mapping) or moment["big"][i]:
+                raise ValueError(f"the frozen entry {n!r} holds optimizer state")
+        return out
+
+
+def opt_state_to_jax(optimizer, model: nn.Module, fuse_threshold=None) -> dict:
+    """The optimizer's state as the JAX package's ``opt_state`` tree for
+    ``model``; bucketed when ``fuse_threshold`` is set (the JAX runner's
+    layout under ``training.fuse_small_leaves``)."""
     sd = model.state_dict()
-    masked = [k for k in sd if k not in set(optimizer.names)]
+    if fuse_threshold is not None:
+        bucket = LeafBucket(model, optimizer.names, fuse_threshold)
 
-    def tree(tensors):
-        return jax_tree_from_state_dict({**sd, **dict(zip(optimizer.names, tensors))},
-                                        masked=masked)
+        def tree(tensors):
+            return bucket.to_jax(dict(zip(optimizer.names, tensors)))
+    else:
+        masked = [k for k in sd if k not in set(optimizer.names)]
+
+        def tree(tensors):
+            return jax_tree_from_state_dict({**sd, **dict(zip(optimizer.names, tensors))},
+                                            masked=masked)
 
     node = {k: tree(optimizer.state[k]) for k in _MOMENTS[optimizer.name]}
     if optimizer.name == "SGD":
@@ -147,20 +213,28 @@ def opt_state_to_jax(optimizer, model: nn.Module) -> dict:
     return {"inner_state": {"0": {}, "1": node} if optimizer.weight_decay else {"0": node}}
 
 
-def opt_state_from_jax(tree, optimizer) -> None:
-    """Load a JAX ``opt_state`` tree into ``optimizer`` (in place). Raises
-    ValueError where the tree does not fit: another optimizer or weight-decay
-    setting, or the bucketed layout of ``training.fuse_small_leaves``."""
+def opt_state_from_jax(tree, optimizer, model: nn.Module = None, fuse_threshold=None) -> None:
+    """Load a JAX ``opt_state`` tree into ``optimizer`` (in place): the
+    bucketed layout over ``model`` when ``fuse_threshold`` is set, else the
+    per-leaf one. Raises ValueError where the tree does not fit: another
+    optimizer or weight-decay setting, the other ``fuse_small_leaves``
+    layout, another bucket."""
     expected = dict(zip(optimizer.names, optimizer.params))
     try:
         node = tree["inner_state"]
         if optimizer.name != "SGD":
             node = node["1" if optimizer.weight_decay else "0"]
         moments = {k: node[k] for k in _MOMENTS[optimizer.name]}
-        if any("bucket" in m for m in moments.values()):
-            raise ValueError("it was written with training.fuse_small_leaves, whose bucketed "
-                             "layout the port does not read")
-        loaded = {k: state_dict_from_jax(m, expected) for k, m in moments.items()}
+        bucketed = [isinstance(m, Mapping) and "bucket" in m for m in moments.values()]
+        if any(bucketed) != (fuse_threshold is not None):
+            raise ValueError(
+                "it was written with training.fuse_small_leaves "
+                f"{'on' if any(bucketed) else 'off'}: resume with the same setting")
+        if fuse_threshold is not None:
+            bucket = LeafBucket(model, optimizer.names, fuse_threshold)
+            loaded = {k: bucket.from_jax(m, expected) for k, m in moments.items()}
+        else:
+            loaded = {k: state_dict_from_jax(m, expected) for k, m in moments.items()}
     except (KeyError, TypeError, ValueError) as e:
         raise ValueError(f"the optimizer state does not fit a {optimizer.name} state over the "
                          f"trainable parameters: {e}") from e

@@ -45,8 +45,13 @@ the train step raise at the first non-finite loss or averaged gradient, and
 turns on autograd's anomaly mode for the length of :meth:`train`, which names
 the backward op that made one.
 
-``training.fuse_small_leaves`` and ``training.device_data_cache`` (TPU launch
-and transfer optimizations with identical results) are ignored.
+``training.device_data_cache`` (``data/device_cache.py``): :meth:`train`
+keeps the train and val sets on the card and gathers each batch there (the
+latent-statistics pass of ``runners/bbdm.py`` shares the train set's copy, so
+it is decoded once); :meth:`test` and ``sample_to_eval`` build none.
+For the BBDM runner ``training.fuse_small_leaves`` changes only the optimizer
+state's checkpoint layout (:meth:`fuse_threshold`): the update runs every
+leaf in one ``torch._foreach_*`` call either way.
 """
 
 from __future__ import annotations
@@ -110,6 +115,7 @@ class BaseRunner(ABC):
         self.global_step = -1 if getattr(args, "sample_at_start", False) else 0
         self.topk_checkpoints = {}
         self.writer = None
+        self._resident = {}  # stage -> the device cache's copy of its set
         if args is not None:
             result = config.result = ConfigNode()
             (result.result_path, result.image_path, result.ckpt_path, result.log_path,
@@ -131,7 +137,6 @@ class BaseRunner(ABC):
         self.generator = _stream(self.device, _SAMPLE_STREAM, self.seed)
         self.state = None
         if self.is_training:
-            self._check_training_config()
             self.train_generator = _stream(self.device, _TRAIN_STREAM, self.seed)
             self.state = self.build_initial_state()
         self.load_model_from_checkpoint()
@@ -166,11 +171,12 @@ class BaseRunner(ABC):
         sharding = getattr(self.state, "sharding", None)
         return sharding.gathered() if sharding is not None else contextlib.nullcontext()
 
-    def _check_training_config(self):
-        training = self.config.training
-        if training.get("fuse_small_leaves", False):
-            self.logger("training.fuse_small_leaves is ignored: a TPU launch optimization with "
-                        "identical results; the optimizer state keeps the per-leaf layout")
+    def fuse_threshold(self):
+        """The bucket threshold of the optimizer state's checkpoint layout
+        under ``training.fuse_small_leaves`` (``checkpoints/from_jax.py``), or
+        None for the per-leaf layout (hook: the JAX VQGAN runner ignores the
+        option)."""
+        return None
 
     def build_initial_state(self):
         """The train state (hook): for the BBDM the optimizer, plateau and EMA
@@ -229,23 +235,43 @@ class BaseRunner(ABC):
                           shard_count=w.nodes, shard_index=w.node,
                           local_count=w.local_size // mp, local_index=w.local_rank // mp)
 
-    def _build_loaders(self):
-        """(train, val, test) loaders as ``bbdm_tpu/runners/base.py:359-377``
+    def _build_loaders(self, for_training=True):
+        """(train, val, test) loaders as ``bbdm_tpu/runners/base.py:359-392``
         builds them: train and val shuffled by ``seed + epoch`` (``set_epoch``),
         the test loader unshuffled; every loader drops its last partial batch.
-        ``data.*.batch_size`` is per node."""
+        ``data.*.batch_size`` is per node. With ``for_training``, train and val
+        go through the device cache when ``training.device_data_cache`` asks
+        for it; ``test()`` passes False, as it iterates neither."""
         from bbdm_tpu_torch.data import get_dataset
 
         train_ds, val_ds, test_ds = get_dataset(self.config.data)
         data = self.config.data
-        return (self._loader(train_ds, data.train.batch_size, data.train.get("shuffle", True)),
-                self._loader(val_ds, data.val.batch_size, data.val.get("shuffle", True)),
-                self._loader(test_ds, data.test.batch_size, False))
+        train = self._loader(train_ds, data.train.batch_size, data.train.get("shuffle", True))
+        val = self._loader(val_ds, data.val.batch_size, data.val.get("shuffle", True))
+        if for_training:
+            train, val = self._device_cache("train", train), self._device_cache("val", val)
+        return train, val, self._loader(test_ds, data.test.batch_size, False)
 
-    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+    def _device_cache(self, stage, loader):
+        """``loader`` through ``data/device_cache.py`` per the config, on the
+        copy of ``stage``'s set this runner already holds, else a new one that
+        it keeps until :meth:`train` ends."""
+        from bbdm_tpu_torch.data.device_cache import maybe_device_cache
+
+        cached = maybe_device_cache(loader, self.config.get("training") or ConfigNode(),
+                                    self.world, self.device, self.logger,
+                                    resident=self._resident.get(stage))
+        if cached is not loader:
+            self._resident[stage] = cached.resident
+        return cached
+
+    def _to_device(self, a) -> torch.Tensor:
         """NHWC float batch -> NCHW-contiguous fp32 on the device; on the card
         through pinned memory without waiting (a pageable copy would wait for
-        the queued steps)."""
+        the queued steps). A tensor (a batch the device cache gathered) is
+        already that, and passes through."""
+        if isinstance(a, torch.Tensor):
+            return a
         t = torch.from_numpy(np.asarray(a, np.float32))
         if self.device.type == "cuda":
             t = t.pin_memory().to(self.device, non_blocking=True)
@@ -255,6 +281,14 @@ class BaseRunner(ABC):
 
     def _put_batch(self, batch):
         return self._to_device(batch["x"]), self._to_device(batch["x_cond"])
+
+    @staticmethod
+    def _host(a) -> np.ndarray:
+        """A batch's images as NHWC float32 numpy (a gathered NCHW tensor back
+        from the device)."""
+        if isinstance(a, torch.Tensor):
+            return a.permute(0, 2, 3, 1).float().cpu().numpy()
+        return np.asarray(a)
 
     # ---------------------------------------------------------- checkpoints
 
@@ -271,7 +305,8 @@ class BaseRunner(ABC):
         if self.use_ema:
             # the JAX EMA tree also holds the frozen VQGAN, which never moves
             model_states["ema"] = jax_tree_from_state_dict({**sd, **self.state.ema})
-        optim_states = {"optimizer": [opt_state_to_jax(self.state.optimizer, self.model)],
+        optim_states = {"optimizer": [opt_state_to_jax(self.state.optimizer, self.model,
+                                                       self.fuse_threshold())],
                         "scheduler": [plateau_to_jax(self.state.plateau)]}
         return model_states, optim_states
 
@@ -500,6 +535,7 @@ class BaseRunner(ABC):
             traceback.print_exc()
             raise  # a non-zero exit for the supervisor
         finally:
+            self._resident.clear()
             torch.autograd.set_detect_anomaly(anomaly)
             if profiler is not None:
                 profiler.close(self.global_step, self.logger)
@@ -514,7 +550,7 @@ class BaseRunner(ABC):
         """``bbdm_tpu/runners/base.py:714-744``: every rank samples its rows of
         the test set (the node's model peers the same rows, model index 0
         writing them), or rank 0 writes the grids of its first batch."""
-        _, val_loader, test_loader = self._build_loaders()
+        _, val_loader, test_loader = self._build_loaders(for_training=False)
         if len(test_loader) == 0:
             test_loader = val_loader
         with self.full_weights():

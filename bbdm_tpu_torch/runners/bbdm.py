@@ -95,7 +95,19 @@ class BBDMRunner(BaseRunner):
         """``bbdm_tpu/runners/bbdm.py:61-72``: the optimizer over the trainable
         parameters, the plateau config and the initial lr."""
         optim_cfg = config.model.BB.optimizer
+        if self.fuse_threshold() is not None:
+            self.logger(f"training.fuse_small_leaves: the optimizer state's checkpoint layout "
+                        f"buckets the trainable leaves of <= {self.fuse_threshold()} elements "
+                        "as the JAX runner does; the update is per-leaf torch._foreach_*")
         return Optimizer(optim_cfg, params), config.model.BB.lr_scheduler, optim_cfg.lr
+
+    def fuse_threshold(self):
+        """``training.fuse_threshold`` (default 65536) under
+        ``training.fuse_small_leaves`` (``bbdm_tpu/runners/bbdm.py:64-70``)."""
+        training = self.config.get("training") or {}
+        if not training.get("fuse_small_leaves", False):
+            return None
+        return int(training.get("fuse_threshold", 65536))
 
     def load_model_from_checkpoint(self):
         """Weights, epoch and step (``bbdm_tpu/runners/base.py:252-293``), the
@@ -134,7 +146,8 @@ class BBDMRunner(BaseRunner):
         if optim_path:
             self.logger(f"load optimizer and scheduler from {optim_path}")
             osd = load_checkpoint(optim_path)
-            opt_state_from_jax(osd["optimizer"][0], self.state.optimizer)
+            opt_state_from_jax(osd["optimizer"][0], self.state.optimizer, self.model,
+                               self.fuse_threshold())
             self.state.plateau = plateau_from_jax(osd["scheduler"][0], self.device)
 
     def get_checkpoint_states(self, stage="epoch_end"):
@@ -153,11 +166,14 @@ class BBDMRunner(BaseRunner):
         then the mean of per-batch mean squared deviations from it; std is its
         square root. Data parallel, each rank encodes its rows of each batch and
         the totals are averaged over ranks after each pass (JAX's ``combine``),
-        so every rank ends with the same statistics."""
+        so every rank ends with the same statistics. Under
+        ``training.device_data_cache`` the batches are gathered from the train
+        set's resident copy, which :meth:`train` then reuses."""
         from bbdm_tpu_torch.data import get_dataset
 
-        loader = self._loader(get_dataset(self.config.data)[0],
-                              self.config.data.train.batch_size, True)
+        loader = self._device_cache("train", self._loader(get_dataset(self.config.data)[0],
+                                                          self.config.data.train.batch_size,
+                                                          True))
         if len(loader) == 0:
             raise ValueError("latent statistics: the train set has no full batch")
 
@@ -213,7 +229,7 @@ class BBDMRunner(BaseRunner):
         to_normal = self.config.data.dataset_config.to_normal
         grid_size = 4
         log = stage != "test" and self.writer is not None
-        x, x_cond = np.asarray(batch["x"])[:4], np.asarray(batch["x_cond"])[:4]
+        x, x_cond = self._host(batch["x"][:4]), self._host(batch["x_cond"][:4])
         if self.config.testing.get("sample_mid_step", False):
             every = max(len(self.model.coeffs.steps) // 4, 1)
             for name, tag, traj in zip(("reverse_sample", "reverse_one_step_samples"),

@@ -182,7 +182,7 @@ class VQGANRunner(BaseRunner):
         """Input / reconstruction grids of the first 4 images."""
         sample_path = make_dir(os.path.join(sample_path, f"{stage}_sample"))
         to_normal = self.config.data.dataset_config.to_normal
-        x = np.asarray(batch["x"])[:4]
+        x = self._host(batch["x"][:4])
         for name, img in (("input", x), ("reconstruction", self.reconstruct(x))):
             grid = get_image_grid(img, 4, to_normal=to_normal)
             write_png(os.path.join(sample_path, f"{name}.png"), grid)

@@ -34,9 +34,8 @@ alone (random weights unless ``--skip-vqgan`` names a first stage).
         [--bench-sample-step N] [--throughput-only] [--deadline-ts TS] [--cpu]
 
 Runs on the CUDA card and raises where there is none; ``--cpu`` runs on the
-CPU. Phase D takes its batches from the runner's ``_build_loaders()``, which
-builds the train loader too (the JAX runner's ``for_training=False`` skips
-it). Not ported: the TPU service wait (``BBDM_BACKEND_WAIT``,
+CPU. Phase D takes its batches from the runner's
+``_build_loaders(for_training=False)``, as the JAX script does. Not ported: the TPU service wait (``BBDM_BACKEND_WAIT``,
 ``bbdm_tpu/utils/backend.py`` is TPU-only) and the JAX compilation cache.
 """
 
@@ -256,7 +255,7 @@ def main(argv=None) -> dict:
         apply_cli_overrides(cfg_d, make_args(args.result, args.cpu, train=False,
                                              sample_to_eval=True))
         runner_d = get_runner(cfg_d.runner, cfg_d)
-        _, val_loader, test_loader = runner_d._build_loaders()
+        _, val_loader, test_loader = runner_d._build_loaders(for_training=False)
         if len(test_loader) == 0:
             test_loader = val_loader
         batch_size = cfg_d.data.test.batch_size

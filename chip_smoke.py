@@ -178,7 +178,16 @@ Phases, each of which must pass:
    ``custom_colorization_LAB`` tree of the committed JPEG fixtures (an
    EXIF-rotated one among them), and another over a ``custom_aligned`` tree of
    8 pairs of the 256^2 VP8 q85 files: each output tree and the launches of
-   all three kernels;
+   all three kernels; (e) ``training.device_data_cache``
+   (:func:`device_cache_abba`): the Paeth tree as ``custom_aligned`` (64 items
+   a stream, 8 microbatches an epoch) on (c)'s runner, the cached
+   batches equal to ``_put_batch`` of the host loader's bit for bit over an
+   epoch, the latent-statistics pass from the host loader and from the
+   resident copy (host, cache, cache, host; the statistics within 1e-5), then
+   one epoch of ``BaseRunner.train`` an arm in ABBA order (A the host loader,
+   B the cache): s per microbatch, idle share, peak memory, each cache
+   build's decode + upload seconds and bytes, the log lines, and each arm's
+   launches equal to :func:`kernel_calls`' counts;
 13. the tools (``bbdm_tpu_torch/tools``): (a) ``bench_torch.py`` as its own
    process at the full width of ``Template-LBBDM-f4.yaml`` (batch 8, 200 euler
    steps, seeded weights): its JSON line, ``flops_per_sample`` equal to the
@@ -214,9 +223,11 @@ Phases, each of which must pass:
    the timed one): the reports, PSNR/SSIM finite, the delivered samples/s; (b)
    ``tools.pixel_demo`` on ``BBDM-synpix64.yaml``: one epoch, phase E (euler
    200), phase S ``euler:20,heun:10``; (c) ``tools.stochastic_demo`` on
-   ``BBDM-synstoch64.yaml``: its phase S, ``euler:20`` at 2 draws with the mode
-   scores, from (b)'s weights (the same network) named by (b)'s phase-T report
-   copied into its result directory (the demo's resume); (d)
+   ``BBDM-synstoch64.yaml``: phase T for one epoch, then phase S, ``euler:20``
+   at 2 draws with the mode scores; (a) and (c) train with the device cache
+   their configs ask for (``training.device_data_cache``): each part's caches
+   built (train and val of each training run, the LBBDM's latent statistics
+   sharing the train set's) and logged, with their seconds and bytes; (d)
    ``tools.read_tboard`` over (a)'s event files: its rows equal to every
    scalar the runners logged; (e) ``tools.run_parity`` on (a)'s bridge
    written as a reference ``.pth`` and (a)'s VQGAN, with random LPIPS alex
@@ -2112,7 +2123,7 @@ def fid_cli_split(run, argv):
 # ------------------------------------------------ latent paths: f8, f16, xattn
 
 PATH_PAIRS = (8, 8, 8)  # train (flipped in f8/f16: 16), val, test pairs at 256^2
-PATH_STEP = 10  # sampling steps (phase 14 paid with these: 16 train pairs and 20 steps before)
+PATH_STEP = 4  # sampling steps (20, then 10: cut to pay for phases 14 and 12 (e))
 
 
 def path_configs():
@@ -3425,14 +3436,222 @@ def vqgan_checkpoint(cfg, dev, path):
     del m
 
 
+CACHE_ARMS = "ABBA"  # A: the host loader, B: training.device_data_cache
+
+
+@contextlib.contextmanager
+def cache_logs(store):
+    """The lines ``maybe_device_cache`` logs in the block, in ``store``."""
+    from bbdm_tpu_torch.data import device_cache
+
+    def recorded(fn):
+        def wrapped(loader, training, world, device, logger=print, resident=None):
+            def log_line(msg):
+                store.append(msg)
+                logger(msg)
+            return fn(loader, training, world, device, log_line, resident=resident)
+        return wrapped
+
+    with patched(device_cache, "maybe_device_cache", recorded):
+        yield store
+
+
+@contextlib.contextmanager
+def cache_builds(store):
+    """Each ``device_cache.Resident`` built in the block: (items, bytes, dtype,
+    seconds of decode and upload, the device synchronized), in ``store``."""
+    from bbdm_tpu_torch.data import device_cache
+
+    def timed(init):
+        def wrapped(self, dataset, device, *a, **kw):
+            t0 = time.perf_counter()
+            init(self, dataset, device, *a, **kw)
+            if torch.device(device).type == "cuda":
+                torch.cuda.synchronize()
+            store.append({"items": len(self.x_names), "bytes": self.nbytes,
+                          "dtype": str(self.dtype), "s": time.perf_counter() - t0})
+        return wrapped
+
+    with patched(device_cache.Resident, "__init__", timed):
+        yield store
+
+
+def device_cache_abba(dev, counters, work, tree, runner):
+    """Phase 12 (e): ``training.device_data_cache`` on LBBDM-f4 training over the
+    Paeth tree as ``custom_aligned`` (its images as both sides: 64 items a
+    stream, 8 microbatches an epoch), on ``runner`` (part (c)'s, reconfigured):
+    the cached batches against ``_put_batch`` of the host loader's, bit for
+    bit, over an epoch; the latent-statistics pass with the host loader and
+    with the resident copy, host / cache / cache / host; then one epoch of
+    ``BaseRunner.train`` an arm, in ``CACHE_ARMS`` order (A the host loader as
+    the template configures it, no ``cache_in_ram``; B the cache, rebuilt by
+    each ``train()``): s per microbatch, the idle share over the arm's steps
+    (torch.profiler), peak memory, each cache build's decode + upload seconds
+    and bytes, the log lines, and the launches of each arm against
+    :func:`kernel_calls`."""
+    import statistics as st
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from bbdm_tpu_torch.data.base import clear_image_cache
+    from bbdm_tpu_torch.data.device_cache import DeviceCachedLoader
+
+    laps, t_lap = {}, [time.time()]
+
+    def lap(name):
+        laps[name] = time.time() - t_lap[0]
+        t_lap[0] = time.time()
+
+    aligned = os.path.join(work, "aligned-paeth")
+    for stage in ("train", "val", "test"):
+        for side in ("A", "B"):
+            os.makedirs(os.path.join(aligned, stage), exist_ok=True)
+            os.symlink(os.path.abspath(os.path.join(tree, stage)),
+                       os.path.join(aligned, stage, side))
+    cfg = runner.config
+    cfg.data.dataset_type = "custom_aligned"
+    d = cfg.data.dataset_config
+    d.dataset_path, d.flip, d.cache_in_ram = aligned, False, False
+    clear_image_cache()
+    training = cfg.training
+    training.validation_interval, training.sample_interval = 1, 1000
+    out = {"items_per_stream": DATA_TRAIN, "arms": {}, "cache_builds": []}
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+
+    # bit for bit: the cached batches against _put_batch of the host batches
+    training.device_data_cache = False
+    host = runner._build_loaders()[0]
+    training.device_data_cache = True
+    with cache_builds(out["cache_builds"]):
+        cached = runner._build_loaders()[0]
+    if not isinstance(cached, DeviceCachedLoader):
+        raise AssertionError("device cache: the runner built no cache")
+    host.set_epoch(0)
+    cached.set_epoch(0)
+    equal, n = 0, 0
+    for hb, cb in zip(host, cached):
+        a, b = runner._put_batch(hb), runner._put_batch(cb)
+        n += 1
+        equal += all(torch.equal(x, y) and x.stride() == y.stride() for x, y in zip(a, b))
+    out["batches_equal"] = [equal, n]
+    lap("batches_equal")
+    log(f"  (e) device cache: {equal} of {n} cached batches equal _put_batch of the host "
+        f"loader's bit for bit (layout included); built {json.dumps(out['cache_builds'])}")
+    if equal != n or n != len(host) or n == 0:
+        raise AssertionError(f"device cache: {equal} of {n} batches equal the host path's")
+
+    # the latent-statistics pass: host, resident copy, resident copy, host
+    stats = []
+    for arm in "ABBA":
+        training.device_data_cache = arm == "B"
+        sync()
+        t0 = time.perf_counter()
+        runner.get_latent_mean_std()
+        sync()
+        stats.append((arm, time.perf_counter() - t0, {k: v.detach().clone()
+                                                      for k, v in runner.latent_stats.items()}))
+    dev_max = max(float((s[k] - stats[0][2][k]).abs().max()) for _, _, s in stats
+                  for k in s)
+    out["latent_stats_s"] = {"host": [s for a, s, _ in stats if a == "A"],
+                             "cache": [s for a, s, _ in stats if a == "B"],
+                             "max_abs_vs_host": dev_max}
+    runner._resident.clear()
+    del host, cached
+    lap("latent_stats")
+    if dev_max > 1e-5:
+        raise AssertionError(f"device cache: latent statistics {dev_max} from the host path's")
+
+    # the ABBA reading through BaseRunner.train, one epoch an arm
+    bs = cfg.data.train.batch_size
+    micro = DATA_TRAIN // bs
+    val_batches = DATA_VAL // cfg.data.val.batch_size
+    calls = kernel_calls(cfg.model, bs)
+    marks = []
+
+    def timing_step(build):
+        def build_timed():
+            step = build()
+
+            def timed_step(*a, **kw):
+                marks.append(time.perf_counter())
+                return step(*a, **kw)
+            return timed_step
+        return build_timed
+
+    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
+    logs = []
+    for i, arm in enumerate(CACHE_ARMS):
+        training.device_data_cache = arm == "B"
+        training.n_epochs = runner.global_epoch + 1
+        for mod, attr in counters.values():
+            getattr(mod, attr).launches = 0
+        marks.clear()
+        builds = []
+        steps = range(runner.global_step + 1, runner.global_step + micro + 1)
+        want = expected_launches(calls, microbatches=micro + val_batches
+                                 + sum(g % 50 == 0 for g in steps))  # validation steps
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+        with contextlib.ExitStack() as stack:
+            stack.enter_context(patched(runner, "build_train_step", timing_step))
+            for attr, stub in (("get_checkpoint_states", ({}, {})),
+                               ("_save_checkpoints", None)):
+                stack.enter_context(patched(runner, attr,
+                                            lambda fn, stub=stub: lambda *a, **kw: stub))
+            stack.enter_context(patched(runner, "logger", lambda fn: lambda m: (
+                logs.append(m) if "device_data_cache" in str(m) else None, fn(m))))
+            stack.enter_context(cache_builds(builds))
+            prof = stack.enter_context(profile(activities=acts))
+            t_prof = time.perf_counter()
+            runner.train()
+            sync()
+            end = time.perf_counter()
+        launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
+        if launches != want or len(marks) != micro:
+            raise AssertionError(f"device cache arm {i} ({arm}): launches {launches} != {want}"
+                                 f" or {len(marks)} microbatches, not {micro}")
+        lo, hi = marks[0], marks[-1]  # from the first step's start to the last one's
+        kernels = [(e.time_range.start / 1e6 + t_prof, e.time_range.end / 1e6 + t_prof)
+                   for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(min(b, hi) - a for a, b in kernels if lo <= a < hi)
+        deltas = [b - a for a, b in zip(marks, marks[1:])]
+        out["arms"][f"{i}{arm}"] = {
+            "s_per_microbatch": (marks[-1] - marks[0]) / (micro - 1),
+            "median_step_delta_s": st.median(deltas), "device_busy_s": busy,
+            "idle_share": 1 - busy / (hi - lo), "train_s": end - t_prof,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda"
+            else None, "cache_builds": builds, "launches": launches}
+        del prof
+        lap(f"arm_{i}{arm}")
+    out["logged"] = logs
+    out["laps_s"] = laps
+    for arm in "AB":
+        rows = [v for k, v in out["arms"].items() if k.endswith(arm)]
+        out[f"mean_s_per_microbatch_{arm}"] = sum(r["s_per_microbatch"] for r in rows) / 2
+    out["cache_over_host"] = out["mean_s_per_microbatch_B"] / out["mean_s_per_microbatch_A"]
+    log(f"  (e) LBBDM-f4 train on the Paeth tree as custom_aligned, {micro} microbatches an "
+        f"arm, arms {CACHE_ARMS} (A host loader, B device cache) in one process: "
+        + json.dumps(out["arms"]) + f"; latent statistics s {json.dumps(out['latent_stats_s'])}"
+        f"; cache s per microbatch / host {out['cache_over_host']:.4f}; logged {logs}; laps s "
+        + json.dumps(laps))
+    if len(logs) != 2 * CACHE_ARMS.count("B") or any(
+            len(r["cache_builds"]) != (2 if k.endswith("B") else 0)
+            for k, r in out["arms"].items()):
+        raise AssertionError(f"device cache: builds or log lines wrong: {logs}")
+    return out
+
+
 def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
                aligned_config=None):
     """Phase 12 (see the module docstring): the host codec, the loader, LBBDM-f4
-    training on a ``custom_inpainting`` Paeth tree under ``cache_in_ram`` and
+    training on a ``custom_inpainting`` Paeth tree under ``cache_in_ram``,
     ``--sample_to_eval`` from a ``custom_colorization_LAB`` tree of the JPEG
     fixtures and from a ``custom_aligned`` tree of WebP files, through
-    ``main_torch.main``. ``config``/``lab_config``/``aligned_config`` let a CPU
-    rehearsal pass tiny models."""
+    ``main_torch.main``, and the device cache's reading
+    (:func:`device_cache_abba`, on part (c)'s runner).
+    ``config``/``lab_config``/``aligned_config`` let a CPU rehearsal pass tiny
+    models."""
     import shutil
     import statistics as st
 
@@ -3605,7 +3824,10 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
         raise AssertionError(f"data train: decodes per epoch {[e['decodes'] for e in epochs]}, "
                              f"expected {2 * DATA_TRAIN} then 0 (cache_in_ram)")
     ckpt = os.path.join(runner.config.result.ckpt_path, "last_model.ckpt")
-    del runner, prof
+    del prof
+    out["device_cache"] = device_cache_abba(dev, counters, work, tree, runner)
+    del runner
+    torch.cuda.empty_cache()
 
     # (d) --sample_to_eval from that checkpoint over a LAB tree of the JPEG
     # fixtures and over a custom_aligned tree of WebP pairs
@@ -4078,29 +4300,37 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
         "pixel": {"epochs": {"run": 1, "config": px_cfg.training.n_epochs},
                   "variants": {"run": DEMO_VARIANTS,
                                "default": "euler:100,euler:50,euler:20,heun:25,heun:10"}},
-        "stochastic": {"phase_t": "(b)'s weights, resumed from (b)'s report",
+        "stochastic": {"epochs": {"run": 1, "config": st_cfg.training.n_epochs},
                        "variants": {"run": "%s:%d" % DEMO_STOCH_VARIANT,
                                     "default": "euler:200,...,heun:10"},
                        "sample_num": {"run": DEMO_STOCH_DRAWS, "default": 5}}}))
     out, launches = {}, {}
 
-    def run(label, fn, argv, want, needed):
+    def run(label, fn, argv, want, needed, caches=0):
+        """``fn(argv)`` with the launches counted against ``want`` and the device
+        caches its training builds (``caches``: how many the configs ask for,
+        each logged)."""
         for mod, attr in counters.values():
             getattr(mod, attr).launches = 0
-        store = {}
+        store, builds, logged = {}, [], []
         t0 = time.time()
-        with training_runs(store):
+        with training_runs(store), cache_builds(builds), cache_logs(logged):
             result = fn(argv + cpu)
         wall_s = time.time() - t0
         got = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
         want = want(store) if callable(want) else want
         launches[label] = got
         log(f"  {label}: {wall_s:.1f} s, launches {got}, derived from the code {want}; "
-            f"training runs (class, steps, epoch, stop) {store['runs']}")
+            f"training runs (class, steps, epoch, stop) {store['runs']}; device caches "
+            f"{json.dumps(builds)}, logged {logged}")
         if got != want or not all(want[k] > 0 for k in needed):
             raise AssertionError(f"{label}: launches {got} != {want} (kernel_calls), or one of "
                                  f"{needed} never launched")
-        out[label] = {"wall_s": wall_s, "launches": got, "result": result}
+        if len(builds) != caches or len(logged) != caches:
+            raise AssertionError(f"{label}: {len(builds)} device caches built and "
+                                 f"{len(logged)} logged, the configs ask for {caches}")
+        out[label] = {"wall_s": wall_s, "launches": got, "result": result,
+                      "device_caches": builds}
         torch.cuda.empty_cache()
         return result, store
 
@@ -4145,7 +4375,9 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
         "--result", chain, "--vqgan-config", paths["VQGAN-f4-syn256-v2"],
         "--lbbdm-config", paths["LBBDM-f4-syn256-v2"], "--wall-a", str(wall),
         "--wall-b", str(wall), "--bench-sample-num", str(draws),
-        "--bench-images", str(test_bs)], chain_launches, ("K1", "K2", "K3"))
+        "--bench-images", str(test_bs)], chain_launches, ("K1", "K2", "K3"),
+        caches=2 * sum(bool(c.training.get("device_data_cache", False))
+                       for c in (vq_cfg, lb_cfg)))  # train and val, each decoded once
     ev, tput = reports["eval"], reports["throughput"]
     for key in ("sample_vs_gt", "condition_vs_gt_floor", "vqgan_roundtrip_ceiling"):
         if ev[key]["count"] != n_test or not np.isfinite(ev[key]["psnr"]):
@@ -4218,19 +4450,24 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
             f"{r['sample_vs_gt']['ssim']:.3f} (floor {r['condition_vs_gt_floor']['psnr']:.2f}),"
             f" {r['wall_sec_incl_compile']} s")
 
-    # (c) the stochastic demo, phase S: one variant of DEMO_STOCH_DRAWS draws from
-    # (b)'s weights (the same network), named by (b)'s phase-T report copied in:
-    # the demo's resume; (b) drove phase T's code at these shapes
+    # (c) the stochastic demo: phase T for one epoch (with the device cache its
+    # config asks for), then phase S, one variant of DEMO_STOCH_DRAWS draws
     st_calls = kernel_calls(st_cfg.model, st_cfg.data.test.batch_size)
     sampler, n = DEMO_STOCH_VARIANT
     stoch = os.path.join(work, "stoch")
-    os.makedirs(stoch)
-    shutil.copy(os.path.join(work, "pixel", "report_train.json"), stoch)
+
+    def stochastic_launches(store):
+        ((_, micro, _, _),) = store["runs"]
+        val = n_val // st_cfg.data.val.batch_size  # the validation epoch's loss evaluations
+        return add(expected_launches(st_calls, microbatches=micro + val),
+                   expected_launches(st_calls, steps=nfe(sampler, n), draws=DEMO_STOCH_DRAWS,
+                                     batches=n_test // st_cfg.data.test.batch_size))
+
     rows, _ = run("demo_stochastic", stochastic_demo.main, [
-        "--result", stoch, "--config", paths["BBDM-synstoch64"], "--variants", f"{sampler}:{n}",
-        "--sample-num", str(DEMO_STOCH_DRAWS)],
-        expected_launches(st_calls, steps=nfe(sampler, n), draws=DEMO_STOCH_DRAWS,
-                          batches=n_test // st_cfg.data.test.batch_size), ("K1", "K2"))
+        "--result", stoch, "--config", paths["BBDM-synstoch64"], "--epochs", "1",
+        "--variants", f"{sampler}:{n}", "--sample-num", str(DEMO_STOCH_DRAWS)],
+        stochastic_launches, ("K1", "K2"),
+        caches=2 * bool(st_cfg.training.get("device_data_cache", False)))
     (r,) = rows
     if (r["images"], sum(r["mode_histogram"])) != (n_test, n_test * DEMO_STOCH_DRAWS) or \
             not np.isfinite(r["best_mode_psnr_mean"]):

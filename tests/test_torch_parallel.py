@@ -365,3 +365,20 @@ def test_profile_window_writes_a_trace_on_rank_0(runs):
         events = json.load(f)["traceEvents"]
     assert any("conv" in e.get("name", "") for e in events)
     assert not os.path.exists(os.path.join(work, "prof_rank1"))
+
+
+def test_two_rank_device_cache_gathers_the_host_loaders_rows(runs):
+    """Under ``training.device_data_cache`` each rank's cached train and val
+    batches are its host loader's rows through ``_put_batch``, bit for bit;
+    the two ranks' rows are the node's batch; the latent statistics gathered
+    from the resident copies are the same on both ranks."""
+    work, _ = runs
+    ranks = [load(work, f"cache_rank{r}.pt") for r in range(RANKS)]
+    for r in ranks:
+        assert r["cached"] == [True, True] and r["equal"] and all(r["equal"])
+        assert all(c == h for c, h in r["names"])
+    for parts in zip(*(r["names"] for r in ranks)):
+        rows = [names for names, _ in parts]
+        assert len(set(sum(rows, []))) == sum(map(len, rows))  # each row on one rank
+    for k in ranks[0]["latent_stats"]:
+        assert torch.equal(ranks[0]["latent_stats"][k], ranks[1]["latent_stats"][k])

@@ -9,6 +9,10 @@ gradient path through the kernels' autograd Functions.
   ``flax.serialization.from_state_dict`` and gives the same loss (2e-4) and
   trees; a JAX runner's checkpoint resumes in the port with equal counters,
   parameters, EMA, moments and plateau state (exactly: the bytes carry over).
+  The same both ways under ``training.fuse_small_leaves`` (the bucketed
+  optimizer layout), where the port's next update equals the JAX runner's
+  within 2e-4; an optimizer state of the other layout, or a bucket of another
+  model, is refused.
 * With every dispatcher forced through its kernel branch (the twins as
   kernels), every trainable parameter gets a finite gradient, each UNet
   GroupNorm's backward is the Function's recompute, and the VQGAN gets none;
@@ -63,6 +67,9 @@ def assert_trees_equal(got, want, path=""):
         np.testing.assert_array_equal(np.asarray(got), np.asarray(want), err_msg=path)
 
 
+FUSE = 4096  # the fused config's fuse_threshold: UNet kernels of mc 64 stay per leaf
+
+
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
     """A 16^2 custom_aligned PNG dataset (4 train, 2 val, 2 test pairs), a
@@ -84,16 +91,22 @@ def setup(tmp_path_factory):
     lb.VQGAN.params.ckpt_path = str(root / "vq.ckpt")
     px = tiny_bbdm_config()
     px.BB.optimizer.weight_decay = 0.01
+    # two channels per GroupNorm group (see tests/test_torch_train_step.py:
+    # at one, Adam turns the rounding noise of a zero gradient into a step)
+    fused = lbbdm_config("SpatialRescaler")
+    fused.VQGAN.params.ckpt_path = lb.VQGAN.params.ckpt_path
+    fused.BB.params.UNetParams.model_channels = 64
     paths = {}
-    for name, model in (("lbbdm", lb), ("bbdm", px)):
+    for name, model in (("lbbdm", lb), ("bbdm", px), ("fused", fused)):
         d = model.to_dict()
         d["EMA"] = {"use_ema": True, "ema_decay": 0.9, "update_ema_interval": 1,
                     "start_ema_step": 0}
-        size = 16 if name == "lbbdm" else 8
+        size = 8 if name == "bbdm" else 16
+        bucket = {"fuse_small_leaves": True, "fuse_threshold": FUSE} if name == "fused" else {}
         cfg = {"runner": "BBDMRunner",
                "training": {"n_epochs": 2, "n_steps": 100, "save_interval": 1,
                             "sample_interval": 1, "validation_interval": 1,
-                            "accumulate_grad_batches": 1},
+                            "accumulate_grad_batches": 1, **bucket},
                "testing": {"clip_denoised": False, "sample_num": 1},
                "data": {"dataset_name": "tiny", "dataset_type": "custom_aligned",
                         "dataset_config": {"dataset_path": str(root / "data"),
@@ -200,19 +213,109 @@ def test_jax_checkpoint_resumes_in_the_port(setup, tmp_path):
     assert_trees_equal(plateau_to_jax(port.state.plateau), want_o["scheduler"][0])
 
 
-def test_an_optimizer_state_of_another_layout_is_refused(setup, tmp_path):
-    """A bucketed (``training.fuse_small_leaves``) optimizer state raises
-    rather than loading into the wrong leaves."""
+def jax_draws(jm, params, key, x):
+    """(t, noise) of ``jm.loss`` under ``key``, for the port's ``loss``."""
+    t_rng, n_rng = jax.random.split(key)
+    zshape = jax.eval_shape(lambda p, x: jm.encode(p, x), params, x).shape
+    return (torch.from_numpy(np.array(jax.random.randint(t_rng, (x.shape[0],), 0,
+                                                         jm.num_timesteps))),
+            nchw(jax.random.normal(n_rng, zshape)))
+
+
+def test_a_bucketed_jax_checkpoint_resumes_in_the_port(setup, tmp_path):
+    """Two JAX train steps under ``training.fuse_small_leaves`` (the moments
+    as {"bucket", "big"}, frozen VQGAN leaves {} in "big"); the port resumes
+    with moments equal to the file's, and its next update on the same batch
+    and draws equals the JAX runner's within 2e-4."""
     root, paths = setup
-    port, _ = runners(paths["bbdm"], tmp_path / "a", jax_side=False)
+    _, jr = runners(paths["fused"], tmp_path / "a")
+    for i in range(2):
+        jr.state, _ = jr._train_step(jr.state, *batch_of(16, i), jax.random.PRNGKey(i))
+    jr.global_step, jr.global_epoch = 2, 0
+    model_states, optim_states = jr.get_checkpoint_states()
+    mu = optim_states["optimizer"][0]["inner_state"]["0"]["mu"]
+    big = list(mu["big"].values())
+    assert mu["bucket"].size and {type(v) is dict and not v for v in big} == {True, False}
+    jax_io.save_checkpoint(model_states, str(tmp_path / "m.ckpt"))
+    jax_io.save_checkpoint(optim_states, str(tmp_path / "o.ckpt"))
+
+    port, _ = runners(paths["fused"], tmp_path / "b", "--resume_model",
+                      str(tmp_path / "m.ckpt"), "--resume_optim", str(tmp_path / "o.ckpt"),
+                      jax_side=False)
+    assert port.fuse_threshold() == FUSE
+    assert_trees_equal(opt_state_to_jax(port.state.optimizer, port.model, FUSE),
+                       jax_io.load_checkpoint(str(tmp_path / "o.ckpt"))["optimizer"][0])
+
+    x, y = batch_of(16, 5)
+    key = jax.random.PRNGKey(5)
+    t, noise = jax_draws(jr.model, jr.state.params, key, x)
+    jr.state, metrics = jr._train_step(jr.state, x, y, key)
+    cfg = port.config
+    step = make_train_step(port.model.train(), cfg.training, cfg.model.EMA,
+                           port.lr_scheduler_config)
+    out = step(port.state, nchw(x), nchw(y), t=t, noise=noise)
+    assert abs(float(out["loss"]) - float(metrics["loss"])) <= 2e-4
+    got = jax.tree_util.tree_leaves(jax_tree_from_state_dict(port.model))
+    want = jax.tree_util.tree_leaves(jax.tree_util.tree_map(np.asarray, jr.state.params))
+    assert len(got) == len(want)
+    assert max(float(np.abs(a - b).max()) for a, b in zip(got, want)) <= 2e-4
+
+
+def test_a_bucketed_port_checkpoint_resumes_in_the_jax_runner(setup, tmp_path):
+    """Two port train steps under ``training.fuse_small_leaves``; the JAX
+    runner of the same config resumes from the files through its own
+    ``from_state_dict`` (which raises on any other tree) with equal trees."""
+    root, paths = setup
+    port, _ = runners(paths["fused"], tmp_path / "a", jax_side=False)
+    cfg = port.config
+    step = make_train_step(port.model.train(), cfg.training, cfg.model.EMA,
+                           port.lr_scheduler_config)
+    for i in range(2):
+        x, y = batch_of(16, i)
+        step(port.state, nchw(x), nchw(y), port.train_generator)
+    port.global_epoch = 1
     model_states, optim_states = port.get_checkpoint_states()
-    inner = optim_states["optimizer"][0]["inner_state"]["1"]
-    inner["mu"] = inner["nu"] = {"bucket": np.zeros(3, np.float32), "big": {}}
+    assert "bucket" in optim_states["optimizer"][0]["inner_state"]["0"]["mu"]
     io.save_checkpoint(model_states, str(tmp_path / "m.ckpt"))
     io.save_checkpoint(optim_states, str(tmp_path / "o.ckpt"))
-    with pytest.raises(ValueError, match="fuse_small_leaves"):
-        runners(paths["bbdm"], tmp_path / "b", "--resume_model", str(tmp_path / "m.ckpt"),
-                "--resume_optim", str(tmp_path / "o.ckpt"), jax_side=False)
+
+    _, jr = runners(paths["fused"], tmp_path / "b", "--resume_model", str(tmp_path / "m.ckpt"),
+                    "--resume_optim", str(tmp_path / "o.ckpt"))
+    assert jr.bucketer is not None and (jr.global_epoch, jr.global_step) == (2, 2)
+    host = lambda t: jax.tree_util.tree_map(np.asarray, serialization.to_state_dict(t))
+    assert_trees_equal(host(jr.state.params), model_states["model"])
+    assert_trees_equal(host(jr.state.opt_state), optim_states["optimizer"][0])
+
+
+@pytest.mark.parametrize("fault", ["per-leaf-under-fuse", "bucketed-without-fuse",
+                                   "bucket-of-another-length"])
+def test_an_optimizer_state_of_another_layout_is_refused(setup, tmp_path, fault):
+    """An optimizer state that fits neither form the config names raises rather
+    than loading into the wrong leaves: the per-leaf layout under
+    ``fuse_small_leaves``, the bucketed one without it, a bucket of another
+    length."""
+    root, paths = setup
+    port, _ = runners(paths["fused"], tmp_path / "a", jax_side=False)
+    model_states, optim_states = port.get_checkpoint_states()
+    node = optim_states["optimizer"][0]["inner_state"]
+    if fault == "per-leaf-under-fuse":
+        optim_states["optimizer"][0] = opt_state_to_jax(port.state.optimizer, port.model)
+    elif fault == "bucket-of-another-length":
+        node["0"]["mu"]["bucket"] = node["0"]["mu"]["bucket"][1:]
+    io.save_checkpoint(model_states, str(tmp_path / "m.ckpt"))
+    io.save_checkpoint(optim_states, str(tmp_path / "o.ckpt"))
+    resume = ("--resume_model", str(tmp_path / "m.ckpt"), "--resume_optim",
+              str(tmp_path / "o.ckpt"))
+    if fault == "bucketed-without-fuse":
+        cfg = load_config(paths["fused"])
+        cfg.training.fuse_small_leaves = False
+        path = str(tmp_path / "per-leaf.yaml")
+        save_config(cfg, path)
+    else:
+        path = paths["fused"]
+    match = "bucket of" if fault == "bucket-of-another-length" else "fuse_small_leaves"
+    with pytest.raises(ValueError, match=match):
+        runners(path, tmp_path / "b", *resume, jax_side=False)
 
 
 @pytest.fixture

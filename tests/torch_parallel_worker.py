@@ -35,6 +35,7 @@ def run(rank: int, size: int, port: int, work: str) -> None:
         vqgan_runner(rank, size, work)
         sample_to_eval(rank, size, work)
         train_until_stopped(rank, size, work)
+        device_cache_rows(rank, size, work)
     finally:
         parallel.shutdown()
 
@@ -274,3 +275,29 @@ def train_until_stopped(rank, size, work):
                 "validations": validations, "stop_file_left": os.path.exists(stop_file),
                 "state_dict": runner.model.state_dict()},
                os.path.join(work, f"stop_rank{rank}.pt"))
+
+
+def device_cache_rows(rank, size, work):
+    """``training.device_data_cache`` on this rank: the train and val loaders of
+    ``BBDMRunner._build_loaders()`` (the whole set resident, this rank's rows
+    gathered) against the host loaders' batches through ``_put_batch``, two
+    epochs. Writes the names and the comparisons to ``cache_rank<rank>.pt``."""
+    from bbdm_tpu_torch.data.device_cache import DeviceCachedLoader
+    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
+
+    runner = BBDMRunner(lbbdm_runner_config(os.path.join(work, "data"),
+                                            os.path.join(work, f"cache_rank{rank}"),
+                                            device_data_cache=True), device="cpu")
+    cached, host = runner._build_loaders()[:2], runner._build_loaders(for_training=False)[:2]
+    out = {"cached": [isinstance(lo, DeviceCachedLoader) for lo in cached], "names": [],
+           "equal": [], "latent_stats": runner.latent_stats}
+    for epoch in (0, 1):
+        for c, h in zip(cached, host):
+            c.set_epoch(epoch)
+            h.set_epoch(epoch)
+            for cb, hb in zip(c, h):
+                out["names"].append((cb["x_name"], hb["x_name"]))
+                out["equal"].append(all(
+                    torch.equal(a, b) and a.stride() == b.stride()
+                    for a, b in zip(runner._put_batch(cb), runner._put_batch(hb))))
+    torch.save(out, os.path.join(work, f"cache_rank{rank}.pt"))
