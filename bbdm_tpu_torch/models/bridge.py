@@ -44,6 +44,7 @@ from bbdm_tpu_torch.models.schedules import (
 from bbdm_tpu_torch.models.unet import UNet
 from bbdm_tpu_torch.ops.upsample_conv import combine_kernel_2x2
 from bbdm_tpu_torch.parallel import collectives
+from bbdm_tpu_torch.utils.spans import span
 
 
 class BrownianBridgeModel(nn.Module):
@@ -208,63 +209,67 @@ class BrownianBridgeModel(nn.Module):
         ``(imgs, one_step_imgs)``, each [S, B, C, H, W], the state after each
         step and that step's x0 estimate.
         """
-        y = y.contiguous()  # the kernels take NCHW-contiguous activations
-        if self.condition_key == "nocond":
-            context = None
-        elif context is None:
-            context = y
-        c = self.coeffs
-        if noise is not None and len(noise) != self.noised_steps():
-            raise ValueError(f"need {self.noised_steps()} noise tensors, got {len(noise)}")
-        params = self._sampling_params()
-        B = y.shape[0]
+        with span("sampler.loop"):
+            y = y.contiguous()  # the kernels take NCHW-contiguous activations
+            if self.condition_key == "nocond":
+                context = None
+            elif context is None:
+                context = y
+            c = self.coeffs
+            if noise is not None and len(noise) != self.noised_steps():
+                raise ValueError(f"need {self.noised_steps()} noise tensors, got {len(noise)}")
+            params = self._sampling_params()
+            B = y.shape[0]
 
-        def predict(x, t, m_t, sigma_t):
-            tt = torch.full((B,), int(t), dtype=torch.int32, device=y.device)
-            pred = functional_call(self.unet, params, (x, tt, context)).to(y.dtype)
-            x0 = self.predict_x0_from_objective(x, y, pred, m_t=float(m_t),
-                                                sigma_t=float(sigma_t))
-            return x0.clamp(-1.0, 1.0) if clip_denoised else x0
+            def predict(x, t, m_t, sigma_t):
+                tt = torch.full((B,), int(t), dtype=torch.int32, device=y.device)
+                pred = functional_call(self.unet, params, (x, tt, context)).to(y.dtype)
+                x0 = self.predict_x0_from_objective(x, y, pred, m_t=float(m_t),
+                                                    sigma_t=float(sigma_t))
+                return x0.clamp(-1.0, 1.0) if clip_denoised else x0
 
-        def draw(i):
-            if noise is not None:
-                return noise[i]
-            return collectives.randn(y.shape, generator=generator, dtype=y.dtype,
-                                     device=y.device)
+            def draw(i):
+                if noise is not None:
+                    return noise[i]
+                return collectives.randn(y.shape, generator=generator, dtype=y.dtype,
+                                         device=y.device)
 
-        def update(i, x_t, x0, eps=None):
-            x = float(c.a_xt[i]) * x_t + float(c.a_x0[i]) * x0 + float(c.a_y[i]) * y
-            return x if eps is None else x + float(c.sigma[i]) * eps
+            def update(i, x_t, x0, eps=None):
+                x = float(c.a_xt[i]) * x_t + float(c.a_x0[i]) * x0 + float(c.a_y[i]) * y
+                return x if eps is None else x + float(c.sigma[i]) * eps
 
-        imgs, one_step = [], []  # the trajectory, kept under sample_mid_step only
+            imgs, one_step = [], []  # the trajectory, kept under sample_mid_step only
 
-        def keep(x, x0):
+            def keep(x, x0):
+                if sample_mid_step:
+                    imgs.append(x)
+                    one_step.append(x0)
+
+            x_t = y
+            with self._sampling_mode():
+                if self.sampler == "euler":
+                    for i in range(len(c.steps)):
+                        with span("sampler.step"):
+                            x0 = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
+                            x_t = update(i, x_t, x0, draw(i))
+                            keep(x_t, x0)
+                else:
+                    m, sig = self.schedule.m_t, np.sqrt(self.schedule.variance_t)
+                    for i in range(len(c.steps) - 1):
+                        with span("sampler.step"):
+                            nt = int(c.steps[i + 1])
+                            x0_a = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
+                            x0_b = predict(update(i, x_t, x0_a), nt, m[nt], sig[nt])
+                            x0 = 0.5 * (x0_a + x0_b)
+                            x_t = update(i, x_t, x0, draw(i))
+                            keep(x_t, x0)
+                    last = int(c.steps[-1])
+                    with span("sampler.step"):
+                        x_t = predict(x_t, last, m[last], sig[last])
+                        keep(x_t, x_t)
             if sample_mid_step:
-                imgs.append(x)
-                one_step.append(x0)
-
-        x_t = y
-        with self._sampling_mode():
-            if self.sampler == "euler":
-                for i in range(len(c.steps)):
-                    x0 = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
-                    x_t = update(i, x_t, x0, draw(i))
-                    keep(x_t, x0)
-            else:
-                m, sig = self.schedule.m_t, np.sqrt(self.schedule.variance_t)
-                for i in range(len(c.steps) - 1):
-                    nt = int(c.steps[i + 1])
-                    x0_a = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
-                    x0_b = predict(update(i, x_t, x0_a), nt, m[nt], sig[nt])
-                    x0 = 0.5 * (x0_a + x0_b)
-                    x_t = update(i, x_t, x0, draw(i))
-                    keep(x_t, x0)
-                last = int(c.steps[-1])
-                x_t = predict(x_t, last, m[last], sig[last])
-                keep(x_t, x_t)
-        if sample_mid_step:
-            return torch.stack(imgs), torch.stack(one_step)
-        return x_t
+                return torch.stack(imgs), torch.stack(one_step)
+            return x_t
 
     @torch.inference_mode()
     def sample(self, x_cond, context=None, *, clip_denoised=True, sample_mid_step=False,

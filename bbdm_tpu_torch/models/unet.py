@@ -35,6 +35,7 @@ from bbdm_tpu_torch.models.layers import (
     head_init,
     timestep_embedding,
 )
+from bbdm_tpu_torch.utils.spans import span
 
 
 class UNet(nn.Module):
@@ -135,50 +136,51 @@ class UNet(nn.Module):
 
     def forward(self, x, timesteps, context=None):
         """x: [B, C, H, W]; timesteps: [B]. Returns [B, out_channels, H, W] fp32."""
-        emb = self.time_dense_0(timestep_embedding(timesteps, self.model_channels))
-        emb = self.time_dense_1(F.silu(emb))
-        if self.condition_key != "nocond" and context is not None:
-            x = torch.cat([x, context.to(x.dtype)], dim=1)
-        h = x.to(self.dtype)
-        emb = emb.to(self.dtype)
-        block = self.get_submodule
+        with span("unet.forward"):
+            emb = self.time_dense_0(timestep_embedding(timesteps, self.model_channels))
+            emb = self.time_dense_1(F.silu(emb))
+            if self.condition_key != "nocond" and context is not None:
+                x = torch.cat([x, context.to(x.dtype)], dim=1)
+            h = x.to(self.dtype)
+            emb = emb.to(self.dtype)
+            block = self.get_submodule
 
-        def attend(name, h):
-            if self.use_spatial_transformer:
-                return block(name)(h, context)
-            return block(name)(h)
+            def attend(name, h):
+                if self.use_spatial_transformer:
+                    return block(name)(h, context)
+                return block(name)(h)
 
-        hs = [self.stem(h)]
-        h = hs[0]
-        ds = 1
-        for level, _ in enumerate(self.channel_mult):
-            for i in range(self.num_res_blocks):
-                h = block(f"down_{level}_{i}")(h, emb)
-                if ds in self.attention_resolutions:
-                    h = attend(f"down_{level}_{i}_attn", h)
-                hs.append(h)
-            if level != len(self.channel_mult) - 1:
-                ds_block = block(f"down_{level}_ds")
-                h = ds_block(h, emb) if isinstance(ds_block, ResBlock) else ds_block(h)
-                hs.append(h)
-                ds *= 2
+            hs = [self.stem(h)]
+            h = hs[0]
+            ds = 1
+            for level, _ in enumerate(self.channel_mult):
+                for i in range(self.num_res_blocks):
+                    h = block(f"down_{level}_{i}")(h, emb)
+                    if ds in self.attention_resolutions:
+                        h = attend(f"down_{level}_{i}_attn", h)
+                    hs.append(h)
+                if level != len(self.channel_mult) - 1:
+                    ds_block = block(f"down_{level}_ds")
+                    h = ds_block(h, emb) if isinstance(ds_block, ResBlock) else ds_block(h)
+                    hs.append(h)
+                    ds *= 2
 
-        h = self.mid_res_0(h, emb)
-        h = attend("mid_attn", h)
-        h = self.mid_res_1(h, emb)
+            h = self.mid_res_0(h, emb)
+            h = attend("mid_attn", h)
+            h = self.mid_res_1(h, emb)
 
-        for level, _ in reversed(list(enumerate(self.channel_mult))):
-            for i in range(self.num_res_blocks + 1):
-                h = block(f"up_{level}_{i}")(torch.cat([h, hs.pop()], dim=1), emb)
-                if ds in self.attention_resolutions:
-                    h = attend(f"up_{level}_{i}_attn", h)
-                if level and i == self.num_res_blocks:
-                    us_block = block(f"up_{level}_us")
-                    h = us_block(h, emb) if isinstance(us_block, ResBlock) else us_block(h)
-                    ds //= 2
+            for level, _ in reversed(list(enumerate(self.channel_mult))):
+                for i in range(self.num_res_blocks + 1):
+                    h = block(f"up_{level}_{i}")(torch.cat([h, hs.pop()], dim=1), emb)
+                    if ds in self.attention_resolutions:
+                        h = attend(f"up_{level}_{i}_attn", h)
+                    if level and i == self.num_res_blocks:
+                        us_block = block(f"up_{level}_us")
+                        h = us_block(h, emb) if isinstance(us_block, ResBlock) else us_block(h)
+                        ds //= 2
 
-        h = self.out_norm(h, act="silu")
-        return self.out_conv(h.float())
+            h = self.out_norm(h, act="silu")
+            return self.out_conv(h.float())
 
     @staticmethod
     def from_config(p, condition_key: str, *, dtype=torch.bfloat16,

@@ -49,6 +49,7 @@ from bbdm_tpu_torch.runners.utils import is_torch_file, make_dir
 from bbdm_tpu_torch.training.optim import Optimizer
 from bbdm_tpu_torch.utils.gif import write_gif
 from bbdm_tpu_torch.utils.images import get_image_grid, save_single_image, write_png
+from bbdm_tpu_torch.utils.spans import span
 
 
 class BBDMRunner(BaseRunner):
@@ -309,13 +310,15 @@ class BBDMRunner(BaseRunner):
                     samples = self.sample_batch(batch["x_cond"])
                     if not writes:
                         continue
-                    while len(pending) >= 2:
-                        pending.popleft().result()
+                    with span("runner.writer_wait"):
+                        while len(pending) >= 2:
+                            pending.popleft().result()
                     pending.append(writer.submit(
                         write, samples, np.asarray(batch["x"]), np.asarray(batch["x_cond"]),
                         list(batch["x_name"]), list(batch["x_cond_name"])))
-                while pending:
-                    pending.popleft().result()
+                with span("runner.writer_wait"):
+                    while pending:
+                        pending.popleft().result()
             finally:
                 for f in pending:
                     f.cancel()

@@ -38,6 +38,7 @@ from bbdm_tpu_torch.parallel import collectives
 from bbdm_tpu_torch.training.ema import ema_update, swapped_in
 from bbdm_tpu_torch.training.plateau import plateau_step
 from bbdm_tpu_torch.training.state import TrainState
+from bbdm_tpu_torch.utils.spans import span
 
 
 def _loss(model, state, x, y, **kw):
@@ -72,11 +73,13 @@ def make_train_step(model, training_config, ema_config=None, lr_scheduler_config
         """The loss on the step form; the gradients summed into the shard accumulator."""
         sharding = state.sharding
         with sharding.step_form():
-            loss = _loss(model, state, x, y, **kw)
+            with span("train.forward"):
+                loss = _loss(model, state, x, y, **kw)
             global_loss = collectives.mean(loss.detach())
             if debug_nan:
                 _check_finite(state.step + 1, "loss", [global_loss])
-            loss.backward()
+            with span("train.backward"):
+                loss.backward()
             missing = [k for k, p in zip(opt.names, opt.params) if p.grad is None]
             if missing:
                 raise cut(missing)
@@ -88,41 +91,50 @@ def make_train_step(model, training_config, ema_config=None, lr_scheduler_config
         return global_loss
 
     def train_step(state: TrainState, x, y, generator=None, *, t=None, noise=None):
-        step = state.step + 1
-        opt = state.optimizer
-        kw = dict(generator=generator, t=t, noise=noise)
-        if state.sharding is not None:
-            loss = sharded_microbatch(state, opt, x, y, kw)
-        else:
-            loss = _loss(model, state, x, y, **kw)
-            global_loss = collectives.mean(loss.detach())
-            if debug_nan:
-                _check_finite(step, "loss", [global_loss])
-            loss.backward()
-            loss = global_loss
-        state.step = step
-        if step % accumulate == 0:
-            lr = state.plateau.lr  # this update's: the transition below comes after it
+        with span("train.step"):
+            step = state.step + 1
+            opt = state.optimizer
+            kw = dict(generator=generator, t=t, noise=noise)
             if state.sharding is not None:
-                grads, state.sharding.accum = state.sharding.accum, None
+                loss = sharded_microbatch(state, opt, x, y, kw)
             else:
-                missing = [k for k, p in zip(opt.names, opt.params) if p.grad is None]
-                if missing:
-                    raise cut(missing)
-                grads = [p.grad for p in opt.params]
-                collectives.all_reduce_mean_(grads)
-            if debug_nan:
-                _check_finite(step, "averaged gradient", grads)
-            opt.update(grads, lr)
-            if sched is not None:
-                state.plateau = plateau_step(
-                    state.plateau, loss, factor=sched.factor, patience=sched.patience,
-                    threshold=sched.threshold, cooldown=sched.cooldown, min_lr=sched.min_lr)
-            for p in opt.params:
-                p.grad = None
+                with span("train.forward"):
+                    loss = _loss(model, state, x, y, **kw)
+                global_loss = collectives.mean(loss.detach())
+                if debug_nan:
+                    _check_finite(step, "loss", [global_loss])
+                with span("train.backward"):
+                    loss.backward()
+                loss = global_loss
+            state.step = step
+            if step % accumulate == 0:
+                with span("train.update"):
+                    update(state, opt, step, loss)
+            return {"loss": loss, "lr": state.plateau.lr}
+
+    def update(state, opt, step, loss):
+        """The update microbatch's optimizer, plateau and gradients' clearing,
+        and the EMA, whose interval is a whole number of updates."""
+        lr = state.plateau.lr  # this update's: the transition below comes after it
+        if state.sharding is not None:
+            grads, state.sharding.accum = state.sharding.accum, None
+        else:
+            missing = [k for k, p in zip(opt.names, opt.params) if p.grad is None]
+            if missing:
+                raise cut(missing)
+            grads = [p.grad for p in opt.params]
+            collectives.all_reduce_mean_(grads)
+        if debug_nan:
+            _check_finite(step, "averaged gradient", grads)
+        opt.update(grads, lr)
+        if sched is not None:
+            state.plateau = plateau_step(
+                state.plateau, loss, factor=sched.factor, patience=sched.patience,
+                threshold=sched.threshold, cooldown=sched.cooldown, min_lr=sched.min_lr)
+        for p in opt.params:
+            p.grad = None
         if use_ema and step % (ema_interval * accumulate) == 0:
             ema_update(state.ema, state.params, ema_decay, step >= start_ema_step)
-        return {"loss": loss, "lr": state.plateau.lr}
 
     return train_step
 
