@@ -19,15 +19,24 @@ draw). ``BB.params.sampler`` picks the update:
 The sampler runs the UNet in eval mode, whatever the module's mode. Once per
 call, not per step: the subpixel phase kernels of every ``UpsampleConv3x3``
 are combined, and the UNet's >=2-D weights are cast to the compute dtype (1-D
-params, GroupNorm scale/bias and conv biases, stay fp32); neither outlives
-the call.
+params, GroupNorm scale/bias and conv biases, stay fp32).
+
+A step's body (``_reverse_step``) takes its coefficients as a row of a
+per-call table on the device. On the card the step is captured once per
+input shape as a CUDA graph and replayed for every step (the host's launch
+path would otherwise set the pace at small shapes); there the weights and
+phase kernels of the call are copied into static ones that outlive it, with
+the graphs' memory pools, until ``release_step_graphs``. The eager loop runs
+the same body on the CPU and under a model axis.
 
 Objectives: grad (x0 = x_t - pred), noise, ysubx.
 """
 
 from __future__ import annotations
 
+import collections
 import contextlib
+import functools
 from typing import Optional, Sequence
 
 import numpy as np
@@ -42,9 +51,117 @@ from bbdm_tpu_torch.models.schedules import (
     make_sampling_steps,
 )
 from bbdm_tpu_torch.models.unet import UNet
+from bbdm_tpu_torch import ops
 from bbdm_tpu_torch.ops.upsample_conv import combine_kernel_2x2
-from bbdm_tpu_torch.parallel import collectives
+from bbdm_tpu_torch.parallel import collectives, mesh
 from bbdm_tpu_torch.utils.spans import span
+
+# the columns of a row of BrownianBridgeModel.coeff_table: the step's update
+# coefficients, then the timestep, m_t, sigma_t and 1 / (1 - m_t) of the step's
+# grid time (from _NOW on) and of the next one (from _NEXT on)
+_A_XT, _A_X0, _A_Y, _SIGMA, _NOW, _NEXT = 0, 1, 2, 3, 4, 8
+GRAPHS_KEPT = 2  # captured steps a model keeps: a test set's batch and its smaller last one
+
+
+def _scaled(a, x):
+    """``a * x`` for a coefficient tensor ``a``, in a's precision: a 16-bit x is
+    multiplied in fp32, as a Python float multiplies it, and the product
+    rounded to x's dtype (a 0-d fp32 tensor alone would be rounded to 16 bits)."""
+    return a * x if x.dtype == a.dtype else (a * x.to(a.dtype)).to(x.dtype)
+
+
+def _graph_steps(y) -> bool:
+    """Whether ``p_sample_loop`` on ``y`` replays its steps as a captured CUDA
+    graph: when y is on the card, no capture is running already, and the grid
+    has no model axis (a model-parallel forward gathers over its group inside
+    the step). Otherwise the steps run eagerly."""
+    return (y.is_cuda and not torch.cuda.is_current_stream_capturing()
+            and mesh.grid().model_size == 1)
+
+
+class _StaticWeights:
+    """The sampling weights at fixed addresses, which captured steps read: the
+    UNet's parameters as ``_sampling_params`` gives them (>=2-D in the compute
+    dtype, 1-D fp32) and each UpsampleConv3x3's combined phase kernel.
+    :meth:`refresh` copies the module's current values in, so that training
+    updates and EMA swaps between calls are seen."""
+
+    def __init__(self, model: "BrownianBridgeModel"):
+        live = dict(model.unet.named_parameters())
+        self.params = {k: p.clone() if p is live[k] else p
+                       for k, p in model._sampling_params().items()}
+        self.combined = model._combined_kernels()
+
+    def refresh(self, model: "BrownianBridgeModel") -> None:
+        live = dict(model.unet.named_parameters())
+        torch._foreach_copy_(list(self.params.values()), [live[k] for k in self.params])
+        if self.combined:
+            torch._foreach_copy_(self.combined, model._combined_kernels())
+
+
+class _EagerStep:
+    """The reverse step run op by op, ``body(x_t, y, context, row, eps) ->
+    (x_next, x0)``: after ``load(y, context)`` each ``step(row, eps)``
+    advances ``x`` by a step and leaves the step's estimate in ``x0``
+    (the interface of :class:`_StepGraph`)."""
+
+    def __init__(self, body):
+        self.body = body
+
+    def load(self, y, context) -> None:
+        """Start a loop from x_T := y with ``context``."""
+        self.y, self.context, self.x = y, context, y
+
+    def __call__(self, row, eps) -> None:
+        self.x, self.x0 = self.body(self.x, self.y, self.context, row, eps)
+
+
+class _StepGraph:
+    """One reverse step captured as a CUDA graph over static inputs, with the
+    interface of :class:`_EagerStep`: a step copies its coefficients and
+    noise in and replays the graph, which writes x_next back into the static
+    ``x``.
+
+    The body runs once first on a side stream (cuDNN's plans, the kernels'
+    cached plans and lazy loads happen there, not in the capture). The
+    kernels' launch counters (``ops.KERNEL_COUNTERS``) count a replay as the
+    launches it makes: their gain over the capture is kept and added back at
+    each replay, and what the warm-up and the capture added is taken off
+    again."""
+
+    def __init__(self, body, y, context, row):
+        self.y, self.x = y.clone(), y.clone()
+        self.context = None if context is None else context.clone()
+        self.row, self.eps = row.clone(), torch.zeros_like(y)
+        before = {f: f.launches for f in ops.KERNEL_COUNTERS}
+        side, current = torch.cuda.Stream(y.device), torch.cuda.current_stream(y.device)
+        side.wait_stream(current)
+        with torch.cuda.stream(side):
+            body(self.x, self.y, self.context, self.row, self.eps)
+        current.wait_stream(side)
+        warm = {f: f.launches for f in ops.KERNEL_COUNTERS}
+        self.graph = torch.cuda.CUDAGraph()
+        # other threads (a loader, the PNG writer) may call CUDA meanwhile
+        with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
+            x_next, self.x0 = body(self.x, self.y, self.context, self.row, self.eps)
+            self.x.copy_(x_next)
+        self.launches = {f: f.launches - n for f, n in warm.items()}
+        for f, n in before.items():
+            f.launches = n
+
+    def load(self, y, context) -> None:
+        self.y.copy_(y)
+        self.x.copy_(y)
+        if context is not None:
+            self.context.copy_(context)
+
+    def __call__(self, row, eps) -> None:
+        self.eps.copy_(eps)
+        self.row.copy_(row)
+        with span("sampler.replay"):
+            self.graph.replay()
+        for f, n in self.launches.items():
+            f.launches += n
 
 
 class BrownianBridgeModel(nn.Module):
@@ -72,6 +189,8 @@ class BrownianBridgeModel(nn.Module):
         self.unet = UNet.from_config(bb.UNetParams, self.condition_key, dtype=dtype,
                                      init_scheme=model_config.get("init_scheme", "reference"),
                                      device=device)
+        self._step_graphs = collections.OrderedDict()  # key -> _StepGraph, oldest first
+        self._static_weights = None  # the _StaticWeights the captured steps read
         # the loss's schedule lookups, fp32 as jnp.asarray gives them to the JAX loss
         for name in ("m_t", "variance_t"):
             self.register_buffer(f"_{name}", torch.as_tensor(
@@ -133,11 +252,16 @@ class BrownianBridgeModel(nn.Module):
         x0_recon = self.predict_x0_from_objective(x_t, y, pred, m_t=m_t, sigma_t=sigma_t)
         return recloss, {"loss": recloss, "x0_recon": x0_recon}
 
-    def predict_x0_from_objective(self, x_t, y, pred, *, m_t, sigma_t):
+    def predict_x0_from_objective(self, x_t, y, pred, *, m_t, sigma_t, inv_1m=None):
+        """x0 from the UNet's output ``pred``. ``inv_1m``, where given, is
+        1 / (1 - m_t) with m_t, sigma_t as 0-d coefficient tensors (a
+        :meth:`coeff_table` row): the sampler's 'noise' step multiplies by it."""
         if self.objective == "grad":
             return x_t - pred
         if self.objective == "noise":
-            return (x_t - m_t * y - sigma_t * pred) / (1.0 - m_t)
+            if inv_1m is None:
+                return (x_t - m_t * y - sigma_t * pred) / (1.0 - m_t)
+            return _scaled(inv_1m, x_t - _scaled(m_t, y) - _scaled(sigma_t, pred))
         if self.objective == "ysubx":
             return y - pred
         raise NotImplementedError(self.objective)
@@ -150,17 +274,23 @@ class BrownianBridgeModel(nn.Module):
             return params
         return {k: p.to(self.dtype) if p.ndim >= 2 else p for k, p in params.items()}
 
+    def _combined_kernels(self) -> list:
+        """Each UpsampleConv3x3's phase kernel in its compute dtype, in module order."""
+        return [combine_kernel_2x2(m.weight).to(m.dtype or m.weight.dtype)
+                for m in self.unet.modules() if isinstance(m, UpsampleConv3x3)]
+
     @contextlib.contextmanager
-    def _sampling_mode(self):
+    def _sampling_mode(self, combined=None):
         """Eval mode (no dropout, the subpixel up-conv), as the JAX sampler runs
         the UNet with ``train=False``, and every UpsampleConv3x3 given its
-        combined phase kernel for this call; the mode and the kernels are
-        restored after it, so a sample in the middle of training leaves
-        nothing behind for the next step."""
+        combined phase kernel for this call (``combined``, the static copies a
+        captured step reads, or kernels combined here); the mode and the
+        kernels are restored after it, so a sample in the middle of training
+        leaves nothing behind for the next step."""
         mods = [m for m in self.unet.modules() if isinstance(m, UpsampleConv3x3)]
         with eval_mode(self):
-            for m in mods:
-                m.combined = combine_kernel_2x2(m.weight).to(m.dtype or m.weight.dtype)
+            for m, k in zip(mods, self._combined_kernels() if combined is None else combined):
+                m.combined = k
             try:
                 yield
             finally:
@@ -195,6 +325,79 @@ class BrownianBridgeModel(nn.Module):
         """How many noise tensors one ``p_sample_loop`` draws (its ``noise=`` length)."""
         return len(self.coeffs.steps) - (self.sampler == "heun")
 
+    def coeff_table(self, y: torch.Tensor) -> torch.Tensor:
+        """The reverse steps' coefficients for one ``p_sample_loop`` on ``y``,
+        read from ``self.coeffs`` at each call: [S, 12] on y's device, fp32
+        (fp64 for an fp64 y), a row a step: the step's a_xt, a_x0, a_y and
+        sigma, then from ``_NOW`` on its grid time's timestep, m_t, sigma_t
+        and 1 / (1 - m_t), and from ``_NEXT`` on the same of the next grid
+        time (heun's second forward; the last row repeats its own, which
+        heun's terminal step takes). 1 / (1 - m_t) is taken in float64 and
+        rounded: the card divides a tensor by a Python float so (it
+        multiplies by that reciprocal), where the CPU divides (up to an ulp
+        apart). One host-to-device copy, which does not wait for the card."""
+        c = self.coeffs
+        nxt = np.append(c.steps[1:], c.steps[-1]).astype(np.int64)
+        m, sig = self.schedule.m_t, np.sqrt(self.schedule.variance_t)
+        dtype = torch.promote_types(y.dtype, torch.float32)
+        col = lambda a: torch.from_numpy(np.asarray(a, np.float64)).to(dtype)  # noqa: E731
+        cols = [col(a) for a in (c.a_xt, c.a_x0, c.a_y, c.sigma)]
+        for t, m_t, sigma_t in ((c.steps, c.m_t, c.sigma_fwd), (nxt, m[nxt], sig[nxt])):
+            cols += [col(t), col(m_t), col(sigma_t), col(1.0 / (1.0 - np.asarray(m_t, np.float64)))]
+        table = torch.stack(cols, dim=1)
+        if y.is_cuda:
+            return table.pin_memory().to(y.device, non_blocking=True)
+        return table.to(y.device)
+
+    def _predict(self, params, x, y, context, row, col, clip_denoised):
+        """The UNet's x0 estimate at the grid time whose timestep, m_t, sigma_t
+        and 1 / (1 - m_t) are the entries ``col`` .. ``col + 3`` of ``row`` (a
+        :meth:`coeff_table` row)."""
+        t, m_t, sigma_t, inv_1m = row[col:col + 4]
+        pred = functional_call(self.unet, params, (x, t.expand(x.shape[0]), context))
+        x0 = self.predict_x0_from_objective(x, y, pred.to(y.dtype), m_t=m_t, sigma_t=sigma_t,
+                                            inv_1m=inv_1m)
+        return x0.clamp(-1.0, 1.0) if clip_denoised else x0
+
+    def _reverse_step(self, params, x_t, y, context, row, eps, *, clip_denoised):
+        """One reverse step from ``x_t`` with the coefficients ``row`` of
+        :meth:`coeff_table` and the noise ``eps``: (x_next, the step's x0
+        estimate). Euler: one forward and the linear update. Heun: a proposal
+        to the next grid time, a second forward there, and the update from x_t
+        with the mean of the two estimates. It takes tensors only and reads
+        no value back to the host: the eager loop calls it, a captured graph
+        replays it."""
+        def predict(x, col):
+            return self._predict(params, x, y, context, row, col, clip_denoised)
+
+        def update(x0, eps=None):
+            x = _scaled(row[_A_XT], x_t) + _scaled(row[_A_X0], x0) + _scaled(row[_A_Y], y)
+            return x if eps is None else x + _scaled(row[_SIGMA], eps)
+
+        x0 = predict(x_t, _NOW)
+        if self.sampler == "heun":
+            x0_b = predict(update(x0), _NEXT)
+            x0 = 0.5 * (x0 + x0_b)
+        return update(x0, eps), x0
+
+    def _step_graph(self, key, body, y, context, row) -> "_StepGraph":
+        """The captured step of ``key``, captured now (in a ``sampler.capture``
+        span) where the cache lacks it; the cache keeps the
+        :data:`GRAPHS_KEPT` used last."""
+        entry = self._step_graphs.pop(key, None)
+        if entry is None:
+            with span("sampler.capture"):
+                entry = _StepGraph(body, y, context, row)
+            while len(self._step_graphs) >= GRAPHS_KEPT:
+                del self._step_graphs[next(iter(self._step_graphs))]
+        self._step_graphs[key] = entry
+        return entry
+
+    def release_step_graphs(self) -> None:
+        """Drop the captured steps, their memory pools and the static weights."""
+        self._step_graphs.clear()
+        self._static_weights = None
+
     @torch.inference_mode()
     def p_sample_loop(self, y, context=None, *, clip_denoised=True,
                       generator: Optional[torch.Generator] = None,
@@ -208,6 +411,14 @@ class BrownianBridgeModel(nn.Module):
         ``sample_mid_step`` returns the trajectory instead of its end:
         ``(imgs, one_step_imgs)``, each [S, B, C, H, W], the state after each
         step and that step's x0 estimate.
+
+        Where :func:`_graph_steps` allows it (on the card), the step
+        (:meth:`_reverse_step`) is captured once per shape as a CUDA graph
+        and replayed for every step: the host copies the step's noise and
+        coefficients into the graph's static inputs and launches the graph.
+        The noise is drawn outside the graph, in the eager loop's order, and
+        the weights are copied into the graph's static ones at each call.
+        Heun's terminal step runs eagerly either way.
         """
         with span("sampler.loop"):
             y = y.contiguous()  # the kernels take NCHW-contiguous activations
@@ -215,18 +426,11 @@ class BrownianBridgeModel(nn.Module):
                 context = None
             elif context is None:
                 context = y
-            c = self.coeffs
             if noise is not None and len(noise) != self.noised_steps():
                 raise ValueError(f"need {self.noised_steps()} noise tensors, got {len(noise)}")
-            params = self._sampling_params()
-            B = y.shape[0]
-
-            def predict(x, t, m_t, sigma_t):
-                tt = torch.full((B,), int(t), dtype=torch.int32, device=y.device)
-                pred = functional_call(self.unet, params, (x, tt, context)).to(y.dtype)
-                x0 = self.predict_x0_from_objective(x, y, pred, m_t=float(m_t),
-                                                    sigma_t=float(sigma_t))
-                return x0.clamp(-1.0, 1.0) if clip_denoised else x0
+            table = self.coeff_table(y)
+            heun = self.sampler == "heun"
+            graphed = _graph_steps(y)
 
             def draw(i):
                 if noise is not None:
@@ -234,39 +438,39 @@ class BrownianBridgeModel(nn.Module):
                 return collectives.randn(y.shape, generator=generator, dtype=y.dtype,
                                          device=y.device)
 
-            def update(i, x_t, x0, eps=None):
-                x = float(c.a_xt[i]) * x_t + float(c.a_x0[i]) * x0 + float(c.a_y[i]) * y
-                return x if eps is None else x + float(c.sigma[i]) * eps
-
             imgs, one_step = [], []  # the trajectory, kept under sample_mid_step only
-
-            def keep(x, x0):
-                if sample_mid_step:
-                    imgs.append(x)
-                    one_step.append(x0)
-
-            x_t = y
-            with self._sampling_mode():
-                if self.sampler == "euler":
-                    for i in range(len(c.steps)):
-                        with span("sampler.step"):
-                            x0 = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
-                            x_t = update(i, x_t, x0, draw(i))
-                            keep(x_t, x0)
+            if graphed:
+                if self._static_weights is None:
+                    self._static_weights = _StaticWeights(self)
+                self._static_weights.refresh(self)
+                params, combined = self._static_weights.params, self._static_weights.combined
+            else:
+                params, combined = self._sampling_params(), None
+            with self._sampling_mode(combined):
+                body = functools.partial(self._reverse_step, params,
+                                         clip_denoised=clip_denoised)
+                if graphed:
+                    key = (tuple(y.shape), y.dtype, y.device,
+                           None if context is None else (tuple(context.shape), context.dtype),
+                           self.sampler, clip_denoised, self.objective)
+                    step = self._step_graph(key, body, y, context, table[0])
                 else:
-                    m, sig = self.schedule.m_t, np.sqrt(self.schedule.variance_t)
-                    for i in range(len(c.steps) - 1):
-                        with span("sampler.step"):
-                            nt = int(c.steps[i + 1])
-                            x0_a = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
-                            x0_b = predict(update(i, x_t, x0_a), nt, m[nt], sig[nt])
-                            x0 = 0.5 * (x0_a + x0_b)
-                            x_t = update(i, x_t, x0, draw(i))
-                            keep(x_t, x0)
-                    last = int(c.steps[-1])
+                    step = _EagerStep(body)
+                step.load(y, context)
+                for i in range(len(table) - heun):
                     with span("sampler.step"):
-                        x_t = predict(x_t, last, m[last], sig[last])
-                        keep(x_t, x_t)
+                        step(table[i], draw(i))
+                        if sample_mid_step:
+                            imgs.append(step.x.clone())
+                            one_step.append(step.x0.clone())
+                x_t = step.x.clone()  # a graph's static x is the next call's
+                if heun:
+                    with span("sampler.step"):
+                        x_t = self._predict(params, x_t, y, context, table[-1], _NEXT,
+                                            clip_denoised)
+                        if sample_mid_step:
+                            imgs.append(x_t)
+                            one_step.append(x_t)
             if sample_mid_step:
                 return torch.stack(imgs), torch.stack(one_step)
             return x_t

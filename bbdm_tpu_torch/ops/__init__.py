@@ -15,6 +15,20 @@ PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_FP32_FLOPS = 3.35e12, 989e12, 67e12
 PEAK_TF32_FLOPS = 495e12
 
 
+# the hand-written kernels' launching wrappers, each counting its launches in
+# ``.launches`` (see :func:`counts_launches`)
+KERNEL_COUNTERS = []
+
+
+def counts_launches(fn):
+    """Register ``fn``, a kernel's launching wrapper that adds one to
+    ``fn.launches`` per launch, in :data:`KERNEL_COUNTERS` (whoever replays
+    recorded launches, as a captured CUDA graph does, adds them there)."""
+    fn.launches = 0
+    KERNEL_COUNTERS.append(fn)
+    return fn
+
+
 def use_kernel(x: torch.Tensor) -> bool:
     """True for a CUDA tensor, False for a CPU tensor; raises on any other device."""
     if x.is_cuda:

@@ -20,7 +20,7 @@ from typing import NamedTuple
 
 import torch
 
-from bbdm_tpu_torch.ops import needs_grad, recompute_grads, use_kernel
+from bbdm_tpu_torch.ops import counts_launches, needs_grad, recompute_grads, use_kernel
 
 KERNEL_MIN_SEQ = 1024  # bbdm_tpu/ops/attention.py:_PALLAS_MIN_SEQ
 
@@ -120,6 +120,7 @@ def plan_flash(Tq, Tk, D, dtype) -> FlashPlan:
                      flash_f32_smem_bytes(Dm) if f32 else flash_smem_bytes(Dm))
 
 
+@counts_launches
 def flash_attention_cuda(q, k, v):
     """Launch K3 on contiguous CUDA tensors of one dtype, q [B, H, Tq, D] and
     k, v [B, H, Tk, D] (Tk may differ from Tq, as in the Pallas kernel): bf16
@@ -185,6 +186,3 @@ def _flash_f32(q, k, v, plan):
     build.check("flash_attention_f32", rc)
     flash_attention_cuda.launches += 1
     return out
-
-
-flash_attention_cuda.launches = 0

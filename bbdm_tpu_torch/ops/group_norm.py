@@ -22,7 +22,7 @@ from typing import NamedTuple
 
 import torch
 
-from bbdm_tpu_torch.ops import needs_grad, recompute_grads, use_kernel
+from bbdm_tpu_torch.ops import counts_launches, needs_grad, recompute_grads, use_kernel
 
 
 def group_norm(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
@@ -210,6 +210,7 @@ def _launch_shape(plan: GroupNormPlan, dtype: int, device: int):
     return (ctypes.c_uint64 * len(values))(*values), min(plan.grid // plan.cs, resident.value)
 
 
+@counts_launches
 def group_norm_cuda(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
                     act: str | None = None, film_scale=None, film_shift=None):
     """Launch K1 once; raises on what it does not take. x: contiguous bf16,
@@ -260,6 +261,3 @@ def group_norm_cuda(x, weight, bias, *, num_groups: int = 32, eps: float = 1e-5,
     build.check("group_norm_fwd", rc)
     group_norm_cuda.launches += 1
     return out
-
-
-group_norm_cuda.launches = 0

@@ -20,7 +20,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from bbdm_tpu_torch.ops import needs_grad, use_kernel
+from bbdm_tpu_torch.ops import counts_launches, needs_grad, use_kernel
 
 
 def combine_kernel_2x2(w: torch.Tensor) -> torch.Tensor:
@@ -132,6 +132,7 @@ def _c_plan(plan: UpconvPlan):
     return (ctypes.c_uint64 * len(values))(*values)
 
 
+@counts_launches
 def upsample_conv_cuda(x, kp, b):
     """Launch K2. x [N, ci, h, w] bf16 or fp32; kp [4, 2, 2, co, ci] in x's dtype;
     b [co] fp32. Output in x's dtype.
@@ -211,6 +212,3 @@ def _upconv_bf16(x, kp, b):
     build.check("subpixel_upconv_bf16", rc)
     upsample_conv_cuda.launches += 1
     return out[:, :co, :2 * h, :2 * w].contiguous() if padded else out
-
-
-upsample_conv_cuda.launches = 0

@@ -33,20 +33,23 @@ STEPS, REPS, TOP = 3, 3, 6  # sampler steps per loop, timed repeats, kernels lis
 
 
 def k1_bytes(fn):
-    """Bytes K1's calls in one fn() must move (:func:`group_norm_bytes` summed)."""
+    """Bytes K1's calls in one fn() must move (:func:`group_norm_bytes` summed),
+    counted on one eager pass: a sampler step replayed as a CUDA graph calls
+    no Python."""
+    from bbdm_tpu_torch.models import bridge
     from bbdm_tpu_torch.ops import group_norm
 
-    op, total = group_norm.group_norm, [0]
+    op, graphed, total = group_norm.group_norm, bridge._graph_steps, [0]
 
     def counting(x, weight, bias, *, film_scale=None, **kw):
         total[0] += group_norm.group_norm_bytes(x, weight, film_scale)
         return op(x, weight, bias, film_scale=film_scale, **kw)
 
-    group_norm.group_norm = counting
+    group_norm.group_norm, bridge._graph_steps = counting, lambda y: False
     try:
         fn()
     finally:
-        group_norm.group_norm = op
+        group_norm.group_norm, bridge._graph_steps = op, graphed
     return total[0]
 
 def measure(fn, reps, per):
@@ -65,7 +68,9 @@ def measure(fn, reps, per):
         torch.cuda.synchronize()
     dev = {}
     for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0:
+        # a span's annotation on the card's timeline covers kernels counted already
+        if (e.device_type == torch.autograd.DeviceType.CUDA and e.self_device_time_total > 0
+                and not getattr(e, "is_user_annotation", False)):
             dev[e.key] = dev.get(e.key, 0.0) + e.self_device_time_total / 1e3 / reps / per
     wall = statistics.median(walls) / per
     busy = sum(dev.values())

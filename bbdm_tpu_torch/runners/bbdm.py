@@ -223,6 +223,14 @@ class BBDMRunner(BaseRunner):
         out = self._sample(x_cond, num_samples=n)
         return self._nhwc(out if n > 1 else out[None])
 
+    def sample_step(self, train_batch, val_batch):
+        """The grids; then the sampler's captured steps and their static weights
+        are dropped, so that training resumes with the memory it had."""
+        try:
+            super().sample_step(train_batch, val_batch)
+        finally:
+            self.model.release_step_graphs()
+
     def sample(self, batch, sample_path, stage="train"):
         """4-image grids (``bbdm_tpu/runners/bbdm.py:278-327``), also written to
         TensorBoard outside the test stage."""

@@ -19,6 +19,11 @@ The program's spans (each in the module named):
 
 * ``sampler.loop`` (``models/bridge.py``): one ``p_sample_loop`` call;
 * ``sampler.step``: one reverse step of it, its UNet forwards included;
+* ``sampler.capture``: the capture of a reverse step as a CUDA graph (its
+  warm-up run included), inside the loop that first needs it;
+* ``sampler.replay``: the launch of the captured step, the child of a
+  ``sampler.step`` that replays it (that step then holds no
+  ``unet.forward``: the UNet runs inside the graph);
 * ``unet.forward`` (``models/unet.py``): one ``UNet.forward``;
 * ``runner.writer_wait`` (``runners/bbdm.py``): ``sample_to_eval`` waiting
   on its PNG writer's backlog;

@@ -298,21 +298,25 @@ def compare(out, ref, rtol, atol):
 @contextlib.contextmanager
 def plain_ops():
     """Route the port's three kernel-bearing ops to their plain twins for the
-    length of the block (the package itself never sends a CUDA tensor there)."""
+    length of the block (the package itself never sends a CUDA tensor there).
+    The sampler's steps run eagerly in the block: a step captured earlier as
+    a CUDA graph would replay the kernels, whatever the ops are routed to."""
+    from bbdm_tpu_torch.models import bridge
     from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
 
     saved = (group_norm.group_norm, upsample_conv.upsample2x_conv3x3,
-             attention.multi_head_attention)
+             attention.multi_head_attention, bridge._graph_steps)
     group_norm.group_norm = group_norm.group_norm_plain
     upsample_conv.upsample2x_conv3x3 = (
         lambda x, w, b, *, dtype=None, combined=None:
         upsample_conv.upsample_conv_plain(x, w, b, dtype=dtype))
     attention.multi_head_attention = attention.attention_plain
+    bridge._graph_steps = lambda y: False
     try:
         yield
     finally:
         (group_norm.group_norm, upsample_conv.upsample2x_conv3x3,
-         attention.multi_head_attention) = saved
+         attention.multi_head_attention, bridge._graph_steps) = saved
 
 
 # ------------------------------------------------------------------ kernels
@@ -814,6 +818,8 @@ def slice_phase(dev, counters):
     for what in ("encode", "latent"):
         if dist[f"{what}_kernel_vs_plain"] > 2 * dist[f"{what}_bf16_vs_fp32"]:
             raise AssertionError(f"{what}: kernel path farther from the twins than 2x bf16 error")
+        if dev.type == "cuda" and not dist[f"{what}_kernel_vs_plain"] > 0:
+            raise AssertionError(f"{what}: kernel path equals the twins: no twin ran")
     log(f"  seconds per sampler step (batch {BATCH}): kernels {step_s:.4f}, "
         f"plain twins {plain_step_s:.4f}")
 
@@ -1188,6 +1194,8 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
         raise AssertionError("heun: non-finite latent")
     if out["heun_latent_kernel_vs_plain"] > 2 * out["heun_latent_bf16_vs_fp32"]:
         raise AssertionError("heun: kernel path farther from the twins than 2x bf16 error")
+    if torch.device(heun.device).type == "cuda" and not out["heun_latent_kernel_vs_plain"] > 0:
+        raise AssertionError("heun: kernel path equals the twins: no twin ran")
     return launches, out
 
 
@@ -2367,6 +2375,8 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
         if agree[f"{what}_kernel_vs_plain"] > 2 * agree[f"{what}_bf16_vs_fp32"]:
             raise AssertionError(f"{name} {what}: kernel path farther from the twins than 2x "
                                  "bf16 error")
+        if torch.device(runner.device).type == "cuda" and not agree[f"{what}_kernel_vs_plain"] > 0:
+            raise AssertionError(f"{name} {what}: kernel path equals the twins: no twin ran")
     del runner, model
 
     # --train: one epoch, one validation epoch, one save

@@ -214,3 +214,127 @@ def test_pixel_sample_hands_the_kernels_contiguous_tensors(monkeypatch):
     assert not y.is_contiguous()
     port.sample(y)
     assert seen and all(seen)
+
+
+@pytest.fixture
+def one_thread():
+    """torch on one thread: the suite's workers hold every core."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.mark.parametrize("sampler", ["euler", "heun"])
+def test_coeff_table_holds_the_coeffs_entry_for_entry(sampler):
+    from bbdm_tpu_torch.models import bridge
+
+    port = port_build(configure(lbbdm_config(), sampler, 1.0), device="cpu")
+    c, s = port.coeffs, port.schedule
+    table = port.coeff_table(torch.zeros(1, 3, 8, 8))
+    assert table.dtype == torch.float32 and table.shape == (len(c.steps), 12)
+    nxt = np.append(c.steps[1:], c.steps[-1])
+    f32 = lambda a: np.asarray(a, np.float32)  # noqa: E731
+    # 1 / (1 - m_t) in float64, then rounded: how the card divides by a Python float
+    inv = lambda m_t: f32(1.0 / (1.0 - np.asarray(m_t, np.float64)))  # noqa: E731
+    for col, want in ((bridge._A_XT, c.a_xt), (bridge._A_X0, c.a_x0), (bridge._A_Y, c.a_y),
+                      (bridge._SIGMA, c.sigma), (bridge._NOW, c.steps),
+                      (bridge._NOW + 1, c.m_t), (bridge._NOW + 2, c.sigma_fwd),
+                      (bridge._NOW + 3, inv(c.m_t)), (bridge._NEXT, nxt),
+                      (bridge._NEXT + 1, s.m_t[nxt]),
+                      (bridge._NEXT + 2, np.sqrt(s.variance_t)[nxt]),
+                      (bridge._NEXT + 3, inv(s.m_t[nxt]))):
+        np.testing.assert_array_equal(table[:, col].numpy(), f32(want))
+    # read at each call: a cut schedule (the benchmark's warm-up) gives a cut table
+    port.coeffs = type(c)(**{k: v[:3] for k, v in vars(c).items()})
+    assert port.coeff_table(torch.zeros(1)).shape == (3, 12)
+    assert port.coeff_table(torch.zeros(1, dtype=torch.bfloat16)).dtype == torch.float32
+    assert port.coeff_table(torch.zeros(1, dtype=torch.float64)).dtype == torch.float64
+
+
+@pytest.mark.usefixtures("one_thread")
+@pytest.mark.parametrize("objective", ["grad", "noise", "ysubx"])
+@pytest.mark.parametrize("sampler", ["euler", "heun"])
+def test_step_body_gives_the_python_float_update_bit_for_bit(sampler, objective):
+    """The step body with its coefficients as 0-d fp32 tensors against the
+    update written with Python floats and int timesteps (the loop before the
+    body took tensors), fp32, every step of the grid. The 'noise' objective's
+    ``/ (1.0 - m_t)`` is written as the card computes it, a multiply by
+    ``1.0 / (1.0 - m_t)``; the CPU divides, up to an ulp away."""
+    from torch.func import functional_call
+
+    cfg = configure(tiny_bbdm_config(), sampler, 1.0)
+    cfg.BB.params.objective = objective
+    port = port_build(cfg, device="cpu")
+    g = torch.Generator().manual_seed(0)
+    y, x_t, eps = (torch.rand(2, 3, 8, 8, generator=g) * 2 - 1 for _ in range(3))
+    c, params = port.coeffs, port._sampling_params()
+    m, sig = port.schedule.m_t, np.sqrt(port.schedule.variance_t)
+    table = port.coeff_table(y)
+
+    def predict(x, t, m_t, sigma_t):
+        tt = torch.full((2,), int(t), dtype=torch.int32)
+        pred = functional_call(port.unet, params, (x, tt, y))
+        if objective == "grad":
+            x0 = x - pred
+        elif objective == "noise":
+            x0 = (x - float(m_t) * y - float(sigma_t) * pred) * (1.0 / (1.0 - float(m_t)))
+        else:
+            x0 = y - pred
+        return x0.clamp(-1.0, 1.0)
+
+    def update(i, x0, noise=None):
+        x = float(c.a_xt[i]) * x_t + float(c.a_x0[i]) * x0 + float(c.a_y[i]) * y
+        return x if noise is None else x + float(c.sigma[i]) * noise
+
+    with torch.inference_mode(), port._sampling_mode():
+        for i in range(len(c.steps) - (sampler == "heun")):
+            x0 = predict(x_t, c.steps[i], c.m_t[i], c.sigma_fwd[i])
+            if sampler == "heun":
+                nt = int(c.steps[i + 1])
+                x0 = 0.5 * (x0 + predict(update(i, x0), nt, m[nt], sig[nt]))
+            got = port._reverse_step(params, x_t, y, y, table[i], eps, clip_denoised=True)
+            assert torch.equal(got[0], update(i, x0, eps)) and torch.equal(got[1], x0), i
+
+
+def test_scaled_keeps_fp32_arithmetic_for_16_bit_tensors():
+    """A 16-bit tensor times a 0-d fp32 coefficient, as a Python float
+    multiplies it: in fp32, rounded once (a plain product would round the
+    coefficient to 16 bits first)."""
+    from bbdm_tpu_torch.models.bridge import _scaled
+
+    x = torch.randn(4096, generator=torch.Generator().manual_seed(0))
+    a = torch.tensor(0.3337, dtype=torch.float32)
+    for dtype in (torch.bfloat16, torch.float16):
+        xl = x.to(dtype)
+        assert torch.equal(_scaled(a, xl), float(a) * xl)
+        assert not torch.equal(a * xl, float(a) * xl)
+    assert torch.equal(_scaled(a, x), float(a) * x)
+
+
+@pytest.mark.usefixtures("one_thread")
+def test_step_graph_is_off_on_the_cpu_and_under_a_model_axis(monkeypatch):
+    import types
+
+    from bbdm_tpu_torch.models import bridge
+    from bbdm_tpu_torch.parallel import mesh
+    from bbdm_tpu_torch.utils import spans
+
+    assert not bridge._graph_steps(torch.zeros(1))
+    card = types.SimpleNamespace(is_cuda=True)  # what the predicate reads of a card tensor
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: False)
+    assert bridge._graph_steps(card)  # no process group: a 1 x 1 grid
+    monkeypatch.setattr(mesh, "grid", lambda: types.SimpleNamespace(model_size=2))
+    assert not bridge._graph_steps(card)
+    monkeypatch.setattr(mesh, "grid", lambda: types.SimpleNamespace(model_size=1))
+    assert bridge._graph_steps(card)
+    monkeypatch.setattr(torch.cuda, "is_current_stream_capturing", lambda: True)
+    assert not bridge._graph_steps(card)  # inside another capture
+    monkeypatch.undo()
+    port = port_build(configure(tiny_bbdm_config(), "euler", 1.0), device="cpu")
+    spans.clear()
+    port.p_sample_loop(torch.zeros(2, 3, 8, 8))
+    names = {r.name for r in spans.records()}
+    spans.clear()
+    assert "sampler.step" in names and not names & {"sampler.capture", "sampler.replay"}
+    assert not port._step_graphs and port._static_weights is None

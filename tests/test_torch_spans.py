@@ -8,10 +8,11 @@ the spans of a tiny LBBDM (the benchmark tests' configuration) through
 ``training.profile_dir`` trace; each metric file against hand-built records;
 a ``--trace 1`` run of a sample cell and the train cell at that size.
 
-GPU case (marker ``gpu``, skipped without a card): an LBBDM-f16-shaped
-``p_sample_loop`` under ``torch.profiler``, for the shared clock, the share
-of the card's idle time the steps cover, and that no span synchronises. No
-jax is imported, so on a machine without jax it runs with
+GPU cases (marker ``gpu``, skipped without a card): an LBBDM-f16-shaped
+``p_sample_loop`` under ``torch.profiler``, eager and replaying its captured
+step, for the shared clock and that no span synchronises; in the eager loop
+the share of the card's idle time the steps cover, and that the graph loop
+idles less. No jax is imported, so on a machine without jax they run with
 ``python -m pytest tests/test_torch_spans.py -m gpu --noconftest``.
 """
 
@@ -39,9 +40,10 @@ from benchmark import harness  # noqa: E402
 TINY = harness.load_module(os.path.join(ROOT, "benchmark", "tests", "conftest.py"),
                            "bench_tests_conftest").TINY
 NEW_METRICS = {"sample": ["sampler_host_ms.sample", "sampler_step_self_ms.sample",
-                          "writer_wait.sample"],
+                          "writer_wait.sample", "sampler_graph_share.sample"],
                "train": ["train_forward_ms.train", "train_backward_ms.train",
                          "train_update_ms.train"]}
+CARD_ONLY = {"sampler_graph_share.sample"}  # no step replays a graph on the CPU
 
 
 @pytest.fixture(autouse=True)
@@ -284,6 +286,19 @@ SAMPLE_RECS = [
     ("runner.writer_wait", 15.0, 15.5, None),  # profiled
     ("runner.writer_wait", 19.0, 19.2, None),
 ]
+GRAPH_RECS = [
+    ("sampler.capture", 5.0, 5.5, None),  # 0: in set-up
+    ("sampler.step", 11.0, 11.004, None),  # 1: replayed
+    ("sampler.replay", 11.001, 11.003, 1),
+    ("sampler.step", 11.5, 11.506, None),  # 3: replayed
+    ("sampler.replay", 11.501, 11.505, 3),
+    ("sampler.step", 12.0, 12.005, None),  # 5: replayed
+    ("sampler.replay", 12.001, 12.004, 5),
+    ("sampler.step", 12.5, 12.530, None),  # 7: heun's terminal step, eager
+    ("unet.forward", 12.501, 12.529, 7),
+    ("sampler.step", 14.5, 14.504, None),  # 9: profiled
+    ("sampler.replay", 14.501, 14.503, 9),
+]
 TRAIN_RECS = [
     ("train.forward", 9.0, 9.5, None),  # set-up
     ("train.backward", 9.5, 9.9, None),
@@ -309,6 +324,8 @@ TRAIN_RECS = [
     ("train_forward_ms.train", TRAIN_RECS, 40.0),
     ("train_backward_ms.train", TRAIN_RECS, 80.0),
     ("train_update_ms.train", TRAIN_RECS, 20.0),  # the mean of 10 and 30
+    ("sampler_graph_share.sample", GRAPH_RECS, 75.0),  # 3 replays in 4 steps
+    ("sampler_step_self_ms.sample", GRAPH_RECS, 4.5),  # median of 4, 6, 5, 2: a replay is self
 ])
 def test_metric_reads_the_window_outside_the_profiled_part(monkeypatch, name, recs, want):
     got = metric(name).read(hand_obs(monkeypatch, recs))
@@ -340,6 +357,9 @@ def test_traced_run_reports_the_new_metrics(cell_name, kind):
                       t_start=time.perf_counter())
     assert line["correct"] is True, line["checks"]
     for name in NEW_METRICS[kind]:
+        if name in CARD_ONLY:
+            assert name not in line["metrics"], name
+            continue
         value = line["metrics"][name]["value"]
         assert np.isfinite(value) and value >= 0, (name, value)
     host, self_ms = (line["metrics"].get(k, {}).get("value")
@@ -349,13 +369,6 @@ def test_traced_run_reports_the_new_metrics(cell_name, kind):
 
 
 # ------------------------------------------------------------------- on the card
-
-@pytest.fixture
-def cuda():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
-    return torch.device("cuda")
-
 
 def _kineto(prof):
     """[(name, on the card, start ns, end ns)] of the profile's events, the
@@ -382,52 +395,57 @@ def _overlap(a, b, intervals):
     return sum(max(0, min(b, e) - max(a, s)) for s, e in intervals)
 
 
-@pytest.mark.gpu
-def test_spans_share_the_profilers_clock_and_never_sync(cuda):
+@pytest.fixture(scope="module")
+def f16_loops():
     """An LBBDM-f16-shaped loop (the benchmark's configuration, batch 8, a
-    16^2 x 8 latent, 200 euler steps) under ``torch.profiler``: each step's
-    annotation starts a constant offset from its record (the two clocks are
-    one), the steps hold the card's idle time inside the loop, and the loop
-    runs under ``set_sync_debug_mode("error")``. On the card nine in ten
-    offsets lie within 12 us of their median; a single step of a run may land
-    65-106 us off, when the shared host stalls between the two reads."""
+    16^2 x 8 latent, 200 euler steps) under ``torch.profiler`` and
+    ``set_sync_debug_mode("error")``, run twice: {"eager": ..., "graph": ...},
+    each (the ``sampler.step`` records, the profile's events, the steps). The
+    eager loop is the one the CPU runs (the step graph's predicate patched);
+    the graph loop replays a step captured by an unprofiled call before it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels run only there")
     from bbdm_tpu_torch.config import dict2namespace
-    from bbdm_tpu_torch.models import build_model
+    from bbdm_tpu_torch.models import bridge, build_model
 
+    cuda = torch.device("cuda")
     with open(os.path.join(ROOT, "benchmark", "configs", "lbbdm_f16.json")) as f:
         cfg = dict2namespace(json.load(f))
     model = build_model(cfg.model, device=cuda)
     g = torch.Generator(cuda).manual_seed(0)
     y = torch.randn((8, 8, 16, 16), generator=g, device=cuda)
     noise = [torch.randn(y.shape, generator=g, device=cuda) for _ in range(model.noised_steps())]
-    model.p_sample_loop(y, noise=noise, clip_denoised=False)  # kernels built, plans made
-    torch.cuda.synchronize()
-    spans.clear()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    gc.disable()  # a collection between a record's clock read and its annotation's
-    try:
-        with torch.profiler.profile(activities=acts) as prof:
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                model.p_sample_loop(y, noise=noise, clip_denoised=False)
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
+    out = {}
+    for kind in ("eager", "graph"):
+        with pytest.MonkeyPatch.context() as mp:
+            if kind == "eager":
+                mp.setattr(bridge, "_graph_steps", lambda y: False)
+            model.p_sample_loop(y, noise=noise, clip_denoised=False)  # built, planned, captured
             torch.cuda.synchronize()
-    finally:
-        gc.enable()
-    recs = sorted(by_name(spans.records(), "sampler.step"), key=lambda r: r.start)
-    events = _kineto(prof)
-    ann = sorted((a, b) for n, on_card, a, b in events if n == "sampler.step" and not on_card)
-    assert len(recs) == len(ann) == len(model.coeffs.steps)
-    offsets = np.array([a - r.start for (a, _), r in zip(ann, recs)], dtype=np.float64)
-    dev_us = (offsets - np.median(offsets)) / 1e3
-    t_s = np.array([r.start - recs[0].start for r in recs], dtype=np.float64) / 1e9
-    drift = np.polyfit(t_s, dev_us, 1)[0]
-    print(f"annotation - record start, less its median, us: quantiles "
-          f"{np.percentile(dev_us, [0, 5, 50, 95, 100]).round(2).tolist()}, over 50: "
-          f"{int((np.abs(dev_us) > 50).sum())} of {len(dev_us)}, worst at steps "
-          f"{np.argsort(-np.abs(dev_us))[:5].tolist()}, drift {drift:.3f} us/s")
+            spans.clear()
+            gc.disable()  # a collection between a record's clock read and its annotation's
+            try:
+                with torch.profiler.profile(activities=acts) as prof:
+                    torch.cuda.set_sync_debug_mode("error")
+                    try:
+                        model.p_sample_loop(y, noise=noise, clip_denoised=False)
+                    finally:
+                        torch.cuda.set_sync_debug_mode(0)
+                    torch.cuda.synchronize()
+            finally:
+                gc.enable()
+        recs = sorted(by_name(spans.records(), "sampler.step"), key=lambda r: r.start)
+        replays = len(by_name(spans.records(), "sampler.replay"))
+        assert replays == (len(recs) if kind == "graph" else 0)
+        out[kind] = (recs, _kineto(prof), len(model.coeffs.steps))
+    spans.clear()
+    return out
 
+
+def _idle_in_loop(events, ann):
+    """(idle ns inside the ``sampler.loop`` annotation, the part of it that
+    the steps' annotations ``ann`` hold, the loop's ns)."""
     (lo, hi), = [(a, b) for n, on_card, a, b in events if n == "sampler.loop" and not on_card]
     busy = _union((max(a, lo), min(b, hi)) for n, on_card, a, b in events
                   if on_card and b > lo and a < hi)
@@ -438,10 +456,52 @@ def test_spans_share_the_profilers_clock_and_never_sync(cuda):
         prev = max(prev, b)
     idle = sum(b - a for a, b in gaps)
     held = sum(_overlap(a, b, _union(ann)) for a, b in gaps)
-    print(f"idle in the loop {idle / 1e6:.3f} ms of {(hi - lo) / 1e6:.3f}; "
-          f"in a step {100 * held / idle:.2f}%")
+    return idle, held, hi - lo
+
+
+def _step_annotations(events):
+    return sorted((a, b) for n, on_card, a, b in events if n == "sampler.step" and not on_card)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kind", ["eager", "graph"])
+def test_spans_share_the_profilers_clock_and_never_sync(f16_loops, kind):
+    """Each step's annotation starts a constant offset from its record (the
+    two clocks are one), and the loop runs under
+    ``set_sync_debug_mode("error")`` (the fixture), eager or replaying its
+    step. In the eager loop, host-bound, the steps hold the card's idle time
+    inside the loop. On the card nine in ten offsets lie within 12 us of
+    their median; a single step of a run may land 65-106 us off, when the
+    shared host stalls between the two reads."""
+    recs, events, steps = f16_loops[kind]
+    ann = _step_annotations(events)
+    assert len(recs) == len(ann) == steps
+    offsets = np.array([a - r.start for (a, _), r in zip(ann, recs)], dtype=np.float64)
+    dev_us = (offsets - np.median(offsets)) / 1e3
+    t_s = np.array([r.start - recs[0].start for r in recs], dtype=np.float64) / 1e9
+    drift = np.polyfit(t_s, dev_us, 1)[0]
+    print(f"{kind}: annotation - record start, less its median, us: quantiles "
+          f"{np.percentile(dev_us, [0, 5, 50, 95, 100]).round(2).tolist()}, over 50: "
+          f"{int((np.abs(dev_us) > 50).sum())} of {len(dev_us)}, worst at steps "
+          f"{np.argsort(-np.abs(dev_us))[:5].tolist()}, drift {drift:.3f} us/s")
+    idle, held, _ = _idle_in_loop(events, ann)
+    print(f"{kind}: idle in the loop {idle / 1e6:.3f} ms; in a step {100 * held / idle:.2f}%")
     # one clock: no drift over the loop, and the offset constant to within 50 us
     # but for a step in a hundred that finds the host stalled between the reads
     assert abs(drift) * t_s[-1] <= 50.0
     assert (np.abs(dev_us) <= 50.0).mean() >= 0.99
-    assert held >= 0.9 * idle
+    if kind == "eager":
+        assert held >= 0.9 * idle
+
+
+@pytest.mark.gpu
+def test_graph_loop_idles_less_than_the_eager_loop(f16_loops):
+    """Replaying the captured step takes the host's launch path off the
+    card's way: the share of the loop the card idles falls."""
+    share = {}
+    for kind, (_, events, _) in f16_loops.items():
+        idle, _, wall = _idle_in_loop(events, _step_annotations(events))
+        share[kind] = idle / wall
+    print(f"idle share of the loop: eager {100 * share['eager']:.2f}%, "
+          f"graph {100 * share['graph']:.2f}%")
+    assert share["graph"] < share["eager"]
