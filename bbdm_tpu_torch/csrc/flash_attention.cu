@@ -6,39 +6,51 @@
 // in VMEM; its key grid axis runs over Tk, which may differ from Tq).
 // Softmax(q k^T / sqrt(D)) v, i.e. q and k each scaled by D^-1/4.
 //
-// What bounds it on the H100: tensor-core FLOPs. On LBBDM-f4 it runs the VQGAN
-// encoder and decoder mid_attn_1 at H=1, T=4096, D=512: 4*T*T*D = 34 GFLOP per
-// (batch, head), 275 GFLOP at batch 8, against 3*T*D*2 = 12.6 MB read per head.
-// The score matrix never reaches device memory.
+// What bounds it on the H100: tensor-core FLOPs, and at small head dims the
+// softmax's exponentials as much. On LBBDM-f4 it runs the VQGAN encoder and
+// decoder mid_attn_1 at H=1, T=4096, D=512: 4*T*T*D = 34 GFLOP per (batch,
+// head), 275 GFLOP at batch 8, against 3*T*D*2 = 12.6 MB read per head. The
+// cross-attention UNet at SD v1's widths runs it at 8 heads of D = 40, 80 and 160
+// over 4096, 1024 and 256 queries and 4096 keys. The score matrix never reaches
+// device memory.
 //
-// Design: D=512 is above the head dims of FlashAttention-2/3 and of SDPA's flash
-// backend. A block owns 64 query rows of one (batch, head) and splits the head
-// dim between its two consumer warpgroups: warpgroup g holds the fp32 O
-// accumulator for columns [g*DP/2, (g+1)*DP/2) in registers (128 per thread at
-// D=512). Per 32-key tile:
-// - S = Q K^T: each warpgroup runs wgmma m64n32k16 over its own half of the depth
-//   (Q and K K-major, 128-byte swizzle), writes its fp32 partial S to its half of
-//   a 16 KB exchange buffer, and after a named barrier adds the other's partial.
-//   fp32 addition commutes, so both warpgroups hold the same S bit for bit and
-//   run the same online softmax in registers (fp32 running max and sum, the
-//   1/sqrt(D) scale on the fp32 scores, keys past Tk masked to -inf).
-// - O = O * alpha + P V: P is rounded to bf16 in registers, where the score
-//   accumulator layout already is wgmma's register-A layout, and each warpgroup
-//   runs wgmma m64n(DP/2)k16 against its half of V (MN-major, transposed-B form).
-// One producer thread (warpgroup 2, registers lowered with setmaxnreg) loads Q
-// once and streams K and V tiles with TMA into 2-stage K and V rings, each stage
-// with a full and an empty mbarrier. DP (128, 256, 512) is the head dim rounded
-// up; TMA zero-fills the columns past D and the rows past Tq or Tk. Keys past Tk
-// (zero rows of a padded k) are masked by count, never summed; query rows past
-// Tq are not written. At DP=512 the shared memory holds Q 64 KB, K 2 x 32 KB,
-// V 2 x 32 KB and the exchange 16 KB (ops/attention.flash_smem_bytes mirrors it).
+// Design. DP, the compiled head dim, is D rounded up to 64, 128, 256 or 512; TMA
+// zero-fills the columns past D and the rows past Tq or Tk. Keys past Tk (zero
+// rows of a padded k) are masked by count, never summed; query rows past Tq are
+// not written. One producer thread (warpgroup 2, registers lowered with
+// setmaxnreg) loads Q once and streams K and V tiles of 32 keys with TMA into
+// STAGES-deep K and V rings, each stage with a full and an empty mbarrier that
+// both consumer warpgroups (0 and 1) arrive on. Per tile a consumer computes
+// S = Q K^T with wgmma m64n32k16 (Q and K K-major, 128-byte swizzle), runs the
+// online softmax in registers (fp32 running max and sum, the 1/sqrt(D) scale on
+// the fp32 scores, keys past Tk masked to -inf), rounds P to bf16 in registers,
+// where the score accumulator layout already is wgmma's register-A layout, and
+// adds P V with wgmma m64nNk16 against V read MN-major (transposed-B form). Two
+// ways to split a block between its consumers, by DP:
+// - DP <= 128 (row split): a block owns 128 query rows, each consumer
+//   warpgroup 64 of them with the whole head dim: its O accumulator holds DP/2
+//   fp32 registers a thread. The warpgroups share each K and V tile but never
+//   wait on each other.
+// - DP = 256, 512 (depth split): a block owns 64 query rows and splits the
+//   head dim, warpgroup g holding O's columns [g*DP/2, (g+1)*DP/2) (64 or 128
+//   registers a thread; a whole head of 256 would spill). Each warpgroup runs
+//   S over its own half of the depth, writes its fp32 partial to its half of a
+//   16 KB exchange buffer, and after a named barrier adds the other's partial;
+//   fp32 addition commutes, so both hold the same S bit for bit and run the
+//   same softmax.
+// S runs over the 16-column steps that hold D, P V over all DP columns: D = 40,
+// 80, 160 run at DP = 64, 128, 256, where P V does 1.6x the useful MMA work and
+// S 1.2x, 1.0x, 1.0x.
+// At DP=512 the shared memory holds Q 64 KB, K 2 x 32 KB, V 2 x 32 KB and the
+// exchange 16 KB (ops/attention.flash_smem_bytes mirrors every DP).
 // What holds it back now: ptxas allocates the consumers within ~168 registers
-// (SASS tops out at R165) although setmaxnreg gives them 240, so it places S on
-// O's first registers, spills 64 bytes around the S product and serializes every
-// wgmma (warning C7512, one wait per instruction); the two warpgroups move in
-// lockstep through the exchange, so the tensor cores idle while both run the
-// softmax; and each block streams all of K and V (8 MB per head at T=4096) from
-// L2 for its 64 query rows.
+// (SASS tops out at R165) although setmaxnreg gives them 240, so at 128 O
+// registers (DP = 512) it places S on O's first registers, spills around
+// the S product and serializes every wgmma (warning C7512, one wait per
+// instruction); in the depth split the two warpgroups move in lockstep through
+// the exchange, so the tensor cores idle while both run the softmax; and each
+// block streams all of K and V (8 MB per head at T=4096, D=512) from L2 for its
+// 64 or 128 query rows.
 #include <math.h>
 
 #include "hopper.cuh"
@@ -47,18 +59,24 @@ namespace {
 
 using namespace hopper;
 
-constexpr int BQ = 64;        // query rows per block
+constexpr int BQ = 64;        // query rows per consumer warpgroup
 constexpr int BKV = 32;       // keys per tile
-constexpr int STAGES = 2;     // K and V tiles in flight
 constexpr int THREADS = 384;  // warpgroups 0, 1: consumers; warpgroup 2: producer
 constexpr int Q_CHUNK = BQ * 64 * 2;    // one [64 rows x 64 columns] bf16 TMA box
 constexpr int KV_CHUNK = BKV * 64 * 2;  // one [32 keys x 64 columns] bf16 TMA box
 constexpr int X_BYTES = 2 * BQ * BKV * 4;
 
+// the row split (each consumer warpgroup 64 query rows, the whole head dim) up
+// to DP = 128; the depth split above, where a whole head's O would spill
+__host__ __device__ constexpr bool split_rows(int DP) { return DP <= 128; }
+// K and V tiles in flight: small tiles go by faster than a TMA load's latency
+__host__ __device__ constexpr int stages(int DP) { return DP <= 128 ? 4 : 2; }
+
 __host__ __device__ constexpr int smem_bytes(int DP) {
-  // Q, STAGES K tiles, STAGES V tiles, the exchange, 1 + 4 * STAGES mbarriers,
-  // alignment slack
-  return (DP / 64) * (Q_CHUNK + 2 * STAGES * KV_CHUNK) + X_BYTES + (1 + 4 * STAGES) * 8 + 1024;
+  // Q (64 rows per consumer warpgroup in the row split), the K and V rings, the
+  // depth split's exchange, 1 + 4 * stages mbarriers, alignment slack
+  return (split_rows(DP) ? 2 : 1) * (DP / 64) * Q_CHUNK + 2 * stages(DP) * (DP / 64) * KV_CHUNK +
+         (split_rows(DP) ? 0 : X_BYTES) + (1 + 4 * stages(DP)) * 8 + 1024;
 }
 
 template <int NH>
@@ -76,24 +94,28 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
                        __grid_constant__ const CUtensorMap map_v,
                        __nv_bfloat16* __restrict__ out, int Tq, int Tk, int D, int Tqm,
                        int Dm, float scale_log2) {
-  constexpr int QCH = DP / 64;  // 64-column chunks of a tile
-  constexpr int NH = DP / 2;    // head-dim columns per consumer warpgroup
+  constexpr bool ROW_SPLIT = split_rows(DP);
+  constexpr int ROWS = ROW_SPLIT ? 2 : 1;   // 64-row query tiles of a block
+  constexpr int STAGES = stages(DP);
+  constexpr int QCH = DP / 64;              // 64-column chunks of a tile
+  constexpr int NH = ROW_SPLIT ? DP : DP / 2;  // O columns per consumer warpgroup
   constexpr int WCH = NH / 64;
-  constexpr int Q_TILE = QCH * Q_CHUNK;
+  constexpr int Q_TILE = ROWS * QCH * Q_CHUNK;
   constexpr int KV_TILE = QCH * KV_CHUNK;
+  constexpr int XB = ROW_SPLIT ? 0 : X_BYTES;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* Qs = smem;
+  unsigned char* Qs = smem;                              // query tile h at + h * QCH * Q_CHUNK
   unsigned char* Ks = smem + Q_TILE;                     // stage s at + s * KV_TILE
   unsigned char* Vs = smem + Q_TILE + STAGES * KV_TILE;  // stage s at + s * KV_TILE
   float* X = reinterpret_cast<float*>(smem + Q_TILE + 2 * STAGES * KV_TILE);
-  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + Q_TILE + 2 * STAGES * KV_TILE + X_BYTES);
+  uint64_t* qfull = reinterpret_cast<uint64_t*>(smem + Q_TILE + 2 * STAGES * KV_TILE + XB);
   uint64_t *kfull = qfull + 1, *kempty = kfull + STAGES, *vfull = kempty + STAGES,
            *vempty = vfull + STAGES;
 
   const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
+  const int q0 = blockIdx.x * (BQ * ROWS);
   const int bh = blockIdx.y;
   const int ntiles = (Tk + BKV - 1) / BKV;
 
@@ -120,8 +142,9 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
       prefetch_tensormap(&map_k);
       prefetch_tensormap(&map_v);
       mbar_arrive_expect_tx(qfull, Q_TILE);
-      for (int c = 0; c < QCH; ++c)
-        tma_load_3d(Qs + c * Q_CHUNK, &map_q, qfull, c * 64, q0, bh);
+      for (int h = 0; h < ROWS; ++h)
+        for (int c = 0; c < QCH; ++c)
+          tma_load_3d(Qs + (h * QCH + c) * Q_CHUNK, &map_q, qfull, c * 64, q0 + h * BQ, bh);
       for (int j = 0; j < ntiles; ++j) {
         const int st = j % STAGES;
         const uint32_t phase = (j / STAGES) & 1;
@@ -151,37 +174,55 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
     float* mine = X + g * (BQ * BKV);
     const float* other = X + (1 - g) * (BQ * BKV);
 
-    const uint32_t q_addr = smem_u32(Qs), k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
+    // the row split reads its own query tile; the depth split's both read the one
+    const uint32_t q_addr = smem_u32(Qs) + (ROW_SPLIT ? g * QCH * Q_CHUNK : 0);
+    const uint32_t k_addr = smem_u32(Ks), v_addr = smem_u32(Vs);
     mbar_wait(qfull, 0);
 #pragma unroll 1
     for (int j = 0; j < ntiles; ++j) {
       const int st = j % STAGES;
       const uint32_t phase = (j / STAGES) & 1;
-      // S_g = Q[:, half g] K[:, half g]^T
       mbar_wait(&kfull[st], phase);
       fence_regs(s);
       wgmma_fence();
+      if constexpr (ROW_SPLIT) {
+        // S = Q K^T over the 16-column steps that hold D (the rest are zeros)
 #pragma unroll
-      for (int c = 0; c < WCH; ++c)
+        for (int ks = 0; ks < DP / 16; ++ks)
+          if (ks * 16 < D)
+            wgmma_ss_n32<0>(s, make_desc(q_addr + (ks / 4) * Q_CHUNK + (ks % 4) * 32, 16, 1024),
+                            make_desc(k_addr + st * KV_TILE + (ks / 4) * KV_CHUNK + (ks % 4) * 32,
+                                      16, 1024),
+                            ks > 0 ? 1 : 0);
+      } else {
+        // S_g = Q[:, half g] K[:, half g]^T; below DP = 512 over the 16-column
+        // steps of the half that hold D (D > DP/2 there, so each half has one)
 #pragma unroll
-        for (int k = 0; k < 4; ++k) {
-          const int col = g * WCH + c;
-          wgmma_ss_n32<0>(s, make_desc(q_addr + col * Q_CHUNK + k * 32, 16, 1024),
-                          make_desc(k_addr + st * KV_TILE + col * KV_CHUNK + k * 32, 16, 1024),
-                          (c > 0 || k > 0) ? 1 : 0);
-        }
+        for (int c = 0; c < WCH; ++c)
+#pragma unroll
+          for (int k = 0; k < 4; ++k) {
+            const int col = g * WCH + c;
+            if (DP == 512 || col * 64 + k * 16 < D)
+              wgmma_ss_n32<0>(s, make_desc(q_addr + col * Q_CHUNK + k * 32, 16, 1024),
+                              make_desc(k_addr + st * KV_TILE + col * KV_CHUNK + k * 32, 16,
+                                        1024),
+                              (c > 0 || k > 0) ? 1 : 0);
+          }
+      }
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(s);
       if (lt == 0) mbar_arrive(&kempty[st]);
 
-      // S = S_0 + S_1 through the exchange buffer
-      named_barrier(1, 256);  // the other warpgroup has read this buffer's last tile
+      if constexpr (!ROW_SPLIT) {
+        // S = S_0 + S_1 through the exchange buffer
+        named_barrier(1, 256);  // the other warpgroup has read this buffer's last tile
 #pragma unroll
-      for (int i = 0; i < BKV / 2; ++i) mine[i * 128 + lt] = s[i];
-      named_barrier(2, 256);
+        for (int i = 0; i < BKV / 2; ++i) mine[i * 128 + lt] = s[i];
+        named_barrier(2, 256);
 #pragma unroll
-      for (int i = 0; i < BKV / 2; ++i) s[i] += other[i * 128 + lt];
+        for (int i = 0; i < BKV / 2; ++i) s[i] += other[i * 128 + lt];
+      }
 
       // keys past Tk only in the last tile: mask there, against one register
       if (j == ntiles - 1) {
@@ -235,14 +276,15 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
 #pragma unroll
         for (int r = 0; r < 4; ++r) pa[kk][r] = pack_bf16x2(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
 
-      // O_g += P V[:, half g]
+      // O_g += P V[:, the warpgroup's columns]
       mbar_wait(&vfull[st], phase);
       fence_regs(o);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BKV / 16; ++kk)
         wgmma_pv<NH>(o, pa[kk],
-                     make_desc(v_addr + st * KV_TILE + g * WCH * KV_CHUNK + kk * 16 * 128,
+                     make_desc(v_addr + st * KV_TILE + (ROW_SPLIT ? 0 : g * WCH * KV_CHUNK) +
+                                   kk * 16 * 128,
                                KV_CHUNK, 1024));
       wgmma_commit();
       wgmma_wait<0>();
@@ -257,13 +299,13 @@ flash_attention_kernel(__grid_constant__ const CUtensorMap map_q,
     }
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      const int row = q0 + (lt >> 5) * 16 + (lane >> 2) + 8 * hh;
+      const int row = q0 + (ROW_SPLIT ? g * BQ : 0) + (lt >> 5) * 16 + (lane >> 2) + 8 * hh;
       if (row >= Tq) continue;
       const float inv = 1.0f / l[hh];
       __nv_bfloat16* dst = out + ((size_t)bh * Tqm + row) * Dm;
 #pragma unroll
       for (int jj = 0; jj < NH / 8; ++jj) {
-        const int col = g * NH + 8 * jj + 2 * (lane & 3);
+        const int col = (ROW_SPLIT ? 0 : g * NH) + 8 * jj + 2 * (lane & 3);
         if (col < D)
           *reinterpret_cast<uint32_t*>(dst + col) =
               pack_bf16x2(o[4 * jj + 2 * hh] * inv, o[4 * jj + 2 * hh + 1] * inv);
@@ -279,7 +321,8 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
   static std::atomic<uint64_t> smem_ready{0};
   const int rc = allow_dynamic_smem(flash_attention_kernel<DP>, smem_bytes(DP), smem_ready);
   if (rc != 0) return rc;
-  dim3 grid((unsigned)((Tq + BQ - 1) / BQ), (unsigned)BH);
+  const int rows = BQ * (split_rows(DP) ? 2 : 1);
+  dim3 grid((unsigned)((Tq + rows - 1) / rows), (unsigned)BH);
   flash_attention_kernel<DP><<<grid, THREADS, smem_bytes(DP), stream>>>(
       mq, mk, mv, out, Tq, Tk, D, Tqm, Dm, 1.4426950408889634f / sqrtf((float)D));
   return static_cast<int>(cudaGetLastError());
@@ -288,17 +331,17 @@ int launch(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv,
 }  // namespace
 
 // q, out: [BH, Tqm, Dm] and k, v: [BH, Tkm, Dm] bf16 contiguous, of which rows < Tq
-// (q, out) or < Tk (k, v) and columns < D hold the problem (D % 16 == 0, D <= 512,
+// (q, out) or < Tk (k, v) and columns < D hold the problem (D % 8 == 0, D <= 512,
 // Tq, Tk >= 1); Tqm, Tkm, Dm >= 64 so that every TMA box fits inside its tensor,
 // and the padding is zero. smem is the caller's copy of the shared-memory layout
 // (ops/attention.flash_smem_bytes); a mismatch is refused. Returns a cudaError_t.
 extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v, void* out,
                                     int BH, int Tq, int Tk, int D, int Tqm, int Tkm, int Dm,
                                     int smem, void* stream) {
-  if (D % 16 != 0 || D <= 0 || D > 512 || Tq <= 0 || Tk <= 0 || Tqm < 64 || Tqm < Tq ||
+  if (D % 8 != 0 || D <= 0 || D > 512 || Tq <= 0 || Tk <= 0 || Tqm < 64 || Tqm < Tq ||
       Tkm < 64 || Tkm < Tk || Dm < 64 || Dm < D || Dm % 8 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int DP = Dm <= 128 ? 128 : Dm <= 256 ? 256 : 512;
+  const int DP = Dm <= 64 ? 64 : Dm <= 128 ? 128 : Dm <= 256 ? 256 : 512;
   if (Dm > 512 || smem != smem_bytes(DP)) return static_cast<int>(cudaErrorInvalidValue);
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
@@ -312,6 +355,7 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
   }
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (DP == 64) return launch<64>(maps[0], maps[1], maps[2], o, BH, Tq, Tk, D, Tqm, Dm, st);
   if (DP == 128) return launch<128>(maps[0], maps[1], maps[2], o, BH, Tq, Tk, D, Tqm, Dm, st);
   if (DP == 256) return launch<256>(maps[0], maps[1], maps[2], o, BH, Tq, Tk, D, Tqm, Dm, st);
   return launch<512>(maps[0], maps[1], maps[2], o, BH, Tq, Tk, D, Tqm, Dm, st);

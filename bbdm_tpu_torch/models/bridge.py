@@ -124,30 +124,29 @@ class _StepGraph:
 
     The body runs once first on a side stream (cuDNN's plans, the kernels'
     cached plans and lazy loads happen there, not in the capture). The
-    kernels' launch counters (``ops.KERNEL_COUNTERS``) count a replay as the
-    launches it makes: their gain over the capture is kept and added back at
-    each replay, and what the warm-up and the capture added is taken off
-    again."""
+    counts of ``ops.REPLAYED_COUNTS`` (the kernels' launches, attention's
+    calls and FLOPs per route) count a replay as the eager step: their gain
+    over the capture is kept and added back at each replay, and what the
+    warm-up and the capture added is taken off again."""
 
     def __init__(self, body, y, context, row):
         self.y, self.x = y.clone(), y.clone()
         self.context = None if context is None else context.clone()
         self.row, self.eps = row.clone(), torch.zeros_like(y)
-        before = {f: f.launches for f in ops.KERNEL_COUNTERS}
+        before = ops.read_counts()
         side, current = torch.cuda.Stream(y.device), torch.cuda.current_stream(y.device)
         side.wait_stream(current)
         with torch.cuda.stream(side):
             body(self.x, self.y, self.context, self.row, self.eps)
         current.wait_stream(side)
-        warm = {f: f.launches for f in ops.KERNEL_COUNTERS}
+        warm = ops.read_counts()
         self.graph = torch.cuda.CUDAGraph()
         # other threads (a loader, the PNG writer) may call CUDA meanwhile
         with torch.cuda.graph(self.graph, capture_error_mode="thread_local"):
             x_next, self.x0 = body(self.x, self.y, self.context, self.row, self.eps)
             self.x.copy_(x_next)
-        self.launches = {f: f.launches - n for f, n in warm.items()}
-        for f, n in before.items():
-            f.launches = n
+        self.counts = [n - w for n, w in zip(ops.read_counts(), warm)]
+        ops.write_counts(before)
 
     def load(self, y, context) -> None:
         self.y.copy_(y)
@@ -160,8 +159,7 @@ class _StepGraph:
         self.row.copy_(row)
         with span("sampler.replay"):
             self.graph.replay()
-        for f, n in self.launches.items():
-            f.launches += n
+        ops.write_counts(self.counts, add=True)
 
 
 class BrownianBridgeModel(nn.Module):

@@ -28,6 +28,7 @@ from bbdm_tpu_torch.ops import attention as attn_ops
 from bbdm_tpu_torch.ops import group_norm as gn_ops
 from bbdm_tpu_torch.ops import upsample_conv as up_ops
 from bbdm_tpu_torch.parallel import tensor as tp
+from bbdm_tpu_torch.utils.spans import span
 
 
 # ---------------------------------------------------------------- initialisers
@@ -458,11 +459,12 @@ class SpatialTransformer(nn.Module):
                                 device=device)
 
     def forward(self, x, context=None):
-        H, W = x.shape[-2:]
-        h = tokens(self.proj_in(self.norm(x)))
-        for d in range(self.depth):
-            h = self.get_submodule(f"block_{d}")(h, context)
-        return x + self.proj_out(untokens(h, H, W))
+        with span("unet.transformer"):
+            H, W = x.shape[-2:]
+            h = tokens(self.proj_in(self.norm(x)))
+            for d in range(self.depth):
+                h = self.get_submodule(f"block_{d}")(h, context)
+            return x + self.proj_out(untokens(h, H, W))
 
 
 class LinearAttention(nn.Module):

@@ -15,18 +15,30 @@ PEAK_BYTES_S, PEAK_BF16_FLOPS, PEAK_FP32_FLOPS = 3.35e12, 989e12, 67e12
 PEAK_TF32_FLOPS = 495e12
 
 
-# the hand-written kernels' launching wrappers, each counting its launches in
-# ``.launches`` (see :func:`counts_launches`)
-KERNEL_COUNTERS = []
+# every count that a replayed CUDA graph adds to as its capture did, as
+# (holder, attribute): each kernel wrapper's ``launches`` and the attention
+# dispatch's calls and FLOPs per route (``ops/attention.py`` ``ROUTES``)
+REPLAYED_COUNTS = []
 
 
 def counts_launches(fn):
     """Register ``fn``, a kernel's launching wrapper that adds one to
-    ``fn.launches`` per launch, in :data:`KERNEL_COUNTERS` (whoever replays
-    recorded launches, as a captured CUDA graph does, adds them there)."""
+    ``fn.launches`` per launch, in :data:`REPLAYED_COUNTS`."""
     fn.launches = 0
-    KERNEL_COUNTERS.append(fn)
+    REPLAYED_COUNTS.append((fn, "launches"))
     return fn
+
+
+def read_counts() -> list:
+    """The values of :data:`REPLAYED_COUNTS`, in its order."""
+    return [getattr(holder, attr) for holder, attr in REPLAYED_COUNTS]
+
+
+def write_counts(values, add=False) -> None:
+    """Set :data:`REPLAYED_COUNTS` to ``values`` (:func:`read_counts`'s
+    order), or add ``values`` to them."""
+    for (holder, attr), v in zip(REPLAYED_COUNTS, values):
+        setattr(holder, attr, getattr(holder, attr) + v if add else v)
 
 
 def use_kernel(x: torch.Tensor) -> bool:

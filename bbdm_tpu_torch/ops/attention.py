@@ -3,15 +3,22 @@
 
 q and k are each scaled by D^-1/4 (the reference's symmetric scaling) and the
 softmax runs in float32; k and v may hold another number of tokens (Tk) than q
-(Tq), as in cross-attention. Dispatch mirrors ``bbdm_tpu/ops/attention.py:43-48``:
-a CUDA tensor with Tq >= 1024 and D % 128 == 0 goes to kernel K3
+(Tq), as in cross-attention. A CUDA tensor goes to kernel K3
 (``csrc/flash_attention.cu`` for bf16, ``csrc/flash_attention_f32.cu`` for
 fp32 in 3xTF32; both replace the Pallas
-``bbdm_tpu/ops/flash_attention.py:flash_attention``); everything else, the
-UNet's middle attention (T=256, 16 heads x 64) included, is the explicit
-matmul + softmax of :func:`attention_plain`, as the JAX package leaves it to XLA.
-Where grad mode is on and q, k or v requires grad, K3 launches through
-:class:`FlashAttentionFunction`, whose backward recomputes the twin.
+``bbdm_tpu/ops/flash_attention.py:flash_attention``) where :func:`flash_route`
+says so: the JAX package's rule (``bbdm_tpu/ops/attention.py:43-48``, Tq >=
+1024 and D % 128 == 0), and in bf16 also any head dim D % 8 == 0 up to 256
+once Tq * Tk >= 2^20 (the cross-attention UNet's heads of 40, 80 and 160; a
+departure from the JAX package, which leaves those to XLA). Everything else,
+the templates' UNet middle attention (T=256, 16 heads x 64) included, is the
+explicit matmul + softmax of :func:`attention_plain`. The CPU always runs
+the twin. Where grad mode is on and q, k or v requires grad, K3 launches
+through :class:`FlashAttentionFunction`, whose backward recomputes the twin.
+
+:data:`ROUTES` counts the calls and the QK^T + PV FLOPs each route served
+(``kernel``: K3, ``plain``: the twin); a replayed CUDA graph adds to them as
+its capture did (``ops.REPLAYED_COUNTS``).
 """
 
 from __future__ import annotations
@@ -20,15 +27,52 @@ from typing import NamedTuple
 
 import torch
 
-from bbdm_tpu_torch.ops import counts_launches, needs_grad, recompute_grads, use_kernel
+from bbdm_tpu_torch.ops import (
+    REPLAYED_COUNTS,
+    counts_launches,
+    needs_grad,
+    recompute_grads,
+    use_kernel,
+)
 
 KERNEL_MIN_SEQ = 1024  # bbdm_tpu/ops/attention.py:_PALLAS_MIN_SEQ
+KERNEL_MIN_SCORES = 1 << 20  # Tq * Tk from which bf16 heads of 8..256 go to K3
+
+
+def flash_route(Tq, Tk, D, dtype) -> bool:
+    """Whether the CUDA dispatch sends attention of Tq queries, Tk keys and
+    head dim D in ``dtype`` to K3: Tq >= :data:`KERNEL_MIN_SEQ` and D % 128 ==
+    0 (the JAX package's rule), or in bf16 Tq * Tk >= :data:`KERNEL_MIN_SCORES`
+    and D % 8 == 0, D <= 256, where the twin's [Tq, Tk] fp32 logits would
+    take at least 4 MB a head."""
+    if Tq >= KERNEL_MIN_SEQ and D % 128 == 0:
+        return True
+    return dtype == torch.bfloat16 and Tq * Tk >= KERNEL_MIN_SCORES and D % 8 == 0 and D <= 256
+
+
+class RouteTally:
+    """One route's calls and QK^T + PV FLOPs (4 B H Tq Tk D a call)."""
+
+    __slots__ = ("calls", "flops")
+
+    def __init__(self):
+        self.calls = self.flops = 0
+
+
+ROUTES = {"kernel": RouteTally(), "plain": RouteTally()}
+REPLAYED_COUNTS.extend((t, a) for t in ROUTES.values() for a in RouteTally.__slots__)
 
 
 def multi_head_attention(q, k, v):
-    """q: [B, H, Tq, D], k, v: [B, H, Tk, D] -> [B, H, Tq, D] in q.dtype. K3 or
-    not is decided on Tq and D alone, as in the JAX dispatch."""
-    if use_kernel(q) and q.shape[-2] >= KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:
+    """q: [B, H, Tq, D], k, v: [B, H, Tk, D] -> [B, H, Tq, D] in q.dtype, by
+    the route :func:`flash_route` gives a CUDA tensor."""
+    B, H, Tq, D = q.shape
+    Tk = k.shape[-2]
+    kernel = use_kernel(q) and flash_route(Tq, Tk, D, q.dtype)
+    tally = ROUTES["kernel" if kernel else "plain"]
+    tally.calls += 1
+    tally.flops += 4 * B * H * Tq * Tk * D
+    if kernel:
         if needs_grad(q, k, v):
             return FlashAttentionFunction.apply(q, k, v)
         return flash_attention_cuda(q, k, v)
@@ -62,20 +106,27 @@ def attention_plain(q, k, v):
     return torch.matmul(weights.float(), v.float()).to(q.dtype)
 
 
-def flash_padded_dim(D):
-    """K3's compiled head dim for a (memory) head dim D: 128, 256 or 512; TMA
-    zero-fills the columns past D."""
+def flash_padded_dim(D, dtype=torch.float32):
+    """K3's compiled head dim for a (memory) head dim D: 128, 256 or 512, and
+    in bf16 also 64; TMA zero-fills the columns past D."""
+    if dtype == torch.bfloat16 and D <= 64:
+        return 64
     return 128 if D <= 128 else 256 if D <= 256 else 512
 
 
 def flash_smem_bytes(D):
-    """K3's dynamic shared memory at head dim D (csrc/flash_attention.cu
-    smem_bytes): Q (64 rows x DP bf16), two stages each of K and V tiles
-    (32 keys x DP bf16), the 2 x [64 x 32] fp32 score exchange, 9 mbarriers and
-    1 KB of alignment slack. The key loop streams its tiles through these
-    stages, so no length, Tq or Tk, enters it."""
-    dp = flash_padded_dim(D)
-    return 64 * dp * 2 + 2 * 2 * 32 * dp * 2 + 2 * 64 * 32 * 4 + 9 * 8 + 1024
+    """The bf16 K3's dynamic shared memory at head dim D
+    (csrc/flash_attention.cu smem_bytes). Up to DP = 128 (the row split): Q
+    of 128 rows x DP bf16 and 4 stages each of K and V tiles (32 keys x DP
+    bf16); at DP = 256 and 512 (the depth split): Q of 64 rows, 2 stages and
+    the 2 x [64 x 32] fp32 score exchange; then 1 + 4 x stages mbarriers and 1
+    KB of alignment slack. The key loop streams its tiles through the stages,
+    so no length, Tq or Tk, enters it."""
+    dp = flash_padded_dim(D, torch.bfloat16)
+    rows = 2 if dp <= 128 else 1
+    stages = 4 if dp <= 128 else 2
+    exchange = 0 if rows == 2 else 2 * 64 * 32 * 4
+    return rows * 64 * dp * 2 + 2 * stages * 32 * dp * 2 + exchange + (1 + 4 * stages) * 8 + 1024
 
 
 def flash_f32_smem_bytes(D):
@@ -105,18 +156,17 @@ class FlashPlan(NamedTuple):
 def plan_flash(Tq, Tk, D, dtype) -> FlashPlan:
     """K3's plan (:class:`FlashPlan`) for bf16 or fp32. Raises ValueError on a
     shape the kernel does not take, saying which: D <= 512 (the Pallas kernel
-    has no such limit; D is a multiple of 128 wherever the dispatch sends
-    attention to K3), D % 16 == 0 in bf16 and D % 4 == 0 in fp32 (16-byte TMA
+    has no such limit), D % 8 == 0 in bf16 and D % 4 == 0 in fp32 (16-byte TMA
     rows), and Tq, Tk >= 1."""
     f32 = dtype == torch.float32
     if Tq < 1 or Tk < 1 or D < 1:
         raise ValueError(f"flash_attention_cuda takes Tq, Tk, D >= 1, got Tq={Tq}, Tk={Tk}, "
                          f"D={D}")
-    if D > 512 or D % (4 if f32 else 16) != 0:
+    if D > 512 or D % (4 if f32 else 8) != 0:
         raise ValueError(f"flash_attention_cuda ({'fp32' if f32 else 'bf16'}) takes "
-                         f"D % {4 if f32 else 16} == 0 and D <= 512, got D={D}")
+                         f"D % {4 if f32 else 8} == 0 and D <= 512, got D={D}")
     Dm = max(D, 32 if f32 else 64)
-    return FlashPlan(max(Tq, 64), max(Tk, 64), Dm, flash_padded_dim(Dm),
+    return FlashPlan(max(Tq, 64), max(Tk, 64), Dm, flash_padded_dim(Dm, dtype),
                      flash_f32_smem_bytes(Dm) if f32 else flash_smem_bytes(Dm))
 
 

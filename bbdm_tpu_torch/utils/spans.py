@@ -25,6 +25,9 @@ The program's spans (each in the module named):
   ``sampler.step`` that replays it (that step then holds no
   ``unet.forward``: the UNet runs inside the graph);
 * ``unet.forward`` (``models/unet.py``): one ``UNet.forward``;
+* ``unet.transformer`` (``models/layers.py``): one ``SpatialTransformer``
+  forward, a child of ``unet.forward``; like it, seen where the UNet runs
+  eagerly (training, a step's capture, the CPU), not inside a replay;
 * ``runner.writer_wait`` (``runners/bbdm.py``): ``sample_to_eval`` waiting
   on its PNG writer's backlog;
 * ``train.step`` (``training/step.py``): one microbatch's ``train_step``;

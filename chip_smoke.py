@@ -14,7 +14,8 @@ Phases, each of which must pass:
    the LBBDM-f4 path (bf16) and VQGAN-f4 training (fp32) give it, at phase 9's
    new shapes (f16's 4^2 and 8^2 UNet levels, f8's VQGAN attention at T=1024,
    the transformer's eps-1e-6 norms), K3 with keys != queries (Tk 4096 and 1
-   for 1024 queries) and at edge cases, one launch per call;
+   for 1024 queries), at the SD v1 UNet's heads (D 40, 80, 160; untimed) and
+   at edge cases, one launch per call;
    at the path shapes also CUDA-event times of the kernel (wrapper included),
    its twin and one PyTorch library call computing the same function (or, for
    K1, a subset of it), the kernel's own device time from torch.profiler, and
@@ -520,7 +521,9 @@ def kernel_cases(dev):
     # T and D below one 64 x 64 box; then the same in fp32 (VQGAN training); then
     # the f8 VQGAN's attention at 32^2 (T=1024) in both dtypes, and keys != queries:
     # 32^2 queries over a 64^2 context and over one token (a class embedding), in
-    # both dtypes, and ragged Tk below one box
+    # both dtypes, and ragged Tk below one box; last, untimed, the SD v1 UNet's
+    # attentions at 64^2 (D=40, compiled 64), 32^2 self and cross (D=80, compiled
+    # 128, row split) and 16^2 cross (D=160, compiled 256, S past D skipped)
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
     def sdpa(q, k, v, backend=None):
@@ -544,7 +547,11 @@ def kernel_cases(dev):
                                     ((BATCH, 4, 1024, 128), 1, torch.bfloat16, True),
                                     ((BATCH, 4, 1024, 128), 1, torch.float32, True),
                                     ((2, 3, 1100, 128), 77, torch.bfloat16, False),
-                                    ((1, 2, 50, 48), 3, torch.float32, False)):
+                                    ((1, 2, 50, 48), 3, torch.float32, False),
+                                    ((BATCH, 8, 4096, 40), None, torch.bfloat16, False),
+                                    ((BATCH, 8, 1024, 80), None, torch.bfloat16, False),
+                                    ((BATCH, 8, 1024, 80), 4096, torch.bfloat16, False),
+                                    ((BATCH, 8, 256, 160), 4096, torch.bfloat16, False)):
         f32 = dtype == torch.float32
         B, H, T, D = shape
         Tk = T if tk is None else tk
@@ -2159,8 +2166,8 @@ def kernel_calls(model_config, batch):
     walked on the meta device (no memory, no arithmetic) at ``batch`` with
     recorders in place of the three ops. {part: Counter of (kernel, shape)};
     K1 every GroupNorm (N, C, H, W); K2 every eval-mode up-conv (N, ci, h, w,
-    co); K3 the attentions the dispatch sends to it, Tq >= KERNEL_MIN_SEQ and
-    D % 128 == 0 (B, H, Tq, D, Tk)."""
+    co); K3 the attentions the dispatch sends to it, as ``attention.flash_route``
+    decides (B, H, Tq, D, Tk)."""
     from collections import Counter
 
     from bbdm_tpu_torch.models.bridge import BrownianBridgeModel
@@ -2180,7 +2187,7 @@ def kernel_calls(model_config, batch):
                            dtype=dtype or torch.promote_types(x.dtype, w.dtype))
 
     def k3(q, k, v):
-        if q.shape[-2] >= attention.KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:
+        if attention.flash_route(q.shape[-2], k.shape[-2], q.shape[-1], q.dtype):
             seen["K3", (*q.shape, k.shape[-2])] += 1
         return torch.empty_like(q)
 

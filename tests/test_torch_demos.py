@@ -18,8 +18,9 @@ trees they name) and must:
 
 The launch counts ``chip_smoke.py`` phase 14 holds the demos to come from
 ``chip_smoke.kernel_calls`` on their run configs: equal to the JAX modules'
-calls (``tests/test_torch_latent_configs.jax_kernel_calls``) for the chain's
-LBBDM-f4 and the demos' pixel BBDM (no first stage).
+calls (``tests/test_torch_latent_configs.jax_kernel_calls``) under the CUDA
+dispatch's rule for the chain's LBBDM-f4 and the demos' pixel BBDM (no first
+stage).
 
 ``run_parity`` runs on a reference-layout ``.pth`` (the UNet, VQGAN and latent
 statistics of a tiny LBBDM, sampled at 64^2: AlexNet needs that much) and an
@@ -41,7 +42,7 @@ import torch
 from test_latent import lbbdm_config
 from test_torch_checkpoints import write_reference_pth
 from test_torch_import import _vqgan_torch_keys
-from test_torch_latent_configs import jax_kernel_calls
+from test_torch_latent_configs import jax_kernel_calls, under_cuda_rule
 from test_torch_parallel import one_thread
 
 import chip_smoke
@@ -342,7 +343,7 @@ def test_run_parity_converts_samples_and_scores(tmp_path, monkeypatch, capsys):
 def test_demo_launch_counts_come_from_the_jax_modules_calls(name):
     cfg = jax_load(os.path.join(RUNS, f"{name}.yaml"))
     pixel = cfg.model.model_type == "BBDM"
-    want = jax_kernel_calls(cfg, 8)
+    want = {part: under_cuda_rule(c) for part, c in jax_kernel_calls(cfg, 8).items()}
     got = chip_smoke.kernel_calls(chip_smoke.demo_configs()[name].model, 8)
     assert got["unet"] == want["unet"] and sum(got["unet"].values()) > 0
     assert got["unet_train"] == Counter({k: n for k, n in want["unet"].items() if k[0] != "K2"})

@@ -183,21 +183,29 @@ def test_flash_attention_f32_smem_fits_a_block(D):
     assert flash_f32_smem_bytes(D) <= H100_BLOCK_SMEM
 
 
-@pytest.mark.parametrize("D", [128, 256, 512])
+@pytest.mark.parametrize("D", [64, 128, 256, 512])
 def test_flash_attention_smem_fits_a_block(D):
-    assert flash_padded_dim(D) == D
-    # Q of 64 rows x D bf16, two stages each of K and V tiles of 32 keys x D, the
-    # fp32 [64 x 32] score exchange of both warpgroups, 9 mbarriers, 1 KB of
-    # alignment slack
-    assert flash_smem_bytes(D) == 64 * D * 2 + 4 * 32 * D * 2 + 2 * 64 * 32 * 4 + 9 * 8 + 1024
+    assert flash_padded_dim(D, torch.bfloat16) == D
+    if D <= 128:
+        # the row split: Q of 128 rows x D bf16, four stages each of K and V
+        # tiles of 32 keys x D, 17 mbarriers, 1 KB of alignment slack
+        want = 128 * D * 2 + 8 * 32 * D * 2 + 17 * 8 + 1024
+    else:
+        # the depth split: Q of 64 rows x D bf16, two stages each of K and V
+        # tiles, the fp32 [64 x 32] score exchange of both warpgroups, 9
+        # mbarriers, 1 KB of alignment slack
+        want = 64 * D * 2 + 4 * 32 * D * 2 + 2 * 64 * 32 * 4 + 9 * 8 + 1024
+    assert flash_smem_bytes(D) == want
     assert flash_smem_bytes(D) <= H100_BLOCK_SMEM
 
 
-@pytest.mark.parametrize("D", [16, 48, 64, 80, 200, 496])
+@pytest.mark.parametrize("D", [16, 40, 48, 64, 80, 160, 200, 496])
 def test_flash_attention_pads_head_dims_to_a_compiled_one(D):
-    DP = flash_padded_dim(D)
-    # each of the two consumer warpgroups owns DP/2 columns: whole 64-column boxes
-    assert DP >= D and DP in (128, 256, 512) and (DP // 2) % 64 == 0
+    DP = flash_padded_dim(D, torch.bfloat16)
+    # a consumer warpgroup owns all DP columns (row split, DP <= 128) or DP/2
+    # (depth split): whole 64-column boxes either way
+    assert DP >= D and DP in (64, 128, 256, 512)
+    assert (DP if DP <= 128 else DP // 2) % 64 == 0
     assert flash_smem_bytes(D) == flash_smem_bytes(DP) <= H100_BLOCK_SMEM
 
 

@@ -95,7 +95,8 @@ def jax_kernel_calls(cfg, batch):
     counts the port's: ``jax.eval_shape`` of the UNet's and the VQGAN's (none
     for a pixel BBDM) init
     (one forward each, in eval mode) with recorders in the modules' namespaces;
-    shapes NCHW as the port's."""
+    shapes NCHW as the port's. K3 the attentions the JAX dispatch sends to its
+    kernel; every other attention under ``"attn"``, (B, H, Tq, D, Tk, bf16)."""
     from bbdm_tpu.models import layers as jl
     from bbdm_tpu.models import vqgan as jv
 
@@ -112,8 +113,11 @@ def jax_kernel_calls(cfg, batch):
         return jnp.zeros((N, 2 * h, 2 * w, co), dtype or jnp.result_type(x, kernel))
 
     def k3(q, k, v, **kw):
-        if q.shape[-2] >= KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:
-            seen["K3", (*q.shape, k.shape[-2])] += 1
+        shape = (*q.shape, k.shape[-2])
+        if q.shape[-2] >= KERNEL_MIN_SEQ and q.shape[-1] % 128 == 0:  # the JAX rule
+            seen["K3", shape] += 1
+        else:
+            seen["attn", (*shape, q.dtype == jnp.bfloat16)] += 1
         return jnp.zeros_like(q)
 
     model = jax_build(cfg.model)
@@ -140,15 +144,35 @@ def jax_kernel_calls(cfg, batch):
     return out
 
 
+def under_cuda_rule(calls):
+    """:func:`jax_kernel_calls`' counts of one part as the port's CUDA dispatch
+    makes them: the JAX rule's K3 calls, plus its one departure from that rule,
+    K3 also taking bf16 heads of 8..256 over at least 2^20 scores."""
+    out = Counter({key: n for key, n in calls.items() if key[0] != "attn"})
+    out.update({("K3", s[:-1]): n for (kind, s), n in calls.items()
+                if kind == "attn" and s[-1] and s[2] * s[4] >= 2 ** 20 and s[3] % 8 == 0
+                and s[3] <= 256})
+    return out
+
+
 @pytest.mark.parametrize("name", ["LBBDM-f8", "LBBDM-f16", "LBBDM-f4-xattn"])
 def test_smoke_launch_counts_come_from_the_jax_modules_calls(name):
     want = jax_kernel_calls(template(name, jax_load), 8)
     got = chip_smoke.kernel_calls(chip_smoke.path_configs()[name].model, 8)
-    assert got["unet"] == want["unet"]
-    assert got["encoder"] + got["decoder"] == want["vqgan"]
+
+    def k3(calls):
+        return Counter({key: n for key, n in calls.items() if key[0] == "K3"})
+
+    for port, jax_calls in ((got["unet"], want["unet"]),
+                            (got["encoder"] + got["decoder"], want["vqgan"])):
+        assert k3(jax_calls) - k3(port) == Counter()
+        assert k3(port) - k3(jax_calls) == k3(under_cuda_rule(jax_calls)) - k3(jax_calls)
+        assert port == under_cuda_rule(jax_calls)
     # training mode: every norm and attention as in eval, no up-conv kernel
-    assert got["unet_train"] == Counter({k: n for k, n in want["unet"].items()
+    assert got["unet_train"] == Counter({k: n for k, n in under_cuda_rule(want["unet"]).items()
                                          if k[0] != "K2"})
+    if name == "LBBDM-f4-xattn":  # its middle cross-attention, 256 x 4096 at D 64
+        assert k3(got["unet"]) - k3(want["unet"]) == Counter({("K3", (8, 16, 256, 64, 4096)): 1})
 
 
 # ------------------------------------------------------- tiny latent paths

@@ -419,3 +419,26 @@ def test_flash_attention_kernel_with_other_key_count_matches_twin(cuda, dtype, s
     # the bars of the Tk == Tq cases above
     tol = dict(rtol=1e-4, atol=1e-5) if dtype == torch.float32 else dict(rtol=2e-2, atol=2e-2)
     torch.testing.assert_close(out.float(), ref.float(), **tol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,d", [(4096, 40), (1024, 80), (256, 160)])
+def test_flash_attention_kernel_takes_the_unet_head_dims(cuda, tq, d):
+    """The SD v1 widths' heads (8 x 40, 80, 160 over 4096 context keys), which
+    the dispatch sends to K3 in bf16: within the bf16 bar of the twin, with
+    no [Tq, Tk] logits allocated (the peak rises by less than one head's
+    bf16 logits: K3 holds only q, k, v padded to 64 columns and the output)."""
+    g = torch.Generator(cuda).manual_seed(9)
+    q = torch.randn((1, 8, tq, d), generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((1, 8, 4096, d), generator=g, device=cuda).bfloat16() for _ in range(2))
+    assert attention.flash_route(tq, 4096, d, torch.bfloat16)
+    ref = attention.attention_plain(q, k, v)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(cuda)
+    base = torch.cuda.memory_allocated(cuda)
+    before = attention.flash_attention_cuda.launches
+    out = attention.multi_head_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert attention.flash_attention_cuda.launches == before + 1 and out.shape == q.shape
+    assert torch.cuda.max_memory_allocated(cuda) - base < tq * 4096 * 2
+    torch.testing.assert_close(out.float(), ref.float(), rtol=2e-2, atol=2e-2)
