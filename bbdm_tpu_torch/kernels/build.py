@@ -34,6 +34,11 @@ _SIGNATURES = {
     # film_stride, silu, eps, stream
     "group_norm_fwd": [_P, _P, _P, _P, _P, _P, ctypes.POINTER(ctypes.c_uint64), _I, _I, _I, _I,
                        ctypes.c_int64, _I, ctypes.c_float, _P],
+    # x, dy, w, b, film_scale, film_shift, dx, d film_scale, d film_shift, part, dw,
+    # db, plan (14 x uint64, ops/group_norm.GroupNormBwdPlan.c_values), dtype, film,
+    # film_f32, film_stride, silu, eps, stream
+    "group_norm_bwd": [_P] * 12 + [ctypes.POINTER(ctypes.c_uint64), _I, _I, _I, ctypes.c_int64,
+                                   _I, ctypes.c_float, _P],
     # dtype, cs, smem_bytes, out: clusters resident at once
     "group_norm_resident_clusters": [_I, _I, _I, ctypes.POINTER(ctypes.c_int)],
     # x, kp, bias, out, plan (24 x uint64, ops/upsample_conv.UpconvPlan.c_values), stream

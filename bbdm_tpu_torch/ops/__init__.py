@@ -2,9 +2,10 @@
 
 Each dispatch sends a CUDA tensor to the kernel and a CPU tensor to the twin;
 the twin is never a fallback for a CUDA tensor. Where an input requires grad,
-K1 and K3 launch through an autograd Function whose backward recomputes the
-twin (the JAX package's ``custom_vjp``s recompute through XLA the same way);
-K2 has no backward and refuses such inputs.
+K1 and K3 launch through an autograd Function: K1's backward is a kernel of its
+own (``csrc/group_norm_bwd.cu``), K3's recomputes the twin (the JAX package's
+``custom_vjp``s recompute through XLA the same way); K2 has no backward and
+refuses such inputs.
 """
 
 import torch
@@ -58,7 +59,7 @@ def needs_grad(*tensors) -> bool:
 def recompute_grads(plain, inputs, needed, grad_out, **kw):
     """The gradients of ``plain(*inputs, **kw)`` with respect to the ``inputs``
     flagged in ``needed`` (None elsewhere), recomputed from the saved inputs
-    under grad mode: the backward of the kernels' autograd Functions."""
+    under grad mode: the backward of K3's autograd Function."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(need) if t is not None else None
                   for t, need in zip(inputs, needed)]

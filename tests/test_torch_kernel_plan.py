@@ -365,3 +365,123 @@ def test_group_norm_bytes_count_each_tensor_once(dtype, film):
     size = x.element_size()
     expect = 2 * x.numel() * size + 2 * C * 4 + (f.numel() * size if film else 0)
     assert gn.group_norm_bytes(x, w, fs if film else None) == expect
+
+
+# ------------------------------------------------------ GroupNorm backward (K1)
+
+# (N, C, H, W) of the 44 GroupNorms of one training microbatch of the LBBDM-f4
+# UNet at batch 8 (``chip_smoke.kernel_calls``' ``unet_train``), the norms whose
+# backward runs in bf16 training
+GN_TRAIN_SHAPES = [
+    (8, 128, 32, 32), (8, 128, 64, 64), (8, 256, 64, 64), (8, 512, 16, 16), (8, 512, 32, 32),
+    (8, 512, 64, 64), (8, 640, 32, 32), (8, 640, 64, 64), (8, 1024, 16, 16), (8, 1024, 32, 32),
+    (8, 1536, 16, 16), (8, 1536, 32, 32), (8, 2048, 16, 16),
+]
+# bf16 train shapes, every path shape in fp32 (VQGAN training: spans up to 1 MB,
+# which overflow a cluster of 8), and the gpu-marked tests' edge shapes
+GN_BWD_SHAPES = [(*s, 2) for s in GN_TRAIN_SHAPES] + [(*s, 4) for s in GN_PATH_SHAPES] + [
+    (2, 128, 32, 32, 2), (2, 1024, 32, 32, 2), (2, 640, 64, 64, 2), (1, 256, 128, 128, 2),
+    (2, 256, 256, 256, 2), (1, 256, 256, 256, 4), (1, 128, 64, 64, 4), (2, 96, 7, 5, 2),
+    (2, 32, 255, 255, 2), (2, 320, 24, 24, 2),
+]
+
+
+def _gn_bwd_plan(shape):
+    N, C, H, W, itemsize = shape
+    return gn.plan_group_norm_bwd(N, C, H * W, 32, itemsize)
+
+
+def _gn_bwd_regions(plan, rank):
+    """{warp: (first, last) channel of its region} of CTA ``rank``'s slice and
+    the slice's (start, len, vectors a warp), as ``group_norm_bwd_kernel``
+    computes them."""
+    start = rank * plan.per
+    length = max(0, min(plan.per, plan.span - start))
+    nvec = length // plan.vec
+    rv = -(-nvec // gn.BWD_WARPS)
+    out = {}
+    for w in range(gn.BWD_WARPS):
+        lo, hi = w * rv, min(nvec, (w + 1) * rv)
+        if lo < hi:
+            out[w] = ((start + lo * plan.vec) // plan.hw, (start + hi * plan.vec - 1) // plan.hw)
+    return out, (start, length, rv)
+
+
+@pytest.mark.parametrize("shape", GN_BWD_SHAPES)
+def test_group_norm_bwd_plan_holds_x_and_dy(shape):
+    plan = _gn_bwd_plan(shape)
+    N, C = shape[:2]
+    wide = 16 // plan.itemsize
+    assert plan.cs in gn.CLUSTER_SIZES and plan.grid == N * 32 * plan.cs
+    assert plan.threads == gn.THREADS and plan.cpg == C // 32
+    # x's slice, then dy's, then fp32 scratch: 8 values a channel of the group, 2 a warp
+    assert plan.keep % wide == 0 and plan.d_off == plan.keep * plan.itemsize
+    assert plan.d_off % 16 == 0 and plan.f_off == 2 * plan.d_off
+    assert plan.smem_bytes == plan.f_off + 4 * (8 * plan.cpg + 2 * gn.BWD_WARPS)
+    assert plan.smem_bytes <= H100_BLOCK_SMEM - 1024
+    if 2 * plan.per * plan.itemsize <= gn.PAIR_BUDGET:  # two CTAs per SM
+        assert 2 * (plan.smem_bytes + 1024) <= 233_472
+    # one access never spans two channels, and every slice starts on a whole vector
+    assert plan.hw % plan.vec == 0 and plan.vec in (1, wide) and plan.per % wide == 0
+    assert (plan.vec == wide) == (plan.hw % wide == 0)
+
+
+@pytest.mark.parametrize("shape", GN_BWD_SHAPES)
+def test_group_norm_bwd_slices_tile_each_span_once(shape):
+    plan = _gn_bwd_plan(shape)
+    covered = []
+    for rank in range(plan.cs):
+        start = rank * plan.per
+        length = max(0, min(plan.per, plan.span - start))
+        covered += range(start, start + length)
+        assert length - min(length, plan.keep) <= plan.overflow
+    assert covered == list(range(plan.span))
+    # the smallest cluster whose slices of x and dy fit two CTAs an SM, else one
+    smaller = [cs for cs in gn.CLUSTER_SIZES if cs < plan.cs]
+    if plan.overflow == 0 and smaller:
+        per = -(-plan.span // smaller[-1])
+        assert 2 * per * plan.itemsize > gn.PAIR_BUDGET
+
+
+def test_group_norm_bwd_shapes_reach_every_cluster_size_and_the_overflow():
+    plans = [_gn_bwd_plan(s) for s in GN_BWD_SHAPES]
+    assert {p.cs for p in plans} == set(gn.CLUSTER_SIZES)
+    assert any(p.overflow > 0 and p.itemsize == 2 for p in plans)
+    assert any(p.overflow > 0 and p.itemsize == 4 for p in plans)
+    assert any(p.vec == 1 and p.cs > 1 for p in plans)
+
+
+@pytest.mark.parametrize("shape", GN_BWD_SHAPES)
+def test_group_norm_bwd_warp_entries_and_partials_do_not_collide(shape):
+    """Warp w keeps channel c's sums at entry c + w: the entries the warps of a
+    CTA touch are distinct and inside the scratch; the kernel sums channel c
+    over exactly the warps whose region meets it. The CTA of rank c % cs writes
+    the (n, c) outputs: each of the [N, C] partials once."""
+    plan = _gn_bwd_plan(shape)
+    N, C = shape[:2]
+    for rank in range(plan.cs):
+        regions, (start, length, rv) = _gn_bwd_regions(plan, rank)
+        entries = [c + w for w, (lo, hi) in regions.items() for c in range(lo, hi + 1)]
+        assert len(entries) == len(set(entries))
+        assert all(0 <= e < plan.cpg + gn.BWD_WARPS for e in entries)
+        for c in range(plan.cpg):
+            lo = max(c * plan.hw, start) - start
+            hi = min((c + 1) * plan.hw, start + length) - start
+            summed = set(range(lo // plan.vec // rv, (hi // plan.vec - 1) // rv + 1)) \
+                if lo < hi else set()
+            assert summed == {w for w, (a, b) in regions.items() if a <= c <= b}
+    written = Counter(n * C + g * plan.cpg + c for n in range(N) for g in range(32)
+                      for rank in range(plan.cs) for c in range(rank, plan.cpg, plan.cs))
+    assert sorted(written) == list(range(N * C)) and set(written.values()) == {1}
+
+
+def test_group_norm_bwd_c_values_match_the_c_entry_layout():
+    src = os.path.join(os.path.dirname(__file__), os.pardir, "bbdm_tpu_torch", "csrc",
+                       "group_norm_bwd.cu")
+    with open(src) as f:
+        text = f.read()
+    offsets = dict(re.findall(r"(\w+) = plan\[(\d+)\]", text))
+    plan = _gn_bwd_plan(GN_BWD_SHAPES[0])
+    assert {name: int(off) for name, off in offsets.items()} == \
+        {name: i for i, name in enumerate(plan._fields)}
+    assert plan.c_values() == tuple(getattr(plan, f) for f in plan._fields)

@@ -349,3 +349,18 @@ def test_new_upconv_shapes_are_the_paths():
 def test_group_norm_plan_at_the_new_shapes(check, shape):
     check(shape)
 
+
+
+def test_group_norm_backward_plan_at_every_training_shape_of_the_paths():
+    """K1's backward runs at each UNet GroupNorm of a training microbatch: its
+    plan checks at those of the f8, f16 and f4-xattn paths (bf16)."""
+    checks = (plan_tests.test_group_norm_bwd_plan_holds_x_and_dy,
+              plan_tests.test_group_norm_bwd_slices_tile_each_span_once,
+              plan_tests.test_group_norm_bwd_warp_entries_and_partials_do_not_collide)
+    shapes = set()
+    for cfg in chip_smoke.path_configs().values():
+        shapes |= {s for k, s in chip_smoke.kernel_calls(cfg.model, 8)["unet_train"] if k == "K1"}
+    assert shapes - set(plan_tests.GN_TRAIN_SHAPES)  # the paths reach shapes f4's does not
+    for shape in sorted(shapes):
+        for check in checks:
+            check((*shape, 2))

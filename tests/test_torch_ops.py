@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from bbdm_tpu_torch.ops import attention, group_norm, upsample_conv
+from chip_smoke import k1_grad_excess  # K1's backward against the twin: the smoke's bars
 
 # fp32 bars: both sides sum the same products in another order (per-channel
 # then per-group sums vs. one pass; 2x2 phase taps vs. 3x3 taps over an
@@ -290,6 +291,82 @@ def test_group_norm_kernel_matches_twin(cuda, shape, film, eps, dtype):
     # fp32 arithmetic on both sides; 16-bit outputs may round one ulp apart
     tol = 1e-4 if dtype == torch.float32 else 2 ** -7
     torch.testing.assert_close(out.float(), ref.float(), rtol=tol, atol=tol)
+
+
+def k1_grads(cuda, shape, film, dtype, film_dtype, act, eps, grad=(True,) * 4, seed=0):
+    """(kernel's gradients, the twin's autograd gradients, the kernel's
+    gradients again) of x, weight, bias and the [N, 2C] FiLM tensor whose halves
+    are the scale and shift, for the inputs flagged in ``grad``."""
+    g = torch.Generator(cuda).manual_seed(seed)
+    N, C = shape[:2]
+    x = (2 * torch.randn(shape, generator=g, device=cuda) + 0.5).to(dtype)
+    w = 1 + 0.1 * torch.randn(C, generator=g, device=cuda)
+    b = 0.1 * torch.randn(C, generator=g, device=cuda)
+    f = (0.1 * torch.randn(N, 2 * C, generator=g, device=cuda)).to(film_dtype)
+    dy = torch.randn(shape, generator=g, device=cuda).to(dtype)
+    leaves = [t.requires_grad_(r) for t, r in zip((x, w, b, f), grad)]
+    wanted = [t for t in leaves[:4 if film else 3] if t.requires_grad]
+
+    def run(fn):
+        fs, fb = f.chunk(2, dim=1) if film else (None, None)
+        out = fn(x, w, b, eps=eps, act=act, film_scale=fs, film_shift=fb)
+        return torch.autograd.grad(out, wanted, dy)
+
+    got = run(group_norm.group_norm)
+    return got, run(group_norm.group_norm_plain), run(group_norm.group_norm)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,film,dtype,film_dtype,act,eps", [
+    # a cluster of 1, 2 (FiLM in fp32), 4 and 8; the UNet's shapes
+    ((2, 128, 32, 32), True, torch.bfloat16, torch.bfloat16, "silu", 1e-5),
+    ((2, 1024, 32, 32), True, torch.bfloat16, torch.float32, "silu", 1e-5),
+    ((2, 640, 64, 64), False, torch.bfloat16, torch.bfloat16, "silu", 1e-5),
+    ((1, 256, 128, 128), False, torch.bfloat16, torch.bfloat16, None, 1e-6),
+    # spans that overflow a cluster of 8 (bf16 and fp32 at 256^2)
+    ((2, 256, 256, 256), False, torch.bfloat16, torch.bfloat16, "silu", 1e-6),
+    ((1, 256, 256, 256), False, torch.float32, torch.float32, "silu", 1e-6),
+    # fp32 (VQGAN training), the transformer's norm (no SiLU, eps 1e-6)
+    ((1, 128, 64, 64), False, torch.float32, torch.float32, None, 1e-6),
+    ((2, 512, 32, 32), False, torch.bfloat16, torch.bfloat16, None, 1e-6),
+    # hw not a multiple of a 16-byte vector (one element an access), on one CTA
+    # and over a cluster of 4; fp16 with FiLM
+    ((2, 96, 7, 5), True, torch.bfloat16, torch.bfloat16, "silu", 1e-5),
+    ((2, 32, 255, 255), True, torch.bfloat16, torch.bfloat16, "silu", 1e-6),
+    ((2, 320, 24, 24), True, torch.float16, torch.float16, "silu", 1e-5),
+])
+def test_group_norm_backward_kernel_matches_twin(cuda, shape, film, dtype, film_dtype, act, eps):
+    before = group_norm.group_norm_bwd_cuda.launches
+    got, ref, again = k1_grads(cuda, shape, film, dtype, film_dtype, act, eps)
+    torch.cuda.synchronize()
+    assert group_norm.group_norm_bwd_cuda.launches == before + 2  # one call a backward
+    assert k1_grad_excess(got, ref) <= 1
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # deterministic
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grad", [(True, False, False, False), (False, True, True, False),
+                                  (False, False, False, True)])
+def test_group_norm_backward_kernel_computes_only_what_is_asked(cuda, grad):
+    got, ref, _ = k1_grads(cuda, (2, 256, 32, 32), True, torch.bfloat16, torch.bfloat16, "silu",
+                           1e-5, grad=grad)
+    torch.cuda.synchronize()
+    assert len(got) == sum(grad)
+    assert k1_grad_excess(got, ref, dx=grad[0]) <= 1
+
+
+@pytest.mark.gpu
+def test_group_norm_backward_on_cuda_never_recomputes(cuda, monkeypatch):
+    import bbdm_tpu_torch.ops as ops
+
+    def refuse(*a, **kw):
+        raise AssertionError("K1's backward reached recompute_grads")
+
+    monkeypatch.setattr(ops, "recompute_grads", refuse)
+    got, ref, _ = k1_grads(cuda, (2, 256, 16, 16), True, torch.bfloat16, torch.bfloat16, "silu",
+                           1e-5)
+    assert k1_grad_excess(got, ref) <= 1
+    assert not hasattr(group_norm, "recompute_grads")
 
 
 @pytest.mark.gpu

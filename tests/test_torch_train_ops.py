@@ -3,14 +3,17 @@ the JAX package's VJPs, the dispatch that sends grad-requiring inputs through
 them, K2's refusal of such inputs, and the two layers whose training form
 differs from their eval form (the up-conv and dropout).
 
-On the CPU no kernel runs: each test injects the plain twin as the Function's
-forward (``group_norm_cuda`` / ``flash_attention_cuda`` replaced), which is
-what the Function's backward recomputes anyway. The JAX side is the Pallas
-kernel in interpret mode (its ``custom_vjp`` backward recomputes through XLA)
-and ``jax.vjp`` of the XLA formulation itself. fp32 bars: both sides sum the
-same products in another order, so forward and gradients agree to a few fp32
-ulps of values of order 1 (rtol 1e-4, atol 2e-5; 1e-4 for summed parameter
-gradients over N x H x W terms).
+On the CPU no kernel runs: each test injects the plain versions in the
+kernels' places (``group_norm_cuda`` / ``flash_attention_cuda`` replaced by
+the twins, and K1's backward ``group_norm_bwd_cuda`` by
+``group_norm_backward_plain``; K3's backward recomputes the twin). The JAX side
+is the Pallas kernel in interpret mode (its ``custom_vjp`` backward recomputes
+through XLA) and ``jax.vjp`` of the XLA formulation itself. fp32 bars: both
+sides sum the same products in another order, so forward and gradients agree
+to a few fp32 ulps of values of order 1 (rtol 1e-4, atol 2e-5; 1e-4 for summed
+parameter gradients over N x H x W terms). K1's closed-form backward against
+``jax.vjp`` differentiates another formula (XLA's autodiff goes through
+E[x^2] - mean^2): 2e-4.
 """
 
 import jax
@@ -50,7 +53,10 @@ def twins_as_kernels(monkeypatch):
         monkeypatch.setattr(mod, "use_kernel", lambda x: True)
     monkeypatch.setattr(group_norm, "group_norm_cuda", counting(group_norm.group_norm_plain))
     monkeypatch.setattr(attention, "flash_attention_cuda", counting(attention.attention_plain))
-    return group_norm.group_norm_cuda, attention.flash_attention_cuda
+    monkeypatch.setattr(group_norm, "group_norm_bwd_cuda",
+                        counting(group_norm.group_norm_backward_plain))
+    return group_norm.group_norm_cuda, attention.flash_attention_cuda, \
+        group_norm.group_norm_bwd_cuda
 
 
 @pytest.mark.parametrize("film", [False, True])
@@ -81,6 +87,7 @@ def test_group_norm_function_backward_matches_jax_vjp(twins_as_kernels, film, ac
                                              32, 1e-5, act)
     assert twins_as_kernels[0].launches == 1
     grads = torch.autograd.grad(out, leaves, nchw(g))
+    assert twins_as_kernels[2].launches == 1
     for fn in (xla, pallas):
         ref, vjp = jax.vjp(fn, *(jnp.asarray(a) for a in args))
         np.testing.assert_allclose(nhwc(out), np.asarray(ref), rtol=RTOL, atol=ATOL)
@@ -90,6 +97,80 @@ def test_group_norm_function_backward_matches_jax_vjp(twins_as_kernels, film, ac
             got = got.permute(0, 2, 3, 1).numpy() if got.ndim == 4 else got.numpy()
             np.testing.assert_allclose(got, want, rtol=RTOL,
                                        atol=ATOL if name == "x" else SUM_ATOL, err_msg=name)
+
+
+BWD_TOL = 2e-4
+
+
+@pytest.mark.parametrize("C,hw,film,act,eps,dtype,film_dtype,pallas", [
+    (128, (8, 8), False, None, 1e-5, "float32", "float32", True),
+    (128, (8, 8), False, "silu", 1e-5, "float32", "float32", True),
+    (128, (8, 8), True, None, 1e-5, "float32", "float32", True),
+    (128, (8, 8), True, "silu", 1e-5, "float32", "float32", True),
+    (128, (8, 8), True, "silu", 1e-6, "float32", "float32", True),
+    # ragged: 3 channels a group at 7 x 5 (the Pallas kernel takes C % 128 == 0 only)
+    (96, (7, 5), True, "silu", 1e-5, "float32", "float32", False),
+    # bf16 activations with FiLM of their dtype and of fp32
+    (128, (8, 8), True, "silu", 1e-5, "bfloat16", "bfloat16", False),
+    (128, (8, 8), True, "silu", 1e-5, "bfloat16", "float32", False),
+])
+def test_group_norm_backward_plain_matches_jax_vjp(C, hw, film, act, eps, dtype, film_dtype,
+                                                   pallas):
+    """The closed form (``group_norm_backward_plain``, the kernel's arithmetic)
+    against ``jax.vjp`` of ``_group_norm_xla`` and of ``group_norm_pallas``:
+    2e-4 in fp32; in bf16 both sides compute in fp32 from the same inputs and
+    round the outputs, so dx and 16-bit FiLM gradients may differ by an ulp."""
+    from bbdm_tpu.ops.group_norm import _group_norm_xla
+    from bbdm_tpu.ops.group_norm_pallas import group_norm_pallas
+
+    rs = np.random.RandomState(3)
+    N = 2
+    jdt, fdt = jnp.dtype(dtype), jnp.dtype(film_dtype)
+    x = jnp.asarray(rs.randn(N, *hw, C) * 2 + 0.5, jdt)
+    scale = jnp.asarray(1 + 0.1 * rs.randn(C), jnp.float32)
+    bias = jnp.asarray(0.1 * rs.randn(C), jnp.float32)
+    fs, fb = (jnp.asarray(0.1 * rs.randn(N, C), fdt) for _ in range(2))
+    g = jnp.asarray(rs.randn(N, *hw, C), jdt)
+    args = [x, scale, bias] + ([fs, fb] if film else [])
+    fns = [lambda x, s, b, *f: _group_norm_xla(x, s, b, num_groups=32, eps=eps, act=act,
+                                               film_scale=f[0] if f else None,
+                                               film_shift=f[1] if f else None)]
+    if pallas:
+        fns.append(lambda x, s, b, *f: group_norm_pallas(x, s, b, f[0] if f else None,
+                                                         f[1] if f else None, 32, eps, act))
+    t = lambda a: torch.from_numpy(np.array(a.astype(jnp.float32))).to(getattr(torch,
+                                                                              str(a.dtype)))
+    tx, tg = (t(a).permute(0, 3, 1, 2).contiguous() for a in (x, g))
+    got = group_norm.group_norm_backward_plain(
+        tx, t(scale), t(bias), tg, num_groups=32, eps=eps, act=act,
+        film_scale=t(fs) if film else None, film_shift=t(fb) if film else None)
+    assert got[0].dtype == tx.dtype and got[1].dtype == got[2].dtype == torch.float32
+    assert (got[3] is None) == (not film) and (not film or got[3].dtype == t(fs).dtype)
+    for fn in fns:
+        _, vjp = jax.vjp(fn, *args)
+        for name, a, want in zip(("x", "scale", "bias", "film_scale", "film_shift"), got,
+                                 vjp(g)):
+            tol = BWD_TOL if want.dtype == jnp.float32 else 2 ** -7  # the gradient's dtype
+            want = np.asarray(want.astype(jnp.float32))
+            a = (a.permute(0, 2, 3, 1) if a.ndim == 4 else a).float().numpy()
+            np.testing.assert_allclose(a, want, rtol=tol, atol=tol * max(1.0, np.abs(want).max()),
+                                       err_msg=name)
+
+
+def test_group_norm_backward_plain_returns_only_what_is_asked():
+    rs = np.random.RandomState(4)
+    x, g = (torch.from_numpy(rs.randn(2, 64, 4, 4).astype(np.float32)) for _ in range(2))
+    w, b = torch.ones(64), torch.zeros(64)
+    fs, fb = (torch.from_numpy(0.1 * rs.randn(2, 64).astype(np.float32)) for _ in range(2))
+    full = group_norm.group_norm_backward_plain(x, w, b, g, act="silu", film_scale=fs,
+                                                film_shift=fb)
+    for needs in [(True, False, False, False, False), (False, True, False, True, False)]:
+        part = group_norm.group_norm_backward_plain(x, w, b, g, act="silu", film_scale=fs,
+                                                    film_shift=fb, needs=needs)
+        for need, a, f in zip(needs, part, full):
+            assert (a is None) != need
+            if need:
+                assert torch.equal(a, f)
 
 
 def test_flash_attention_function_backward_matches_jax_vjp(twins_as_kernels):

@@ -321,7 +321,8 @@ def test_an_optimizer_state_of_another_layout_is_refused(setup, tmp_path, fault)
 @pytest.fixture
 def kernels_forced(monkeypatch):
     """Every dispatcher takes its kernel branch on the CPU; the kernels are the
-    twins, K1's counted; K2 must not run in training."""
+    plain versions, K1's forward and backward counted; K2 must not run in
+    training."""
     def counting(fn):
         def wrapper(*a, **kw):
             wrapper.launches += 1
@@ -338,8 +339,8 @@ def kernels_forced(monkeypatch):
     monkeypatch.setattr(group_norm, "group_norm_cuda", counting(group_norm.group_norm_plain))
     monkeypatch.setattr(attention, "flash_attention_cuda", counting(attention.attention_plain))
     monkeypatch.setattr(upsample_conv, "upsample_conv_cuda", no_k2)
-    # the Functions' backward recomputes the twin by its module name
-    monkeypatch.setattr(group_norm, "group_norm_plain", counting(group_norm.group_norm_plain))
+    monkeypatch.setattr(group_norm, "group_norm_bwd_cuda",
+                        counting(group_norm.group_norm_backward_plain))
     return monkeypatch
 
 
@@ -357,7 +358,7 @@ def test_every_trainable_parameter_gets_a_finite_gradient_through_the_functions(
                              for p in trainable.values())
     assert all(p.grad is None for n, p in model.named_parameters() if n not in trainable)
     n_norms = sum(isinstance(m, GroupNorm32) for m in model.unet.modules())
-    assert group_norm.group_norm_plain.launches == n_norms  # one recompute per UNet norm
+    assert group_norm.group_norm_bwd_cuda.launches == n_norms  # one backward per UNet norm
     assert group_norm.group_norm_cuda.launches >= n_norms
 
 
