@@ -1,255 +1,178 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port (``bbdm_tpu_torch``) once on one NVIDIA card.
+"""Check the PyTorch port (``bbdm_tpu_torch``) once on one NVIDIA card.
 
     python3 chip_smoke.py        # from the root of a checkout; needs one CUDA card
 
-Phases, each of which must pass:
+The smoke checks; it does not measure speed, which the benchmark's cells do
+(``benchmark/run.py``). Phase 3's table of kernel times is the exception: it
+is the port's only per-kernel timing on the card. Each phase ends in a line
+``<phase>: ok (N s)``. Phases, each of which must pass:
 
 1. environment: the card's name and power limit (nvidia-smi), torch and CUDA
    versions, TF32 off;
-2. kernel build: nvcc of ``bbdm_tpu_torch/csrc/*.cu`` for sm_90a;
-3. each hand-written kernel (K1 GroupNorm, K2 subpixel up-conv, K3 flash
-   attention, all CUDA C++; K2 and K3 in bf16 and, from their ``*_f32.cu``
-   sources, in fp32) against its plain PyTorch twin on the card at the shapes
-   the LBBDM-f4 path (bf16) and VQGAN-f4 training (fp32) give it, at phase 9's
-   new shapes (f16's 4^2 and 8^2 UNet levels, f8's VQGAN attention at T=1024,
-   the transformer's eps-1e-6 norms), K3 with keys != queries (Tk 4096 and 1
-   for 1024 queries), at the SD v1 UNet's heads (D 40, 80, 160; untimed) and
-   at edge cases, one launch per call;
-   at the path shapes also CUDA-event times of the kernel (wrapper included),
-   its twin and one PyTorch library call computing the same function (or, for
-   K1, a subset of it), the kernel's own device time from torch.profiler, and
-   its bound: the larger of its bytes over 3.35 TB/s and its operations over
-   the peak rate for their type (H100 SXM data sheet). The fp32 K2 and K3
-   compute in 3xTF32: their bound takes three TF32 passes at 495 TFLOP/s, and
-   the bound of the same work as fp32 FMAs (67 TFLOP/s) is printed beside it;
-   at each of their path shapes the function with one TF32 pass
-   (``ops.tf32_round`` inputs) must miss the bar the kernel meets;
-4. the LBBDM-f4 slice at full width (VQGAN ch 128 x (1,2,4) at 256^2, UNet
-   mc 128 x (1,4,8) at 64^2, bf16, batch 8, seeded random weights), cut to
-   20 sampling steps and 2 draws per condition: the sampled latent through
-   the kernels against the same run forced through the plain twins (same
-   weights, same noise), then ``BBDMRunner.sample_to_eval`` over synthetic
-   batches into a temporary directory, with every kernel's launch count;
-5. the CLI, ``main_torch.main``, on synthetic ``custom_aligned`` PNG datasets
-   (8 test pairs, 256^2 for LBBDM-f4, 64^2 for pixel BBDM) with text copies
-   of ``configs/Template-{LBBDM-f4,BBDM}.yaml`` (cut to 20 steps) and model
-   checkpoints whose ``model`` and ``ema`` weights differ, at full width:
-   LBBDM-f4 euler ``--sample_to_eval`` (2 draws), LBBDM-f4 heun
-   ``--sample_to_eval``, BBDM grid mode and BBDM ``--sample_to_eval``, each
-   with its kernels' launch counts and output tree; the euler run against an
-   in-process ``BBDMRunner`` given the same EMA weights and seed; heun through
-   the kernels against heun through the twins (same noise); the card's idle
-   share over one CLI batch; the host's PNG decode time per 256^2 image;
-6. training, ``main_torch.main([... "--train"])``, at full width on a
-   synthetic 256^2 ``custom_aligned`` dataset (32 train, 8 val, 8 test pairs)
-   with phase 5's VQGAN checkpoint and a text copy of
-   ``Template-LBBDM-f4.yaml`` (batch 8, ``accumulate_grad_batches`` 4, Adam)
-   cut to ``--max_epoch 4`` (16 microbatches, 4 optimizer updates) with
-   ``normalize_latent`` (the latent statistics pass runs), an EMA from step 0
-   and one mid-training sample: seconds per microbatch and per optimizer
-   update, peak device memory, the kernels' launches, K1's backward calls
-   (one launch of its backward each, one per UNet GroupNorm a microbatch) and
-   their time, the card's idle share over two microbatches
-   and the checkpoint files; then the trained ``last_model.ckpt`` samples
-   through ``--sample_to_eval``, and one microbatch through the kernels is
-   held against the same microbatch through the twins (loss and flattened
-   gradient, bar: twice the twins' bf16-vs-fp32 gap), every trainable
-   gradient finite and present and the VQGAN without one;
-7. VQGAN training, ``main_torch.main([... "--train"])`` with a text copy of
-   ``Template-VQGAN-f4.yaml`` at full width (ch 128 x (1,2,4), 2 res blocks,
-   256^2, n_embed 8192, PatchGAN ndf 64 with 3 layers, batch 8, fp32) with
-   ``disc_start`` 0 (the adversarial terms and the adaptive d_weight live) and
-   no perceptual term, on a synthetic 256^2 ``custom_single`` dataset (16
-   train, 8 val, 8 test images, no flip) cut to 2 epochs (4 steps) with one sample
-   grid, one validation epoch and one save: seconds per step, peak memory,
-   the idle share over two steps, the kernels' launches (K1 and K3 with
-   gradients, K2 in the eval-mode validation and sample); one step through
-   the kernels against the twins with the kernels' codes (reconstruction,
-   generator loss, generator and discriminator gradients against the fixed
-   ``VQ_STEP_BARS``, which the twins run twice must pass and the twins with
-   TF32 must fail, each reading printed against its bar with the number of
-   codes the kernels pick differently; d_weight and the discriminator loss
-   printed), every parameter of both players with a finite gradient; K3's
-   device ms per step; then
-   ``--sample_to_eval`` from its ``last_model.ckpt`` and that file as an
-   LBBDM-f4 first stage for one encode and decode. A second run trains the same
-   model for 2 steps (one epoch, one sample, validation and save) with
-   ``perceptual_weight`` 1.0 and seeded random LPIPS-VGG weights the smoke writes
-   as a ``.pth`` state dict: seconds per step, device busy and idle share,
-   peak memory, the kernels' launches, the LPIPS term at the step's
-   [8,3,256,256] on the card against the same module on the CPU (1e-4
-   relative), every gradient of a step present and finite and none reaching
-   the LPIPS weights, which the checkpoint does not hold;
-8. evaluation, ``preprocess_and_evaluation_torch.py`` (in process, and once as
-   its own process) over phase 5's LBBDM-f4 euler ``sample_to_eval`` tree (2
-   draws) and its ground truth with smoke-made random InceptionV3 (He init) and
-   LPIPS alex and vgg weights: every ``-f`` mode (rename_samples,
-   copy_samples, LPIPS, max_min_LPIPS, diversity, FID, psnr_ssim) on the card
-   against ``--cpu`` (the same files; LPIPS within 1e-5 relative; FID
-   finite; diversity and PSNR/SSIM printed alike), the pool3 features within
-   1e-4 of their norm and per-pair LPIPS alex and vgg distances within 1e-5
-   relative; then InceptionV3 at batch 32 (299^2, and 256^2 resized) and
-   LPIPS alex and vgg at batch 32 at 256^2 (CUDA-event ms, images or pairs per
-   second), and the card's ``-f FID`` run, traced, split into its wall, the
-   host's PNG decode and Fréchet (scipy sqrtm) seconds and its device busy ms;
-9. the other latent paths through ``main_torch.main`` at full width from seeded
-   random weights, each on a synthetic 256^2 ``custom_aligned`` dataset (8
-   train pairs, flipped to 16 where the template flips, 8 val, 8 test):
-   ``Template-LBBDM-f8.yaml`` and ``Template-LBBDM-f16.yaml`` as they stand and
+2. build: nvcc of ``bbdm_tpu_torch/csrc/*.cu`` for sm_90a, g++ of the host
+   image library (``native/``);
+3. kernels: each hand-written kernel (K1 GroupNorm, K2 subpixel up-conv, K3
+   flash attention, all CUDA C++; K2 and K3 in bf16 and, from their
+   ``*_f32.cu`` sources, in fp32) against its plain PyTorch twin, one launch a
+   call, at the shapes the LBBDM-f4 path (bf16) and VQGAN-f4 training (fp32)
+   give it, at phase 9's (f16's 4^2 and 8^2 UNet levels, f8's VQGAN attention
+   at T=1024, the transformer's eps-1e-6 norms), K3 with keys != queries (Tk
+   4096 and 1 for 1024 queries), at the SD v1 UNet's heads (D 40, 80, 160) and
+   at edge cases. The fp32 K2 and K3 compute in 3xTF32: at each of their path
+   shapes the function with one TF32 pass (``ops.tf32_round`` inputs) must
+   miss the bar the kernel meets. At the path shapes it also times the kernel
+   (CUDA events, wrapper included), its twin and one PyTorch library call
+   computing the same function (K1: a subset of it), and reads the kernel's
+   own device time (torch.profiler), K3's SDPA backends and the bound: the
+   larger of the kernel's bytes over 3.35 TB/s and its operations over the
+   peak rate for their type (H100 SXM data sheet; the fp32 K2 and K3 at three
+   TF32 passes at 495 TFLOP/s, the same work as fp32 FMAs at 67 TFLOP/s
+   beside it). K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention, bf16
+   and fp32) also go through their autograd Functions: the output equal to
+   the kernel's, K1's gradients (its backward kernel) within
+   :func:`k1_grad_excess`'s bars of the twin's and equal to themselves on a
+   second call, K3's equal to the twin's bit for bit (its backward is that
+   recompute); the backward's time is printed;
+4. slice: LBBDM-f4 at full width (VQGAN ch 128 x (1,2,4) at 256^2, UNet mc
+   128 x (1,4,8) at 64^2, bf16, batch 8, seeded random weights), 20 sampling
+   steps, 2 draws: the encode and the sampled latent through the kernels
+   within twice the twins' bf16-vs-fp32 distance of the twins' (same weights
+   and noise) and not equal to them, a finite latent and image of the right
+   shape; then ``BBDMRunner.sample_to_eval`` over 2 synthetic batches: its
+   output tree, every kernel launched;
+5. CLI: ``main_torch.main`` on synthetic ``custom_aligned`` PNG datasets (8
+   test pairs, 256^2 for LBBDM-f4, 64^2 for pixel BBDM), text copies of
+   ``configs/Template-{LBBDM-f4,BBDM}.yaml`` cut to 20 steps, checkpoints
+   whose ``model`` and ``ema`` weights differ: LBBDM-f4 euler
+   ``--sample_to_eval`` (2 draws) and heun, BBDM grid mode and
+   ``--sample_to_eval``: each output tree, the checkpoint's epoch and step
+   read, the kernels each path needs launched; the euler run within 1 uint8
+   level of an in-process ``BBDMRunner`` with the same EMA weights and seed;
+   heun's latent through the kernels within twice the twins' bf16-vs-fp32
+   distance of the twins' (same noise) and not equal to it;
+6. training: ``main_torch.main --train`` of ``Template-LBBDM-f4.yaml`` at full
+   width (batch 8, ``accumulate_grad_batches`` 4) on a synthetic 256^2
+   dataset (32 train, 8 val, 8 test pairs) with phase 5's VQGAN, 4 epochs (16
+   microbatches), ``normalize_latent``, an EMA from step 0 and one
+   mid-training sample: the step count, the checkpoint files, the one
+   sample, every kernel launched, every UNet GroupNorm through
+   ``GroupNormFunction`` with one launch of K1's backward each; one
+   microbatch through the kernels within twice the twins' bf16-vs-fp32
+   distance of the twins' (loss and flattened gradient), every trainable
+   gradient present and finite, the VQGAN without one; ``--sample_to_eval``
+   from the trained ``last_model.ckpt``: its tree, its epoch and step;
+7. VQGAN training: ``main_torch.main --train`` of ``Template-VQGAN-f4.yaml``
+   at full width (fp32, batch 8, PatchGAN ndf 64 x 3) with ``disc_start`` 0
+   and no perceptual term on a synthetic 256^2 ``custom_single`` dataset (16
+   train, 8 val, 8 test images), 2 epochs (4 steps), one sample grid, one
+   validation and one save: the step count, the checkpoint files, the grid,
+   every kernel launched; one step through the kernels against the twins
+   with the kernels' codes: reconstruction, generator loss, generator and
+   discriminator gradients within the fixed ``VQ_STEP_BARS``, which the twins
+   run twice must pass and the twins with TF32 must fail; d_weight live;
+   every parameter of both players with a finite gradient; then
+   ``--sample_to_eval`` from its ``last_model.ckpt`` (the tree, K2 launched)
+   and that file as an LBBDM-f4 first stage (its weights, a finite encode and
+   decode). A second run trains 2 steps with ``perceptual_weight`` 1.0 and
+   seeded random LPIPS-VGG weights written as a ``.pth``: the steps, every
+   kernel launched, a checkpoint without the LPIPS weights, every gradient of
+   a step present and finite and none reaching LPIPS, the LPIPS term at
+   [8,3,256,256] on the card within 1e-4 relative of the CPU's;
+8. evaluation: ``preprocess_and_evaluation_torch.py`` (in process, and once
+   as its own process) over phase 5's euler tree with smoke-made random
+   InceptionV3 and LPIPS alex and vgg weights: every ``-f`` mode on the card
+   against ``--cpu``: the same files (rename_samples, copy_samples), LPIPS
+   and max_min_LPIPS within 1e-5 relative, diversity and PSNR/SSIM printed
+   alike, every value finite; the script's own process's LPIPS; the pool3
+   features within 1e-4 and the per-pair LPIPS distances within 1e-5
+   relative of the CPU's;
+9. latent paths: ``Template-LBBDM-f8.yaml``, ``Template-LBBDM-f16.yaml`` and
    ``Template-LBBDM-f4.yaml`` with the cross-attention UNet
-   (``use_spatial_transformer``, depth 1, ``condition_key: SpatialRescaler``,
-   ``context_dim`` 3, ``in_channels`` 6), each cut to 10 sampling steps and 1
-   draw: one ``--sample_to_eval`` batch of 8 and a one-epoch ``--train`` run
-   (2, 2 and 1 microbatches, one validation epoch, one save). Each run's
-   K1/K2/K3 launches must equal the counts derived from the code
-   (:func:`kernel_calls`: the modules walked on the meta device). Printed:
-   seconds per batch, per sampler step (with device busy and idle share) and
-   per microbatch and update, device busy and idle share over a batch and
-   over two microbatches, peak memory; the sampled latent and the encode
-   through the kernels against the twins (bar: twice the twins' bf16-vs-fp32
-   distance); every trainable parameter with a finite gradient;
-10. data parallelism (``bbdm_tpu_torch/parallel``), at full width on
-   synthetic datasets from seeded random weights: (a) ``Template-LBBDM-f4.yaml``
-   training (node batch 8, ``accumulate_grad_batches`` 4, 8 microbatches, 2
-   updates) as 1 rank on card 0, as 2 ranks sharing card 0 over gloo (batch 4
-   each, spawned processes joined through ``parallel.initialize``) and as 1
-   rank in fp32 through the twins: each rank's K1/K2/K3 launches equal the
-   counts :func:`kernel_calls` derives, the losses and lr of the 2 ranks those
-   of 1, and the 2 ranks' parameters, update and losses no farther from 1
-   rank's than twice the fp32 run's distance from it; seconds per update and
-   the gradient all-reduce's seconds per update; (b) ``--sample_to_eval`` of
-   8 test pairs (20 steps, 1 draw) the same three ways: the same files, the
-   copied inputs equal, the samples' mean uint8 distance from 1 rank's within
-   twice the fp32 run's, and the launch counts; (c) ``Template-VQGAN-f4.yaml``
-   training in fp32, 2 steps at node batch 8, 1 rank and 2 ranks with the
-   1-rank run's codes pinned: loss, d_loss, d_weight, the discriminator's
-   BatchNorm running statistics and the first step's gradients (averaged
-   over the ranks) within the bars of phase 7 (``VQ_STEP_BARS``), the
-   parameters within Adam's bar of ``tests/test_torch_train_step.py``; (d)
-   ``main_torch.main`` ``--train`` and ``--sample_to_eval`` on a cut LBBDM-f4
-   (one res block per level, accumulate 1, one epoch) as one node of one NCCL
-   rank (``BBDM_MULTIHOST``): the checkpoint files and keys of the same run
-   without a process group, the kernels launched; (e) that plain run's
-   ``training.profile_dir`` chrome trace of one microbatch: it names K1 and
-   K3, and its device total and top device kernels are printed;
-11. FSDP and tensor parallelism (``training.fsdp``, ``training.model_parallel``;
-   ``parallel/{mesh,sharding,tensor}.py``), 2 gloo ranks sharing card 0
-   against 1 rank and 1 rank in fp32 through the twins, from seeded random
-   weights: (a) ``Template-LBBDM-f4.yaml`` training with ``fsdp`` on a 2 x 1
-   grid (node batch 8, ``accumulate_grad_batches`` 2, 4 microbatches), then
-   the checkpoint written as ``train()`` writes it; (b) the same with
-   ``model_parallel: 2`` on a 1 x 2 grid (each rank all 8 rows, the
-   column-parallel convolutions gathering their channels); each rank's
-   K1/K2/K3 launches equal :func:`kernel_calls`' counts, losses and lr as 1
-   rank's, the losses and parameters no farther from 1 rank's than twice the
-   fp32 run's distance; seconds per update and the collectives' seconds in it,
-   each rank's train-state bytes (at most 0.55 of one rank's under ``fsdp``),
-   ``memory_allocated`` and peak; (c) ``Template-VQGAN-f4.yaml`` in fp32, 2
-   steps under ``fsdp`` and 1 step under ``model_parallel: 2`` at node batch 2,
-   each against 1 rank with its codes pinned, with phase 10 (c)'s bars; (d)
-   ``--sample_to_eval`` of 8 pairs from (a)'s checkpoint on the 1 x 2 grid
-   against 1 rank and the fp32 run, phase 10 (b)'s rule;
-12. the data layer (``data/``, ``utils/images.py``, the host library of
-   ``native/``, built with g++ after the kernels, its build seconds printed):
-   (a) every committed fixture of ``tests/data/torch_images/`` decoded against
-   its stored array (Pillow's RGB; OpenCV's LAB of ``cv2.imread``'s reading,
-   EXIF orientation and 16-bit gray included; the 256^2 JPEGs' digests), and
-   every WebP fixture of its ``webp/`` directory (Pillow's RGB, ``cv2.imread``'s
-   of the EXIF-rotated file, the 256^2 files' digests); host ms per 256^2
-   image: PNG by row filter (the inflate, the row filters undone in C++ and in
-   numpy/Python, the C++ calls of ``load_image``), JPEG 4:2:0, 4:4:4 and
-   progressive, and WebP (VP8 q75, q90 and with ALPH of a photo-like image,
-   VP8L of it and of it quantized to 64 colours); the host's CPU count;
-   (b) batches per second of the train loader (batch 8) over a synthetic
-   256^2 tree whose rows are all filtered Paeth (64 train images, flipped to
-   128: 16 batches an epoch), with one thread and the default threads, and
-   with ``cache_in_ram`` cold and warm, each over 3 readings of 4 epochs (180
-   timed batches, the threads already running; median, min, max), and the
-   cache's bytes per image; the same with one thread and the default threads
-   over a tree of VP8 q85 files (``webp/tree256/``: eight of the Paeth tree's
-   images re-encoded, copied to 64 train images); (c) ``main_torch.main
-   --train`` of ``Template-LBBDM-f4.yaml`` at full width on the Paeth tree as
-   ``custom_inpainting`` with ``cache_in_ram`` and flip, 2 epochs of 16
-   microbatches, one validation epoch and one save: seconds per microbatch and
-   the idle share of each epoch (device busy from torch.profiler's kernels in
-   the epoch's window), the image decodes per epoch (128, then 0), K1/K2/K3
-   launches equal to :func:`kernel_calls`' counts, every served train item's
-   box equal to the numpy rule for its epoch's seed; (d) ``--sample_to_eval``
-   of 8 pairs (20 steps, 1 draw) from that checkpoint over a
-   ``custom_colorization_LAB`` tree of the committed JPEG fixtures (an
-   EXIF-rotated one among them), and another over a ``custom_aligned`` tree of
-   8 pairs of the 256^2 VP8 q85 files: each output tree and the launches of
-   all three kernels; (e) ``training.device_data_cache``
-   (:func:`device_cache_abba`): the Paeth tree as ``custom_aligned`` (64 items
-   a stream, 8 microbatches an epoch) on (c)'s runner, the cached
-   batches equal to ``_put_batch`` of the host loader's bit for bit over an
-   epoch, the latent-statistics pass from the host loader and from the
-   resident copy (host, cache, cache, host; the statistics within 1e-5), then
-   one epoch of ``BaseRunner.train`` an arm in ABBA order (A the host loader,
-   B the cache): s per microbatch, idle share, peak memory, each cache
-   build's decode + upload seconds and bytes, the log lines, and each arm's
-   launches equal to :func:`kernel_calls`' counts;
+   (:func:`path_configs`) through ``main_torch.main`` at full width from
+   seeded random weights, ``PATH_STEP`` steps and 1 draw: a
+   ``--sample_to_eval`` batch of 8 and a one-epoch ``--train`` run, each
+   run's K1/K2/K3 launches (and K1's backward launches) equal to the counts
+   :func:`kernel_calls` derives from the modules walked on the meta device;
+   the tree, the step count, the checkpoint files; the encode and the
+   sampled latent through the kernels within twice the twins' bf16-vs-fp32
+   distance; every trainable gradient present and finite;
+10. data parallelism (``parallel/``): (a) LBBDM-f4 training (8 microbatches,
+   2 updates) as 1 rank, as 2 gloo ranks sharing card 0 and as 1 rank in
+   fp32 through the twins: each rank's launches as :func:`kernel_calls`
+   derives, the 2 ranks' lr and losses those of 1, the parameters, update
+   and losses no farther from 1 rank's than twice the fp32 run's distance;
+   (b) ``--sample_to_eval`` the same three ways: the same files, the copied
+   inputs equal, the samples' mean uint8 distance from 1 rank's within twice
+   the fp32 run's, the launches; (c) VQGAN-f4 training in fp32, 2 steps, 1
+   and 2 ranks with the 1-rank run's codes pinned: losses, d_weight,
+   BatchNorm statistics and first-step gradients within ``VQ_STEP_BARS``,
+   the parameters within Adam's bar; (d) ``main_torch.main`` ``--train`` and
+   ``--sample_to_eval`` on a cut LBBDM-f4 as one NCCL node of one rank
+   (``BBDM_MULTIHOST``): the backend, the checkpoint files and keys of the
+   same run without a process group, the kernels launched; (e) that plain
+   run's ``training.profile_dir``: one chrome trace, naming K1 and K3;
+11. FSDP and tensor parallelism (``training.fsdp``,
+   ``training.model_parallel``), 2 gloo ranks on card 0 against 1 rank and 1
+   rank in fp32 through the twins: (a) LBBDM-f4 training under ``fsdp`` on a
+   2 x 1 grid and (b) under ``model_parallel: 2`` on a 1 x 2 grid: each
+   rank's launches, lr and losses as 1 rank's, the losses and parameters
+   within twice the fp32 run's distance, each rank's train-state bytes (at
+   most 0.55 of one rank's under ``fsdp``), ``memory_allocated`` and peak;
+   (c) VQGAN-f4 in fp32 under each, against 1 rank with its codes pinned,
+   with phase 10 (c)'s bars; (d) ``--sample_to_eval`` from (a)'s checkpoint
+   on the 1 x 2 grid, phase 10 (b)'s rule;
+12. the data layer (``data/``, ``utils/images.py``, ``native/``): (a) every
+   committed fixture of ``tests/data/torch_images/`` and of its ``webp/``
+   decoded equal to its stored array or digest (Pillow's RGB, OpenCV's LAB
+   and ``cv2.imread``'s reading, EXIF orientation and 16-bit gray included);
+   (b) ``main_torch.main --train`` of LBBDM-f4 on a 256^2 tree of
+   Paeth-filtered PNGs as ``custom_inpainting`` with ``cache_in_ram`` and
+   flip, 2 epochs of 16 microbatches: the launches as :func:`kernel_calls`
+   derives, the step count, one validation, 128 image decodes in the first
+   epoch and none in the second, every served train item's box the numpy
+   rule's for its epoch's seed; (c) ``--sample_to_eval`` from that checkpoint
+   over a ``custom_colorization_LAB`` tree of the JPEG fixtures and over a
+   ``custom_aligned`` tree of VP8 q85 pairs: each tree and its launches; (d)
+   ``training.device_data_cache`` (:func:`device_cache_checks`) on (b)'s
+   runner: the cached batches equal to ``_put_batch`` of the host loader's
+   bit for bit over an epoch, the latent statistics from the resident copy
+   within 1e-5 of the host loader's, then one epoch of ``BaseRunner.train``
+   through the host loader and one through the cache: each epoch's steps and
+   launches, the caches built and logged (none, then train and val);
 13. the tools (``bbdm_tpu_torch/tools``): (a) ``bench_torch.py`` as its own
-   process at the full width of ``Template-LBBDM-f4.yaml`` (batch 8, 200 euler
-   steps, seeded weights): its JSON line, ``flops_per_sample`` equal to the
-   port's ``sampling_flops_per_image``, a finite output, and K1/K2/K3 launches
-   equal to :func:`kernel_calls`' counts over its 4 calls (1 warm-up, 3 timed);
-   (b) the same with ``BENCH_SAMPLER=heun BENCH_STEPS=20`` (39 UNet
-   evaluations a call); (c) ``tools.bench_train`` on the same template at batch
-   8 (11 train steps: the launches of 11 microbatches, a finite loss); (d)
-   none for ``tools.convert_checkpoint``, host code that launches no kernel
-   (the CPU tests hold it against the JAX script); (e) ``tools.vqgan_recon``
-   over phase 5's ``ground_truth`` tree with its VQGAN in bf16 and with
-   ``--fp32``: the launches of its batches, K2 and K3 all bf16 or all fp32 by
-   the entry each call took, PSNR/SSIM finite; (f) ``tools.sampler_sweep``
-   with ``euler:20,heun:10`` over phase 5's config and VQGAN and a seeded
-   bridge checkpoint: each report's ``nfe``, the launches of both variants,
-   and a second invocation that skips both and launches nothing; (g)
-   ``q_sample_loop`` over the 1000 steps at the f4 latent of batch 8 in bf16
-   against its fp32 self with the same noise, each element within 2^-7 of
-   |x0| + |y| + sigma_t |noise| (twice the bound of the bf16 rounding of the
-   inputs, 2^-8 relative), and its CUDA-event ms; (h) ``BERTEmbedder`` at LDM
-   txt2img-1.4B's width (n_embed 1280, 32 layers) on [8, 77] tokens that the
-   port's ``BERTTokenizer`` makes from a vocabulary the smoke writes, bf16
-   against fp32 within 3e-2 relative (Frobenius), and its ms.
-
-14. the demonstrations (``bbdm_tpu_torch/tools``) as users run them, on
-   ``tools.synthetic`` trees of 16 train, 8 val and 8 test pairs (restore at
-   256^2, stochastic at 64^2), each part's K1/K2/K3 launches equal to the
-   counts :func:`kernel_calls` derives and its wall time printed: (a)
-   ``tools.chain_demo`` at full width (``configs/runs/VQGAN-f4-syn256-v2.yaml``
-   in fp32 and ``LBBDM-f4-syn256-v2.yaml``), each training phase cut by a 2 s
-   wall budget, phase C over the 8 test images at 200 steps with the
-   roundtrip ceiling, phase D at 5 draws over 8 images (a warm-up batch, then
-   the timed one): the reports, PSNR/SSIM finite, the delivered samples/s; (b)
-   ``tools.pixel_demo`` on ``BBDM-synpix64.yaml``: one epoch, phase E (euler
-   200), phase S ``euler:20,heun:10``; (c) ``tools.stochastic_demo`` on
-   ``BBDM-synstoch64.yaml``: phase T for one epoch, then phase S, ``euler:20``
-   at 2 draws with the mode scores; (a) and (c) train with the device cache
-   their configs ask for (``training.device_data_cache``): each part's caches
-   built (train and val of each training run, the LBBDM's latent statistics
-   sharing the train set's) and logged, with their seconds and bytes; (d)
-   ``tools.read_tboard`` over (a)'s event files: its rows equal to every
-   scalar the runners logged; (e) ``tools.run_parity`` on (a)'s bridge
-   written as a reference ``.pth`` and (a)'s VQGAN, with random LPIPS alex
-   weights from ``tools.random_lpips``: its samples (converted from the
-   ``.pth``) within 1 uint8 level of (a)'s phase C (the same weights, seed and
-   images), LPIPS finite. Phase 9's depth is cut to pay for it
-   (``PATH_PAIRS``, ``PATH_STEP``).
-
-Phase 3 also holds K1 (UNet shape, FiLM + SiLU) and K3 (the VQGAN attention,
-bf16 and fp32) through their autograd Functions: the output equal to the
-kernel's; K1's gradients (its backward kernel) within ``k1_grad_excess``'s
-bars of the twin's autograd gradients (the card tests use them too) and equal
-to themselves on a second call, K3's equal to the twin's bit for bit (its
-backward is that recompute); with the backward's time.
+   process at the full width of ``Template-LBBDM-f4.yaml`` (batch 8, 200
+   euler steps) and (b) with heun at 20 steps: ``flops_per_sample`` the
+   port's ``sampling_flops_per_image``, a finite output, the launches of its
+   4 calls; (c) ``tools.bench_train`` (11 train steps: the launches, a finite
+   loss, ``flops_per_image``); (d) none for ``tools.convert_checkpoint``,
+   host code that launches no kernel; (e) ``tools.vqgan_recon`` over phase
+   5's ground truth in bf16 and ``--fp32``: the launches, K2 and K3 all in
+   the dtype asked for, PSNR/SSIM finite; (f) ``tools.sampler_sweep`` with
+   two variants: each report's ``nfe``, the launches, a second invocation
+   that skips both and launches nothing; (g) ``q_sample_loop`` over 1000 steps
+   at the f4 latent of batch 8 in bf16 within 2^-7 of |x0| + |y| + sigma_t
+   |noise| of its fp32 self (twice the bound of the inputs' bf16 rounding);
+   (h) ``BERTEmbedder`` at LDM txt2img-1.4B's width (1280 x 32) on [8, 77]
+   tokens from the port's ``BERTTokenizer``, bf16 within 3e-2 relative
+   (Frobenius) of fp32;
+14. the demonstrations (``tools``) as users run them, on ``tools.synthetic``
+   trees of 16 train, 8 val and 8 test pairs: (a) ``tools.chain_demo`` at
+   full width (2 s training budgets, phase C at 200 steps, phase D at 5
+   draws), (b) ``tools.pixel_demo`` (one epoch, phase E, phase S
+   ``euler:20,heun:10``), (c) ``tools.stochastic_demo`` (one epoch, then
+   ``euler:20`` at 2 draws): each part's launches equal to the counts
+   :func:`kernel_calls` derives, its reports, the device caches its configs
+   ask for built and logged; (d) ``tools.read_tboard``'s rows equal to every
+   scalar the runners logged; (e) ``tools.run_parity`` on (a)'s bridge written
+   as a reference ``.pth``: its samples within 1 uint8 level of (a)'s phase C,
+   LPIPS present.
 
 Prints the kernels' JSON line (each kernel's errors and sums over its timed
 shapes for the 16-bit cases at the top of its entry, for the fp32 cases in
-its ``fp32`` block), then as its last line
-``{"ok": true, "device": {...}}``; exits non-zero, without that line, when a
-phase fails, when there is no CUDA card, or when run outside a checkout.
+its ``fp32`` block), then as its last line ``{"ok": true, "device": {...}}``;
+exits non-zero, without that line, when a phase fails, when there is no CUDA
+card, or when run outside a checkout.
 """
 
 from __future__ import annotations
@@ -796,12 +719,9 @@ def slice_phase(dev, counters):
     log("reduced: " + json.dumps({"sample_step": {"template": 200, "run": SAMPLE_STEP},
                                   "sample_num": {"template": 5, "run": SAMPLE_NUM},
                                   "weights": "random, seed 0", "batches": BATCHES}))
-    t0 = time.time()
     runner = BBDMRunner(cfg, device=dev, seed=0)
     model = runner.model
-    torch.cuda.synchronize()
-    log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params, "
-        f"built in {time.time() - t0:.1f} s")
+    log(f"  model: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}M params")
 
     size = cfg.data.dataset_config.image_size
     rs = np.random.RandomState(0)
@@ -825,26 +745,15 @@ def slice_phase(dev, counters):
     g = torch.Generator(dev).manual_seed(1)
     noise = [torch.randn(y.shape, generator=g, device=dev) for _ in model.coeffs.steps]
     z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
-    torch.cuda.synchronize()
-    step_s = (time.time() - t0) / len(noise)
     with plain_ops():
         y_plain = model.encode(x_cond)
         z_plain = model.p_sample_loop(y, noise=noise, clip_denoised=False)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        z_plain = model.p_sample_loop(y, noise=noise, clip_denoised=False)
-        torch.cuda.synchronize()
-        plain_step_s = (time.time() - t0) / len(noise)
         ref32 = build_model(cfg.model, device=dev, dtype=torch.float32)
         ref32.load_state_dict(model.state_dict())
         y_32 = ref32.encode(x_cond)
         z_32 = ref32.p_sample_loop(y, noise=noise, clip_denoised=False)
         del ref32
     img = model.decode(z_kernel)
-    torch.cuda.synchronize()
     d = lambda a, b: float((a.float() - b.float()).abs().max())
     dist = {"encode_kernel_vs_plain": d(y, y_plain), "encode_bf16_vs_fp32": d(y_plain, y_32),
             "latent_kernel_vs_plain": d(z_kernel, z_plain),
@@ -862,29 +771,20 @@ def slice_phase(dev, counters):
             raise AssertionError(f"{what}: kernel path farther from the twins than 2x bf16 error")
         if dev.type == "cuda" and not dist[f"{what}_kernel_vs_plain"] > 0:
             raise AssertionError(f"{what}: kernel path equals the twins: no twin ran")
-    log(f"  seconds per sampler step (batch {BATCH}): kernels {step_s:.4f}, "
-        f"plain twins {plain_step_s:.4f}")
 
     # the main path, counted: sample_to_eval through the runner
     for mod, attr in counters.values():
         getattr(mod, attr).launches = 0
-    torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory(prefix="bbdm_smoke_") as out_dir:
-        t0 = time.time()
         runner.sample_to_eval(batches, out_dir)
-        torch.cuda.synchronize()
-        total = time.time() - t0
         launches = {name: getattr(mod, attr).launches for name, (mod, attr) in counters.items()}
-        log(f"  sample_to_eval: {total:.2f} s for {BATCHES} batches of {BATCH} "
-            f"({total / BATCHES:.2f} s per batch), peak device memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, launches {launches}")
+        log(f"  sample_to_eval: {BATCHES} batches of {BATCH}, launches {launches}")
         check_tree(out_dir, [n for b in batches for n in b["x_name"]],
                    [n for b in batches for n in b["x_cond_name"]], SAMPLE_STEP, SAMPLE_NUM, size)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} was not launched by the main path")
-    return launches, {"sampler_step_s": step_s, "plain_sampler_step_s": plain_step_s,
-                      "sample_to_eval_batch_s": total / BATCHES, **dist}
+    return launches, dist
 
 
 def check_tree(out_dir, names, conds, step, sample_num, size):
@@ -916,25 +816,6 @@ def check_png(path, height, width):
 
 
 # ---------------------------------------------------------------------- CLI
-
-@contextlib.contextmanager
-def timed(cls, attr, store):
-    """Record the wall seconds of each ``cls.attr`` call in ``store`` (synchronised)."""
-    fn = getattr(cls, attr)
-
-    def wrapper(*a, **kw):
-        t0 = time.perf_counter()
-        out = fn(*a, **kw)
-        torch.cuda.synchronize()
-        store.append(time.perf_counter() - t0)
-        return out
-
-    setattr(cls, attr, wrapper)
-    try:
-        yield store
-    finally:
-        setattr(cls, attr, fn)
-
 
 def write_dataset(root, size, pairs, seed, train=2, val=2):
     """A ``custom_aligned`` PNG dataset: ``<stage>/A`` conditions, ``<stage>/B``
@@ -1049,41 +930,6 @@ def write_filtered_png(path, arr, filters):
                 + chunk(b"IEND", b""))
 
 
-def png_decode_ms(size=256, reps=3):
-    """Host ms per size^2 RGB PNG whose rows all use one filter, per filter: the
-    inflate (zlib), the row filters undone by the host library's C++ and by the
-    numpy/Python plain version, and the host library's two calls of
-    ``load_image`` after the inflate (unfilter; then resize to the same size,
-    flip, to [-1, 1] float32)."""
-    import zlib
-
-    from bbdm_tpu_torch.native import fastimage
-    from bbdm_tpu_torch.utils import images
-
-    arr = textured_u8(size, 0)
-    out = {"inflate": {}, "cpp": {}, "python": {}, "cpp_load_image_pass": {}}
-
-    def ms(fn, n):
-        fn()
-        t0 = time.perf_counter()
-        for _ in range(n):
-            fn()
-        return (time.perf_counter() - t0) / n * 1e3
-
-    for f, name in enumerate(("none", "sub", "up", "average", "paeth")):
-        packed = zlib.compress(filtered_rows(arr, (f,)), 6)
-        rows = zlib.decompress(packed)
-        out["inflate"][name] = ms(lambda: zlib.decompress(packed), 10 * reps)
-        out["cpp"][name] = ms(lambda: fastimage.unfilter(rows, size, 3 * size, 3), 10 * reps)
-        out["python"][name] = ms(lambda: images._unfilter(rows, size, size, 3), reps)
-        out["cpp_load_image_pass"][name] = ms(
-            lambda: fastimage.preprocess_image(
-                fastimage.unfilter(rows, size, 3 * size, 3).reshape(size, size, 3),
-                (size, size), True, True),
-            10 * reps)
-    return out
-
-
 def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST_PAIRS,
               configs=None):
     """Drive ``main_torch.main`` over synthetic datasets (see the module
@@ -1095,17 +941,13 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
     from bbdm_tpu_torch.checkpoints.from_jax import state_dict_from_jax
     from bbdm_tpu_torch.config import load_config, save_config
     from bbdm_tpu_torch.data import DataLoader, get_dataset
-    from bbdm_tpu_torch.profile_slice import measure
     from bbdm_tpu_torch.runners.bbdm import BBDMRunner
 
     here = os.path.dirname(os.path.abspath(__file__))
     if configs is None:
         configs = {name: load_config(os.path.join(here, "configs", f"Template-{name}.yaml"))
                    for name in ("LBBDM-f4", "BBDM")}
-    out = {"png_decode_ms_256": png_decode_ms()}
-    log("  PNG decode, host ms per 256^2 RGB image by row filter (inflate; unfilter in C++ "
-        "and in numpy/Python): " + json.dumps(out["png_decode_ms_256"]))
-    paths, emas = {}, {}
+    out, paths, emas = {}, {}, {}
     for name, cfg in configs.items():
         size = cfg.data.dataset_config.image_size
         data = os.path.join(root, f"data-{name}")
@@ -1115,9 +957,7 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
         vq = None
         if cfg.model.model_type == "LBBDM":
             vq = cfg.model.VQGAN.params.ckpt_path = os.path.join(root, f"{name}-vqgan.ckpt")
-        t0 = time.time()
         emas[name] = write_checkpoints(cfg, dev, os.path.join(root, f"{name}.ckpt"), vq)
-        log(f"  {name}: dataset and checkpoints written in {time.time() - t0:.1f} s")
         for sampler, num in (("euler", 2), ("heun", 1), ("euler", 1)):
             cfg.model.BB.params.sampler = sampler
             cfg.testing.sample_num = num
@@ -1139,11 +979,7 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
                 "--gpu_ids", gpu_ids] + (["--sample_to_eval"] if to_eval else [])
         for mod, attr in counters.values():
             getattr(mod, attr).launches = 0
-        sweeps = []
-        t0 = time.time()
-        with timed(BBDMRunner, "sample_to_eval", sweeps):
-            runner = main_torch.main(argv)
-        total = time.time() - t0
+        runner = main_torch.main(argv)
         launches[label] = {short[k]: getattr(mod, attr).launches
                            for k, (mod, attr) in counters.items()}
         cfg = runner.config
@@ -1158,16 +994,10 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
                 raise AssertionError(f"grid mode wrote {sorted(os.listdir(tree))}")
             cols = min(4, cfg.data.test.batch_size)  # the grid holds the first 4 images
             check_png(os.path.join(tree, "skip_sample.png"), size + 4, cols * (size + 2) + 2)
-        batches = pairs // cfg.data.test.batch_size
-        entry = {"launches": launches[label], "wall_s": total}
+        entry = {"launches": launches[label]}
         if to_eval:
             entry["tree"] = tree
-        if sweeps:
-            entry["sample_to_eval_batch_s"] = sweeps[0] / batches
-        log(f"  {label}: {total:.1f} s in main_torch.main"
-            + (f", {entry['sample_to_eval_batch_s']:.3f} s per sample_to_eval batch of "
-               f"{cfg.data.test.batch_size} ({num} draw(s), {step} steps)" if sweeps else "")
-            + f", launches {launches[label]}")
+        log(f"  {label}: launches {launches[label]}")
         missing = [k for k in needed if launches[label][k] <= 0]
         if missing:
             raise AssertionError(f"{label}: kernels {missing} were not launched")
@@ -1194,32 +1024,18 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
         f"{len(cli_png)} PNGs, max difference {worst} uint8 level(s)")
     if worst > 1:
         raise AssertionError("CLI output differs from the in-process runner by > 1 level")
-    del ref
-
-    # the card's idle share over one CLI batch (PNG writes included)
-    batch = next(iter(loader))
-    wall, busy, _ = measure(lambda: euler.sample_to_eval([batch], os.path.join(root, "idle")),
-                            1, 1)
-    out["f4_euler_batch_wall_ms"], out["f4_euler_batch_device_busy_ms"] = wall, busy
-    out["f4_euler_batch_idle_share"] = 1 - busy / wall
-    log(f"  f4 euler sample_to_eval batch: wall {wall:.1f} ms, device busy {busy:.1f} ms, "
-        f"idle share {1 - busy / wall:.0%}")
-    del euler, runners["f4_euler_sample_to_eval"]
+    del ref, euler, runners["f4_euler_sample_to_eval"]
 
     # heun through the kernels against heun through the twins, same noise
     heun = runners["f4_heun_sample_to_eval"]
     model = heun.model
+    batch = next(iter(loader))
     x_cond = torch.from_numpy(batch["x_cond"]).permute(0, 3, 1, 2).to(heun.device)
     y = model.encode(x_cond)
     g = torch.Generator(heun.device).manual_seed(2)
     noise = [torch.randn(y.shape, generator=g, device=heun.device)
              for _ in range(model.noised_steps())]
     z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
-    torch.cuda.synchronize()
-    t0 = time.time()
-    z_kernel = model.p_sample_loop(y, noise=noise, clip_denoised=False)
-    torch.cuda.synchronize()
-    out["heun_step_s"] = (time.time() - t0) / (len(model.coeffs.steps) - 1)
     with plain_ops():
         z_plain = model.p_sample_loop(y, noise=noise, clip_denoised=False)
         ref32 = build_fp32_copy(heun.config.model, model, heun.device)
@@ -1229,8 +1045,7 @@ def cli_phase(dev, counters, root, gpu_ids="0", step=SAMPLE_STEP, pairs=CLI_TEST
     out["heun_latent_kernel_vs_plain"] = d(z_kernel, z_plain)
     out["heun_latent_bf16_vs_fp32"] = d(z_plain, z_32)
     log(f"  heun (f4, {len(model.coeffs.steps)}-entry grid, two UNet evals per step): "
-        f"{out['heun_step_s']:.4f} s per step; latent kernel vs plain "
-        f"{out['heun_latent_kernel_vs_plain']:.4f}, plain bf16 vs fp32 "
+        f"latent kernel vs plain {out['heun_latent_kernel_vs_plain']:.4f}, plain bf16 vs fp32 "
         f"{out['heun_latent_bf16_vs_fp32']:.4f}")
     if not torch.isfinite(z_kernel).all():
         raise AssertionError("heun: non-finite latent")
@@ -1266,20 +1081,13 @@ def patched(obj, attr, make):
         setattr(obj, attr, fn)
 
 
-def backward_timer(events):
-    """Wrap GroupNormFunction.backward: CUDA events around each call and its
-    host seconds, appended to ``events`` as (start, end, host s); the events
-    are read after a synchronise (the host does not wait here)."""
+def counted_backward(calls):
+    """Wrap GroupNormFunction.backward: one entry in ``calls`` per call."""
     def make(backward):
-        def timed_backward(ctx, grad_out):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            t0 = time.perf_counter()
-            start.record()
-            out = backward(ctx, grad_out)
-            end.record()
-            events.append((start, end, time.perf_counter() - t0))
-            return out
-        return staticmethod(timed_backward)
+        def counted(ctx, grad_out):
+            calls.append(1)
+            return backward(ctx, grad_out)
+        return staticmethod(counted)
     return make
 
 
@@ -1297,15 +1105,10 @@ def microbatch_grads(model, runner, batch, t, noise):
 def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=None):
     """Drive ``main_torch.main --train`` (see the module docstring, phase 6);
     ``config`` and ``size`` let a CPU rehearsal pass a tiny model."""
-    import statistics as st
-
     import main_torch
     from bbdm_tpu_torch.config import load_config, save_config
     from bbdm_tpu_torch.models.layers import GroupNorm32
     from bbdm_tpu_torch.ops import group_norm
-    from bbdm_tpu_torch.profile_slice import measure
-    from bbdm_tpu_torch.runners import base
-    from bbdm_tpu_torch.training.step import make_train_step
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = config or load_config(os.path.join(here, "configs", "Template-LBBDM-f4.yaml"))
@@ -1334,75 +1137,32 @@ def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=
         "sample_interval": TRAIN_SAMPLE_INTERVAL, "save_interval": TRAIN_EPOCHS,
         "weights": "random UNet (seed), phase 5's VQGAN"}))
 
-    # the training run, counted and timed: each train step's host start time (no
-    # added synchronise) and the spans of the steps' neighbours
+    # the training run, counted: the kernels' launches, K1's backward calls and launches
     for mod, attr in counters.values():
         getattr(mod, attr).launches = 0
     group_norm.group_norm_bwd_cuda.launches = 0
-    starts, spans, events = [], [], []
-
-    def timing_step(make):
-        def wrapped(*a, **kw):
-            step = make(*a, **kw)
-
-            def timed_step(*sa, **skw):
-                starts.append(time.perf_counter())
-                return step(*sa, **skw)
-            return timed_step
-        return wrapped
-
-    def span(fn):
-        def wrapped(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            spans.append((t0, time.perf_counter()))
-            return out
-        return wrapped
-
+    backwards = []
     result = os.path.join(root, "results-train")
     argv = ["-c", path, "--train", "--max_epoch", str(TRAIN_EPOCHS), "-r", result,
             "-s", str(CLI_SEED), "--gpu_ids", gpu_ids]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(patched(base, "make_train_step", timing_step))
-        for attr in ("sample_step", "validation_step", "validation_epoch", "_save_checkpoints"):
-            stack.enter_context(patched(base.BaseRunner, attr, span))
-        stack.enter_context(patched(group_norm.GroupNormFunction, "backward",
-                                    backward_timer(events)))
+    with patched(group_norm.GroupNormFunction, "backward", counted_backward(backwards)):
         runner = main_torch.main(argv)
-        torch.cuda.synchronize()
-    wall = time.time() - t0
     short = SHORT
     launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
-    out = {"wall_s": wall, "launches": launches,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    out = {"launches": launches}
     model = runner.model
     n_norms = sum(isinstance(m, GroupNorm32) for m in model.unet.modules())
-    out["k1_backwards"] = len(events)
+    out["k1_backwards"] = len(backwards)
     out["k1_backward_launches"] = group_norm.group_norm_bwd_cuda.launches
-    # the span on the card from each backward's first launch to its last (the
-    # card may wait for the host inside it) and the host's time in them
-    out["k1_backward_ms_per_microbatch"] = sum(s.elapsed_time(e) for s, e, _ in events) / micro
-    out["k1_backward_host_ms_per_microbatch"] = sum(h for _, _, h in events) * 1e3 / micro
-    clean = [b - a for a, b in zip(starts, starts[1:])
-             if not any(a <= s0 < b for s0, _ in spans)]
-    out["s_per_microbatch_run"] = st.median(clean[2:]) if len(clean) > 2 else None
     ckpt = runner.config.result.ckpt_path
     out["checkpoints"] = {f: os.path.getsize(os.path.join(ckpt, f))
                           for f in sorted(os.listdir(ckpt))}
-    log(f"  train: {wall:.1f} s in main_torch.main ({micro} microbatches), steps "
-        f"{runner.global_step}, epoch {runner.global_epoch}, stop {runner.stop_reason}; "
-        f"peak device memory {out['peak_memory_gib']:.2f} GiB; launches {launches}; "
-        f"K1 backwards {len(events)} ({n_norms} UNet GroupNorms x {micro}; backward "
-        f"launches {out['k1_backward_launches']}), "
-        f"{out['k1_backward_ms_per_microbatch']:.3f} ms on the card (CUDA-event spans) and "
-        f"{out['k1_backward_host_ms_per_microbatch']:.3f} ms of host time per microbatch; "
-        f"median s per "
-        f"microbatch in the run (after the first two, sample/validation/save steps out) "
-        f"{out['s_per_microbatch_run']}; checkpoints {out['checkpoints']}")
-    if runner.global_step != micro or len(events) != n_norms * micro \
-            or out["k1_backward_launches"] != len(events):
+    log(f"  train: {micro} microbatches, steps {runner.global_step}, epoch "
+        f"{runner.global_epoch}, stop {runner.stop_reason}; launches {launches}; K1 backwards "
+        f"{len(backwards)} ({n_norms} UNet GroupNorms x {micro}; backward launches "
+        f"{out['k1_backward_launches']}); checkpoints {out['checkpoints']}")
+    if runner.global_step != micro or len(backwards) != n_norms * micro \
+            or out["k1_backward_launches"] != len(backwards):
         raise AssertionError("train: wrong step count, or not every UNet GroupNorm went "
                              "through GroupNormFunction and one launch of K1's backward")
     expected = {"config.yaml", "last_model.ckpt", "last_optim_sche.ckpt",
@@ -1416,41 +1176,10 @@ def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=
     if missing:
         raise AssertionError(f"train: kernels {missing} were not launched")
 
-    # seconds per microbatch and per optimizer update in a loop like the runner's
-    # (the previous loss read after queueing each step), two update cycles
-    acc = int(cfg.training.accumulate_grad_batches)
-    step = make_train_step(model, cfg.training, cfg.model.EMA, runner.lr_scheduler_config)
-    batch = next(iter(runner._build_loaders()[0]))
-    x, y = runner._put_batch(batch)
-    model.train()
-
-    def microbatches(n):
-        prev = None
-        for _ in range(n):
-            metrics = step(runner.state, x, y, runner.train_generator)
-            if prev is not None:
-                float(prev["loss"])
-            prev = metrics
-        float(prev["loss"])
-
-    while runner.state.step % acc:
-        microbatches(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    microbatches(2 * acc)
-    torch.cuda.synchronize()
-    loop = time.perf_counter() - t0
-    out["s_per_microbatch"], out["s_per_update"] = loop / (2 * acc), loop / 2
-    wall_ms, busy_ms, _ = measure(lambda: microbatches(2), 1, 2)
-    out["microbatch_wall_ms"], out["microbatch_device_busy_ms"] = wall_ms, busy_ms
-    out["idle_share"] = 1 - busy_ms / wall_ms
-    log(f"  train loop: {out['s_per_microbatch']:.4f} s per microbatch, "
-        f"{out['s_per_update']:.4f} s per optimizer update ({acc} microbatches); over two "
-        f"microbatches wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms per microbatch, "
-        f"idle share {out['idle_share']:.0%}")
-
     # one microbatch through the kernels against the twins (bf16, fp32), same
     # weights, batch, t and noise
+    batch = next(iter(runner._build_loaders()[0]))
+    x, _ = runner._put_batch(batch)
     g = torch.Generator(runner.device).manual_seed(6)
     zshape = model.encode(x).shape
     tt = torch.randint(0, model.num_timesteps, (x.shape[0],), generator=g, device=x.device)
@@ -1505,47 +1234,6 @@ def train_phase(dev, counters, root, vqgan_path, gpu_ids="0", config=None, size=
 
 
 # -------------------------------------------------------------- VQGAN train
-
-def gan_loop_timing(runner, x, label):
-    """Seconds per step in a loop like the runner's (the previous loss read after
-    queueing each step) over 4 steps after one, then over two steps the wall,
-    device busy, idle share and top device kernels per step, and K3's device ms."""
-    from bbdm_tpu_torch.profile_slice import measure
-
-    step = runner.build_train_step()
-    runner.model.train()
-
-    def run_steps(n):
-        prev = None
-        for _ in range(n):
-            metrics = step(runner.state, x, x, runner.train_generator)
-            if prev is not None:
-                float(prev["loss"])
-            prev = metrics
-        float(prev["loss"])
-
-    run_steps(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_steps(4)
-    torch.cuda.synchronize()
-    out = {"s_per_step": (time.perf_counter() - t0) / 4}
-    wall_ms, busy_ms, dev_ms = measure(lambda: run_steps(2), 1, 2)
-    out["step_wall_ms"], out["step_device_busy_ms"] = wall_ms, busy_ms
-    out["idle_share"] = 1 - busy_ms / wall_ms
-    out["step_device_ms_top"] = dict(sorted(dev_ms.items(), key=lambda kv: -kv[1])[:8])
-    out["k3_device_ms_per_step"] = sum(v for k, v in dev_ms.items()
-                                       if "flash_attention_f32_kernel" in k)
-    log(f"  {label} train loop: {out['s_per_step']:.4f} s per step (batch "
-        f"{x.shape[0]}, both players); over two steps wall {wall_ms:.1f} ms, device busy "
-        f"{busy_ms:.1f} ms per step, idle share {out['idle_share']:.0%}; top device ms "
-        + json.dumps({k[:60]: round(v, 3) for k, v in out["step_device_ms_top"].items()}))
-    log(f"  {label} step summary: {out['s_per_step']:.4f} s per step, device busy "
-        f"{busy_ms:.1f} ms, idle share {out['idle_share']:.1%}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB, K3 fp32 (3xTF32, pre-pass "
-        f"included) {out['k3_device_ms_per_step']:.3f} device ms per step")
-    return out
-
 
 VQ_COUNTS, VQ_EPOCHS, VQ_SAMPLE_INTERVAL = (16, 8, 8), 2, 1.5
 # phase 7's bars on the kernels-vs-twins distance of one VQGAN step, each near
@@ -1617,13 +1305,9 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
     """Drive ``main_torch.main --train`` with ``runner: VQGANRunner`` (see the
     module docstring, phase 7); ``config`` and ``lbbdm_config`` let a CPU
     rehearsal pass tiny models."""
-    import statistics as st
-
     import main_torch
     from bbdm_tpu_torch.config import load_config, save_config
-    from bbdm_tpu_torch.runners import base
     from bbdm_tpu_torch.runners.bbdm import BBDMRunner
-    from bbdm_tpu_torch.runners.vqgan import VQGANRunner
 
     here = os.path.dirname(os.path.abspath(__file__))
     cfg = config or load_config(os.path.join(here, "configs", "Template-VQGAN-f4.yaml"))
@@ -1650,54 +1334,21 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
 
     for mod, attr in counters.values():
         getattr(mod, attr).launches = 0
-    starts, spans = [], []
-
-    def timing_build(build):
-        def wrapped(self):
-            step = build(self)
-
-            def timed_step(*a, **kw):
-                starts.append(time.perf_counter())
-                return step(*a, **kw)
-            return timed_step
-        return wrapped
-
-    def span(fn):
-        def wrapped(*a, **kw):
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            spans.append((t0, time.perf_counter()))
-            return out
-        return wrapped
-
-    argv = ["-c", path, "--train", "--max_epoch", str(VQ_EPOCHS), "-r",
-            os.path.join(root, "results-vqgan"), "-s", str(CLI_SEED), "--gpu_ids", gpu_ids]
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
-    with contextlib.ExitStack() as stack:
-        stack.enter_context(patched(VQGANRunner, "build_train_step", timing_build))
-        for attr in ("sample_step", "validation_step", "validation_epoch", "_save_checkpoints"):
-            stack.enter_context(patched(base.BaseRunner, attr, span))
-        runner = main_torch.main(argv)
-        torch.cuda.synchronize()
-    wall = time.time() - t0
+    runner = main_torch.main(["-c", path, "--train", "--max_epoch", str(VQ_EPOCHS), "-r",
+                              os.path.join(root, "results-vqgan"), "-s", str(CLI_SEED),
+                              "--gpu_ids", gpu_ids])
     short = SHORT
     launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
     ckpt = runner.config.result.ckpt_path
-    clean = [b - a for a, b in zip(starts, starts[1:])
-             if not any(a <= s0 < b for s0, _ in spans)]
-    out = {"wall_s": wall, "launches": launches, "steps": runner.global_step,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-           "s_per_step_run": st.median(clean) if clean else None,
+    out = {"launches": launches, "steps": runner.global_step,
            "checkpoints": {f: os.path.getsize(os.path.join(ckpt, f))
                            for f in sorted(os.listdir(ckpt))}}
     count = lambda m: sum(p.numel() for p in m.parameters())
     out["params"] = {"vqgan": count(runner.model.vqgan),
                      "discriminator": count(runner.model.discriminator)}
-    log(f"  vqgan train: {wall:.1f} s in main_torch.main ({steps} steps), steps "
-        f"{runner.global_step}, epoch {runner.global_epoch}; parameters {out['params']}; peak "
-        f"device memory {out['peak_memory_gib']:.2f} GiB; launches {launches}; median s per "
-        f"step between plain steps {out['s_per_step_run']}; checkpoints {out['checkpoints']}")
+    log(f"  vqgan train: {steps} steps, steps {runner.global_step}, epoch "
+        f"{runner.global_epoch}; parameters {out['params']}; launches {launches}; "
+        f"checkpoints {out['checkpoints']}")
     if runner.global_step != steps:
         raise AssertionError("vqgan train: wrong step count")
     expected = {"config.yaml", "last_model.ckpt", "last_optim_sche.ckpt",
@@ -1714,7 +1365,7 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
         raise AssertionError(f"vqgan train: kernels {missing} were not launched")
 
     x, _ = runner._put_batch(next(iter(runner._build_loaders()[0])))
-    out.update(gan_loop_timing(runner, x, "vqgan"))
+    runner.model.train()
 
     # one step through the kernels against the same step through the twins
     # (fp32 both, same weights, batch and BatchNorm statistics); the twins once
@@ -1818,7 +1469,6 @@ def vqgan_train_phase(dev, counters, root, gpu_ids="0", config=None, lbbdm_confi
                                                    sampled.model.vqgan.state_dict().values()))
     z = lb.model.encode(x)
     img = lb.model.decode(z)
-    torch.cuda.synchronize()
     out["lbbdm_first_stage"] = {"weights_equal": same, "latent": list(z.shape),
                                 "image": list(img.shape),
                                 "finite": bool(torch.isfinite(img).all())}
@@ -1903,20 +1553,14 @@ def vqgan_perceptual_phase(dev, counters, root, gpu_ids="0", config=None):
 
     for mod, attr in counters.values():
         getattr(mod, attr).launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.time()
     runner = main_torch.main(["-c", path, "--train", "--max_epoch", "1", "-r",
                               os.path.join(root, "results-vqgan-lpips"), "-s", str(CLI_SEED),
                               "--gpu_ids", gpu_ids])
-    torch.cuda.synchronize()
-    wall = time.time() - t0
     short = SHORT
     launches = {short[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
-    out = {"wall_s": wall, "launches": launches, "steps": runner.global_step,
-           "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    log(f"  vqgan perceptual train: {wall:.1f} s in main_torch.main ({steps} steps, one "
-        f"sample, validation and save), steps {runner.global_step}; peak device memory "
-        f"{out['peak_memory_gib']:.2f} GiB; launches {launches}")
+    out = {"launches": launches, "steps": runner.global_step}
+    log(f"  vqgan perceptual train: {steps} steps (one sample, validation and save), steps "
+        f"{runner.global_step}; launches {launches}")
     if runner.global_step != steps:
         raise AssertionError("vqgan perceptual train: wrong step count")
     missing = [k for k, n in launches.items() if n <= 0]
@@ -1928,8 +1572,6 @@ def vqgan_perceptual_phase(dev, counters, root, gpu_ids="0", config=None):
         raise AssertionError(f"vqgan perceptual checkpoint holds {saved}")
 
     x, _ = runner._put_batch(next(iter(runner._build_loaders()[0])))
-    out.update(gan_loop_timing(runner, x, "vqgan perceptual"))
-
     lp = load_lpips(weights, net="vgg", device=dev)
 
     # every gradient of one step with the term: present and finite
@@ -1961,31 +1603,6 @@ def vqgan_perceptual_phase(dev, counters, root, gpu_ids="0", config=None):
     log(f"  LPIPS-VGG term at {list(x.shape)}, card vs CPU: {json.dumps(out['lpips_term'])}")
     if not (torch.isfinite(d_card).all() and out["lpips_term"]["max_rel"] <= LPIPS_TERM_RTOL):
         raise AssertionError(f"LPIPS term: card vs CPU beyond {LPIPS_TERM_RTOL} relative")
-
-    # the memory the term alone takes: one forward and backward through xrec,
-    # and the activations its graph saves for the backward (each storage once,
-    # the LPIPS weights left out)
-    torch.cuda.synchronize()
-    base = torch.cuda.memory_allocated()
-    torch.cuda.reset_peak_memory_stats()
-    xr = xrec.detach().requires_grad_(True)
-    saved, weights_at = {}, {w.untyped_storage().data_ptr() for w in lp.state_dict().values()}
-
-    def pack(t):
-        if t.untyped_storage().data_ptr() not in weights_at:
-            saved[t.untyped_storage().data_ptr()] = t.untyped_storage().nbytes()
-        return t
-
-    with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
-        d = lp(x, xr).mean()
-    d.backward()
-    torch.cuda.synchronize()
-    out["lpips_term_peak_gib"] = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
-    out["lpips_term_saved_gib"] = sum(saved.values()) / 2 ** 30
-    log(f"  LPIPS-VGG forward and backward at {list(x.shape)}: peak "
-        f"{out['lpips_term_peak_gib']:.2f} GiB above what was allocated before it, of which "
-        f"the graph saves {out['lpips_term_saved_gib']:.2f} GiB (the rest: gradients in "
-        f"flight and cuDNN workspaces)")
     del runner, lp
     return out
 
@@ -1998,8 +1615,8 @@ EVAL_FEATURE_RTOL, EVAL_DISTANCE_RTOL = 1e-4, 1e-5
 def eval_phase(dev, root, tree, step=SAMPLE_STEP, draws=SAMPLE_NUM):
     """Phase 8 (see the module docstring): ``preprocess_and_evaluation_torch.py``
     over phase 5's f4 euler ``sample_to_eval`` tree, every mode on the card
-    against ``--cpu``; then the metric networks' rates. On a CPU ``dev`` (a
-    rehearsal) both sides run on the CPU."""
+    against ``--cpu``, then the features and distances card against CPU. On a
+    CPU ``dev`` (a rehearsal) both sides run on the CPU."""
     import io
 
     import numpy as np
@@ -2019,13 +1636,12 @@ def eval_phase(dev, root, tree, step=SAMPLE_STEP, draws=SAMPLE_NUM):
         torch.save(random_lpips_state_dict(net, LPIPS_SEED), weights[net])
 
     def run(argv, on_cpu):
-        """(value, stdout, wall s) of one in-process CLI run."""
+        """(value, stdout) of one in-process CLI run."""
         random.seed(0)  # max_min_LPIPS draws with the module-level random
         text = io.StringIO()
-        t0 = time.perf_counter()
         with contextlib.redirect_stdout(text):
             value = pe.main(argv + (["--cpu"] if on_cpu or not card else []))
-        return value, text.getvalue(), time.perf_counter() - t0
+        return value, text.getvalue()
 
     def files(d):
         out = {}
@@ -2062,18 +1678,13 @@ def eval_phase(dev, root, tree, step=SAMPLE_STEP, draws=SAMPLE_NUM):
         "FID": ["-s", flat, "-t", gt, "--weights", weights["inception"]],
         "psnr_ssim": ["-s", flat, "-t", gt]}
     for mode, args in metric.items():
-        if mode == "FID" and card:  # the card run, split into its parts (one sqrtm, not two)
-            (a, text_a, wall_a), out["fid_cli_split"] = fid_cli_split(run, ["-f", mode] + args)
-        else:
-            a, text_a, wall_a = run(["-f", mode] + args, False)
-        b, text_b, wall_b = run(["-f", mode] + args, True)
+        a, text_a = run(["-f", mode] + args, False)
+        b, text_b = run(["-f", mode] + args, True)
         va, vb = (np.asarray(list(v.values()) if isinstance(v, dict) else v, np.float64)
                   for v in (a, b))
         rel = float(np.abs(va - vb).max() / max(np.abs(vb).max(), 1e-30))
-        out["modes"][mode] = {"card": a, "cpu": b, "max_rel": rel, "card_s": wall_a,
-                              "cpu_s": wall_b}
-        log(f"  {mode}: card {a} ({wall_a:.2f} s), --cpu {b} ({wall_b:.2f} s), "
-            f"max relative difference {rel:.3e}")
+        out["modes"][mode] = {"card": a, "cpu": b, "max_rel": rel}
+        log(f"  {mode}: card {a}, --cpu {b}, max relative difference {rel:.3e}")
         if not np.isfinite(va).all():
             raise AssertionError(f"{mode}: not finite on the card")
         if mode in ("LPIPS", "max_min_LPIPS") and rel > EVAL_DISTANCE_RTOL:
@@ -2112,66 +1723,7 @@ def eval_phase(dev, root, tree, step=SAMPLE_STEP, draws=SAMPLE_NUM):
     for net in ("alex", "vgg"):
         if out[f"distances_{net}"]["max_rel"] > EVAL_DISTANCE_RTOL:
             raise AssertionError(f"LPIPS {net}: card vs CPU beyond {EVAL_DISTANCE_RTOL}")
-    if card:
-        out["rates"] = eval_rates(dev, models[dev], weights)
     return out
-
-
-def eval_rates(dev, inception, weights):
-    """Device ms (CUDA events) and rates of the metric networks at batch 32."""
-    from bbdm_tpu_torch.evaluation import lpips
-
-    g = torch.Generator(dev).manual_seed(3)
-    out = {}
-    with torch.inference_mode():
-        for size in (299, 256):  # 256: resized to 299 inside, as a sample_to_eval tree is
-            x = torch.rand(32, 3, size, size, generator=g, device=dev)
-            ms = cuda_ms(lambda: inception(x))
-            out[f"inception_b32_{size}"] = {"ms": ms, "images_per_s": 32e3 / ms}
-        for net in ("alex", "vgg"):
-            m = lpips.load_lpips(weights[net], net, dev)
-            a, b = (torch.rand(32, 3, 256, 256, generator=g, device=dev) * 2 - 1
-                    for _ in range(2))
-            ms = cuda_ms(lambda: m(a, b))
-            out[f"lpips_{net}_b32_256"] = {"ms": ms, "pairs_per_s": 32e3 / ms}
-    log("  metric networks, fp32 (TF32 off), CUDA events: " + json.dumps(out))
-    return out
-
-
-def fid_cli_split(run, argv):
-    """One ``-f FID`` run on the card, traced: ``run``'s (value, stdout, wall s)
-    and the split of that run: its wall, the host's PNG decode and Fréchet
-    (scipy sqrtm) seconds in it, and its device busy ms (torch.profiler)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from bbdm_tpu_torch.evaluation import fid
-
-    spans = {"decode_s": [], "frechet_s": []}
-
-    def timer(key):
-        def make(fn):
-            def wrapped(*a, **kw):
-                t0 = time.perf_counter()
-                result = fn(*a, **kw)
-                spans[key].append(time.perf_counter() - t0)
-                return result
-            return wrapped
-        return make
-
-    with patched(fid, "read_images", timer("decode_s")), \
-            patched(fid, "frechet_distance", timer("frechet_s")), \
-            profile(activities=[ProfilerActivity.CUDA]) as prof:
-        result = run(argv, False)
-        torch.cuda.synchronize()
-    wall = result[2]
-    out = {"wall_s": wall, "decode_s": sum(spans["decode_s"]),
-           "decoded_batches": len(spans["decode_s"]), "frechet_s": sum(spans["frechet_s"])}
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
-    out["device_busy_ms"] = busy
-    out["idle_share"] = 1 - busy / 1e3 / wall
-    log("  FID CLI on the card, split: " + json.dumps(out))
-    return result, out
 
 
 # ------------------------------------------------ latent paths: f8, f16, xattn
@@ -2300,20 +1852,10 @@ def latent_paths_phase(dev, counters, root, gpu_ids="0", configs=None, step=PATH
 
 
 def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
-    import statistics as st
-
     import main_torch
     from bbdm_tpu_torch.config import save_config
+    from bbdm_tpu_torch.data import DataLoader, get_dataset
     from bbdm_tpu_torch.ops import group_norm
-    from bbdm_tpu_torch.profile_slice import measure
-    from bbdm_tpu_torch.runners.bbdm import BBDMRunner
-    from bbdm_tpu_torch.training.step import make_train_step
-
-    laps, lap = {}, [time.time()]
-
-    def done(what):  # the wall seconds of each part of the path
-        laps[what] = time.time() - lap[0]
-        lap[0] = time.time()
 
     size = cfg.data.dataset_config.image_size
     n_train, n_val, n_test = pairs
@@ -2341,20 +1883,15 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
         "n_epochs": {"template": 100, "run": 1}, "microbatches": micro,
         "train/val/test pairs": list(pairs), "sample_interval": "none during training",
         "weights": "random (seeds 11, 12), VQGAN written by the smoke"}))
-    out = {"laps_s": laps}
-    done("inputs")
+    out = {}
 
-    def counted(argv, sweeps=None):
+    def counted(argv):
         for mod, attr in counters.values():
             getattr(mod, attr).launches = 0
         group_norm.group_norm_bwd_cuda.launches = 0
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.time()
-        with timed(BBDMRunner, "sample_to_eval", sweeps if sweeps is not None else []):
-            runner = main_torch.main(argv)
-        torch.cuda.synchronize()
-        return runner, time.time() - t0, {SHORT[k]: getattr(mod, attr).launches
-                                          for k, (mod, attr) in counters.items()}
+        runner = main_torch.main(argv)
+        return runner, {SHORT[k]: getattr(mod, attr).launches
+                        for k, (mod, attr) in counters.items()}
 
     def check(what, got, want):
         log(f"  {name} {what}: launches {got}, derived from the code {want}")
@@ -2362,29 +1899,17 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
             raise AssertionError(f"{name} {what}: launches {got} != {want}")
 
     # --sample_to_eval: one batch, one draw
-    sweeps = []
-    runner, wall, launches = counted(
+    runner, launches = counted(
         ["-c", path, "--sample_to_eval", "--resume_model", os.path.join(work, "model.ckpt"),
-         "-r", os.path.join(work, "results"), "-s", str(CLI_SEED), "--gpu_ids", gpu_ids],
-        sweeps)
+         "-r", os.path.join(work, "results"), "-s", str(CLI_SEED), "--gpu_ids", gpu_ids])
     batches = n_test // bs
     check("sample_to_eval", launches, expected_launches(
         calls, steps=len(runner.model.coeffs.steps), draws=1, batches=batches))
     names = [f"{i:04d}" for i in range(n_test)]
     check_tree(runner.config.result.sample_to_eval_path, names, names, step, 1, size)
-    done("sample_to_eval")
-    out["sample_to_eval"] = {"wall_s": wall, "launches": launches,
-                             "batch_s": sweeps[0] / batches,
-                             "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-    # the card's idle share over one batch (PNG writes included)
-    from bbdm_tpu_torch.data import DataLoader, get_dataset
-
-    batch = next(iter(DataLoader(get_dataset(runner.config.data)[2], bs)))
-    wall_ms, busy_ms, _ = measure(
-        lambda: runner.sample_to_eval([batch], os.path.join(work, "idle")), 1, 1)
-    out["sample_to_eval"].update(batch_wall_ms=wall_ms, batch_device_busy_ms=busy_ms,
-                                 idle_share=1 - busy_ms / wall_ms)
+    out["sample_to_eval"] = {"launches": launches}
     # the latent through the kernels against the twins (same weights and noise)
+    batch = next(iter(DataLoader(get_dataset(runner.config.data)[2], bs)))
     model = runner.model
     x_cond = torch.from_numpy(batch["x_cond"]).permute(0, 3, 1, 2).to(runner.device)
     y = model.encode(x_cond, latent_stats=runner.latent_stats)
@@ -2393,10 +1918,6 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
     noise = [torch.randn(y.shape, generator=g, device=runner.device)
              for _ in range(model.noised_steps())]
     z_k = model.p_sample_loop(y, ctx, noise=noise, clip_denoised=False)
-    step_ms, step_busy_ms, _ = measure(
-        lambda: model.p_sample_loop(y, ctx, noise=noise, clip_denoised=False), 1, len(noise))
-    out.update(sampler_step_ms=step_ms, sampler_step_device_busy_ms=step_busy_ms,
-               sampler_step_idle_share=1 - step_busy_ms / step_ms)
     with plain_ops():
         y_p = model.encode(x_cond, latent_stats=runner.latent_stats)
         z_p = model.p_sample_loop(y, ctx, noise=noise, clip_denoised=False)
@@ -2409,14 +1930,8 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
     agree = {"encode_kernel_vs_plain": d(y, y_p), "encode_bf16_vs_fp32": d(y_p, y_32),
              "latent_kernel_vs_plain": d(z_k, z_p), "latent_bf16_vs_fp32": d(z_p, z_32)}
     out["agreement"] = agree
-    done("idle_and_agreement")
-    s = out["sample_to_eval"]
-    log(f"  {name} sample_to_eval: {wall:.1f} s in main_torch.main, {s['batch_s']:.3f} s per "
-        f"batch of {bs} (1 draw, {step} steps), sampler step {step_ms:.2f} ms (device busy "
-        f"{step_busy_ms:.2f} ms, idle {out['sampler_step_idle_share']:.0%}), "
-        f"over one batch wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle share "
-        f"{s['idle_share']:.0%}, peak device memory {s['peak_memory_gib']:.2f} GiB; "
-        f"kernels vs twins {json.dumps(agree)}")
+    log(f"  {name} sample_to_eval (batch {bs}, 1 draw, {step} steps): kernels vs twins "
+        f"{json.dumps(agree)}")
     if not torch.isfinite(z_k).all():
         raise AssertionError(f"{name}: non-finite latent")
     for what in ("encode", "latent"):
@@ -2428,7 +1943,7 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
     del runner, model
 
     # --train: one epoch, one validation epoch, one save
-    runner, wall, launches = counted(
+    runner, launches = counted(
         ["-c", path, "--train", "--max_epoch", "1", "-r", os.path.join(work, "results-train"),
          "-s", str(CLI_SEED), "--gpu_ids", gpu_ids])
     check("train", launches, expected_launches(
@@ -2439,43 +1954,16 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
         c for (k, _), c in calls["unet_train"].items() if k == "K1"))
     if runner.global_step != micro:
         raise AssertionError(f"{name} train: {runner.global_step} steps, not {micro}")
-    done("train")
     ckpt = runner.config.result.ckpt_path
     files = {f: os.path.getsize(os.path.join(ckpt, f)) for f in sorted(os.listdir(ckpt))}
     if {"last_model.ckpt", "last_optim_sche.ckpt"} - set(files):
         raise AssertionError(f"{name} train: checkpoint files {sorted(files)}")
-    out["train"] = {"wall_s": wall, "launches": launches, "microbatches": micro,
-                    "k1_backward_launches": backward,
-                    "peak_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-                    "checkpoints": files}
-    model = runner.model
-    acc = int(cfg.training.accumulate_grad_batches)
-    step_fn = make_train_step(model, cfg.training, cfg.model.EMA, runner.lr_scheduler_config)
-    tb = next(iter(runner._build_loaders()[0]))
-    x, yb = runner._put_batch(tb)
-    model.train()
-
-    def microbatches(n):
-        prev = None
-        for _ in range(n):
-            metrics = step_fn(runner.state, x, yb, runner.train_generator)
-            if prev is not None:
-                float(prev["loss"])
-            prev = metrics
-        float(prev["loss"])
-
-    while runner.state.step % acc:
-        microbatches(1)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    microbatches(acc)
-    torch.cuda.synchronize()
-    loop = time.perf_counter() - t0
-    wall_ms, busy_ms, _ = measure(lambda: microbatches(2), 1, 2)
-    tr = out["train"]
-    tr.update(s_per_microbatch=loop / acc, s_per_update=loop, microbatch_wall_ms=wall_ms,
-              microbatch_device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms)
+    tr = out["train"] = {"launches": launches, "microbatches": micro,
+                         "k1_backward_launches": backward, "checkpoints": files}
     # every trainable parameter's gradient, present and finite
+    model = runner.model
+    tb = next(iter(runner._build_loaders()[0]))
+    x, _ = runner._put_batch(tb)
     g = torch.Generator(runner.device).manual_seed(6)
     zshape = model.encode(x).shape
     tt = torch.randint(0, model.num_timesteps, (x.shape[0],), generator=g, device=x.device)
@@ -2486,19 +1974,12 @@ def latent_path(dev, counters, work, name, cfg, gpu_ids, step, pairs):
     finite = all(bool(torch.isfinite(gr).all()) for gr in grads if gr is not None)
     model.eval()
     tr.update(loss=float(loss), trainable_grads=len(grads), absent_grads=len(absent),
-              finite_grads=finite, peak_memory_gib=max(
-                  tr["peak_memory_gib"], torch.cuda.max_memory_allocated() / 2 ** 30))
-    log(f"  {name} train: {wall:.1f} s in main_torch.main ({micro} microbatches, one "
-        f"validation epoch, one save), {tr['s_per_microbatch']:.4f} s per microbatch, "
-        f"{tr['s_per_update']:.4f} s per update ({acc}); over two microbatches wall "
-        f"{wall_ms:.1f} ms, device busy {busy_ms:.1f} ms per microbatch, idle share "
-        f"{tr['idle_share']:.0%}; peak device memory {tr['peak_memory_gib']:.2f} GiB; "
-        f"gradients {len(grads) - len(absent)} of {len(grads)} trainable, finite {finite}; "
+              finite_grads=finite)
+    log(f"  {name} train ({micro} microbatches, one validation epoch, one save): gradients "
+        f"{len(grads) - len(absent)} of {len(grads)} trainable, finite {finite}; "
         f"checkpoints {files}")
     if absent or not finite:
         raise AssertionError(f"{name} train: gradients absent {absent[:3]}, finite {finite}")
-    done("train_timing_and_gradients")
-    log(f"  {name}: seconds by part {json.dumps({k: round(v, 1) for k, v in laps.items()})}")
     return out
 
 
@@ -2573,10 +2054,9 @@ def dp_dump(out, name, rank, ranks, record):
 def dp_train_job(rank, ranks, dev, path, out, fp32=False):
     """Phase 10 (a) on one rank: ``DP_EPOCHS`` epochs of the LBBDM-f4 train step
     over this rank's rows of each node batch (``accumulate_grad_batches`` 4):
-    the losses and lr, seconds per update, the gradient collective's seconds
-    per update, the kernels' launches, and on rank 0 the trainable parameters
-    before and after. ``fp32``: the fp32 model through the plain twins."""
-    from bbdm_tpu_torch.parallel import collectives
+    the losses and lr, the kernels' launches, and on rank 0 the trainable
+    parameters before and after. ``fp32``: the fp32 model through the plain
+    twins."""
     from bbdm_tpu_torch.runners.bbdm import BBDMRunner
 
     tag = "train-fp32" if fp32 else "train"
@@ -2584,24 +2064,12 @@ def dp_train_job(rank, ranks, dev, path, out, fp32=False):
                        fp32)
     loader = runner._build_loaders()[0]
     step = runner.build_train_step()
-    acc = int(runner.config.training.accumulate_grad_batches)
     flat = lambda: torch.cat([p.detach().float().flatten() for p in runner.state.params.values()])
     before = flat().cpu()
-    reduce_s, updates, losses, lrs = [], [], [], []
-
-    def timed_reduce(fn):
-        def wrapped(tensors):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(tensors)
-            torch.cuda.synchronize()
-            reduce_s.append(time.perf_counter() - t0)
-        return wrapped
-
+    losses, lrs = [], []
     runner.model.train()
     kernel_launches(reset=True)
-    with patched(collectives, "all_reduce_mean_", timed_reduce), \
-            (plain_ops() if fp32 else contextlib.nullcontext()):
+    with plain_ops() if fp32 else contextlib.nullcontext():
         for epoch in range(DP_EPOCHS):
             loader.set_epoch(epoch)
             for batch in loader:
@@ -2609,14 +2077,10 @@ def dp_train_job(rank, ranks, dev, path, out, fp32=False):
                 m = step(runner.state, x, y, runner.train_generator)
                 losses.append(float(m["loss"]))
                 lrs.append(float(m["lr"]))
-                if runner.state.step % acc == 0:
-                    torch.cuda.synchronize()
-                    updates.append(time.perf_counter())
     dp_dump(out, tag, rank, ranks, {
         "launches": kernel_launches(), "losses": losses, "lrs": lrs,
-        "microbatches": runner.state.step, "rows": int(x.shape[0]),
-        "s_per_update": updates[-1] - updates[-2], "reduce_s_per_update": reduce_s[-1]
-        if reduce_s else 0.0, "before": before, "after": flat().cpu()})
+        "microbatches": runner.state.step, "rows": int(x.shape[0]), "before": before,
+        "after": flat().cpu()})
 
 
 def dp_sample_job(rank, ranks, dev, path, out, fp32=False):
@@ -2719,19 +2183,13 @@ def dp_vqgan_job(rank, ranks, dev, path, out, tag="vqgan", steps=DP_VQ_STEPS):
             "stats": {k: b.detach().cpu() for k, b in model.discriminator.named_buffers()}})
 
 
-def trace_kernels(path, top=8):
-    """[(device kernel name, total us, launches)] of a chrome trace, the largest
-    first (``top`` of them; None: all)."""
-    from collections import defaultdict
+def trace_kernels(path):
+    """{device kernel name: launches} of a chrome trace."""
+    from collections import Counter
 
     with open(path) as f:
         events = json.load(f)["traceEvents"]
-    total, calls = defaultdict(float), defaultdict(int)
-    for e in events:
-        if e.get("cat") == "kernel":
-            total[e["name"]] += e.get("dur", 0.0)
-            calls[e["name"]] += 1
-    return sorted(((n, total[n], calls[n]) for n in total), key=lambda r: -r[1])[:top]
+    return Counter(e["name"] for e in events if e.get("cat") == "kernel")
 
 
 def ckpt_keys(tree, prefix=""):
@@ -2792,7 +2250,6 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
 
     # the one-rank runs of (a)-(c) (1 rank, and 1 rank in fp32 through the
     # twins for (a) and (b)), then one spawn of 2 ranks running (a)-(c) in turn
-    t0 = time.time()
     dp_train_job(0, 1, dev, path, work)
     dp_train_job(0, 1, dev, path, work, fp32=True)
     dp_sample_job(0, 1, dev, path, work)
@@ -2810,10 +2267,8 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
     save_config(vcfg, vpath)
     dp_vqgan_job(0, 1, dev, vpath, work)
     torch.cuda.empty_cache()
-    t1 = time.time()
     spawn_ranks(dev, sh_jobs, ([(dp_train_job, (path, work)), (dp_sample_job, (path, work)),
                                 (dp_vqgan_job, (vpath, work))],), setup)
-    out["wall_s"] = {"one_rank_runs": t1 - t0, "spawn": time.time() - t1}
 
     # (a) LBBDM-f4 training: 1 rank, 1 rank in fp32 through the twins, 2 ranks
     (one, one_r), (f32, _), (two, two_r) = (read(n, r) for n, r in (
@@ -2824,10 +2279,7 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
     lr = float(cfg.model.BB.optimizer.lr)
     d_two, d_f32 = two["after"] - one["after"], f32["after"] - one["after"]
     update = one["after"] - one["before"]
-    a = {"s_per_update": {"1": one_r[0]["s_per_update"],
-                          str(DP_RANKS): [r["s_per_update"] for r in two_r]},
-         "reduce_s_per_update": [r["reduce_s_per_update"] for r in two_r],
-         "rows_per_rank": {"1": one_r[0]["rows"], str(DP_RANKS): two_r[0]["rows"]},
+    a = {"rows_per_rank": {"1": one_r[0]["rows"], str(DP_RANKS): two_r[0]["rows"]},
          "loss": {"1": one["losses"], str(DP_RANKS): two["losses"], "fp32": f32["losses"]},
          "lr": {"1": one["lrs"], str(DP_RANKS): two["lrs"]},
          "param_max_abs": {f"{DP_RANKS}_vs_1": float(d_two.abs().max()),
@@ -2842,9 +2294,7 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
          "launches": two_r[0]["launches"]}
     out["train"] = a
     log(f"  (a) LBBDM-f4 train, {micro} microbatches ({micro // acc} updates) at node batch "
-        f"{bs}: s per update 1 rank {a['s_per_update']['1']:.3f}, {DP_RANKS} ranks on one card "
-        f"{a['s_per_update'][str(DP_RANKS)]} of which the gradient all-reduce (gloo, through "
-        f"the host) {a['reduce_s_per_update']}; " + json.dumps(
+        f"{bs}, {DP_RANKS} ranks on one card against 1: " + json.dumps(
             {k: a[k] for k in ("param_max_abs", "update_norm_rel", "loss_max_abs", "lr")}))
     if two["lrs"] != one["lrs"] or [r["losses"] for r in two_r] != [two["losses"]] * DP_RANKS:
         raise AssertionError("(a): lr differs from 1 rank, or the ranks' losses differ")
@@ -2926,7 +2376,6 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
     # (d) NCCL: main_torch as one node of one rank (BBDM_MULTIHOST), train then
     # sample_to_eval, against the same run without a process group; (e) the
     # plain run's profiler window
-    t0 = time.time()
     ccfg = load_config(path)
     ccfg.model.BB.params.UNetParams.num_res_blocks = 1
     ccfg.training.accumulate_grad_batches, ccfg.training.n_epochs = 1, 1
@@ -2976,7 +2425,7 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
         torch.cuda.empty_cache()
     d = {"backend": runs["nccl"]["backend"], "train_launches": runs["nccl"]["launches"],
          "sample_launches": runs["nccl_sample_launches"], "files": runs["nccl"]["files"],
-         "keys": len(runs["nccl"]["keys"]), "wall_s": time.time() - t0}
+         "keys": len(runs["nccl"]["keys"])}
     out["nccl"] = d
     log(f"  (d) main_torch as one node of one rank over {d['backend']}: " + json.dumps(d))
     want_backend = "nccl" if dev.type == "cuda" else "gloo"
@@ -2993,17 +2442,13 @@ def parallel_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
     traces = sorted(os.listdir(ccfg.training.profile_dir))
     if traces != ["steps_2-2.pt.trace.json"]:
         raise AssertionError(f"(e): profile_dir holds {traces}")
-    every = trace_kernels(os.path.join(ccfg.training.profile_dir, traces[0]), top=None)
-    ours = {k: [sum(us for n, us, _ in every if frag in n),
-                sum(c for n, _, c in every if frag in n)]
+    every = trace_kernels(os.path.join(ccfg.training.profile_dir, traces[0]))
+    ours = {k: sum(c for n, c in every.items() if frag in n)
             for k, frag in (("K1", "group_norm_kernel"), ("K3", "flash_attention_kernel"))}
-    out["profile"] = {"trace": traces[0], "device_us": sum(us for _, us, _ in every),
-                      "kernels_us_launches": ours, "top_kernels_us": every[:8]}
-    log(f"  (e) the profiler window's trace {traces[0]}, one microbatch: device "
-        f"{out['profile']['device_us']:.1f} us in {sum(c for _, _, c in every)} kernels; K1 and "
-        f"K3 (us, launches) {json.dumps(ours)}; top device kernels (name, us, launches): "
-        + json.dumps(every[:8]))
-    if dev.type == "cuda" and not all(c > 0 for _, c in ours.values()):
+    out["profile"] = {"trace": traces[0], "kernel_launches": ours}
+    log(f"  (e) the profiler window's trace {traces[0]}, one microbatch: K1 and K3 launches "
+        f"{json.dumps(ours)}")
+    if dev.type == "cuda" and not all(ours.values()):
         raise AssertionError(f"(e): the trace does not name K1 and K3: {ours}")
     shutil.rmtree(work, ignore_errors=True)
     return out
@@ -3028,37 +2473,12 @@ def state_bytes(runner) -> int:
     return params + moments + ema + grads
 
 
-def timed_collectives():
-    """(context that times every collective of ``parallel.collectives`` with
-    the card synchronised around it, [seconds so far])."""
-    from bbdm_tpu_torch.parallel import collectives
-
-    spent = [0.0]
-
-    def timed(fn):
-        def wrapped(*a, **kw):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = fn(*a, **kw)
-            torch.cuda.synchronize()
-            spent[0] += time.perf_counter() - t0
-            return out
-        return wrapped
-
-    stack = contextlib.ExitStack()
-    for name in ("all_gather", "reduce_scatter_mean", "all_reduce_sum", "all_reduce_mean_",
-                 "mean"):
-        stack.enter_context(patched(collectives, name, timed))
-    return stack, spent
-
-
 def sh_train_job(rank, ranks, dev, path, out, tag, micro=SH_MICRO, fp32=False):
     """Phase 11 (a), (b) on one rank: ``micro`` microbatches of the LBBDM-f4
     train step (``SH_ACC`` per update) on this rank's shards and rows; the
-    kernels' launches, seconds per update and the collectives' seconds in it,
-    the state's bytes and ``memory_allocated`` after the first microbatch (an
-    update accumulating), the peak over the updates, the trainable parameters
-    gathered after each update (outside the timing and the peak); under FSDP
+    kernels' launches, the state's bytes and ``memory_allocated`` after the
+    first microbatch (an update accumulating), the peak over the updates, the
+    trainable parameters gathered after each update (outside the peak); under FSDP
     then ``last_model.ckpt`` and ``last_optim_sche.ckpt`` as ``train()`` writes
     them (every rank gathers, rank 0 writes; (d) samples from them). ``fp32``:
     the fp32 model through the plain twins."""
@@ -3071,14 +2491,12 @@ def sh_train_job(rank, ranks, dev, path, out, tag, micro=SH_MICRO, fp32=False):
     step = runner.build_train_step()
     flat = lambda: torch.cat([p.detach().float().flatten()
                               for p in runner.state.params.values()]).cpu()
-    updates, coll, losses, lrs, kept, after, peak = [], [], [], [], {}, [], 0
+    losses, lrs, kept, after, peak = [], [], {}, [], 0
     runner.model.train()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    stack, spent = timed_collectives()
     kernel_launches(reset=True)
-    with stack, plain_ops() if fp32 else contextlib.nullcontext():
-        t0 = time.perf_counter()
+    with plain_ops() if fp32 else contextlib.nullcontext():
         for _, batch in zip(range(micro), loader):
             x, y = runner._put_batch(batch)
             m = step(runner.state, x, y, runner.train_generator)
@@ -3090,14 +2508,11 @@ def sh_train_job(rank, ranks, dev, path, out, tag, micro=SH_MICRO, fp32=False):
                         "memory_allocated": torch.cuda.memory_allocated()}
             if runner.state.step % SH_ACC == 0:
                 torch.cuda.synchronize()
-                updates.append(time.perf_counter() - t0)
-                coll.append(spent[0])
                 peak = max(peak, torch.cuda.max_memory_allocated())
-                with runner.full_weights():  # outside the timing and the peak
+                with runner.full_weights():  # outside the peak
                     after.append(flat())
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
-                t0, spent[0] = time.perf_counter(), 0.0
     launches = kernel_launches()
     if tag == "fsdp":  # (d) samples from it
         from bbdm_tpu_torch.checkpoints.io import save_checkpoint
@@ -3111,8 +2526,7 @@ def sh_train_job(rank, ranks, dev, path, out, tag, micro=SH_MICRO, fp32=False):
                 del states
     dp_dump(out, name, rank, ranks, {
         "launches": launches, "losses": losses, "lrs": lrs, "rows": int(x.shape[0]),
-        "grid": [runner.grid.data_size, runner.grid.model_size], "s_per_update": updates[-1],
-        "collective_s_per_update": coll[-1], "peak_memory": peak, **kept,
+        "grid": [runner.grid.data_size, runner.grid.model_size], "peak_memory": peak, **kept,
         "ckpt": runner.config.result.ckpt_path, "after": tuple(after)})
 
 
@@ -3204,29 +2618,23 @@ def sharding_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
             raise AssertionError(f"{what}: launches {got} != {want}")
 
     # the one-rank runs, then one spawn of every 2-rank run, then (d)'s one-rank samples
-    t0 = time.time()
     sh_train_job(0, 1, dev, paths["one"], work, "one")
     sh_train_job(0, 1, dev, paths["one"], work, "one", fp32=True)
     for tag, (_, steps) in vruns.items():
         dp_vqgan_job(0, 1, dev, vpaths[tag, 1], work, f"vqgan-{tag}", steps)
     torch.cuda.empty_cache()
-    t1 = time.time()
     spawn_ranks(dev, sh_jobs, ([
         (sh_train_job, (paths["fsdp"], work, "fsdp", SH_MICRO)),
         (sh_train_job, (paths["tp"], work, "tp", SH_TP_MICRO)),
         *((dp_vqgan_job, (vpaths[tag, DP_RANKS], work, f"vqgan-{tag}", steps))
           for tag, (_, steps) in vruns.items()),
         (dp_sample_job, (spaths["tp"], work))],), setup)
-    t2 = time.time()
     dp_sample_job(0, 1, dev, spaths["one"], work)
     dp_sample_job(0, 1, dev, spaths["one"], work, fp32=True)
-    out["wall_s"] = {"one_rank_runs": t1 - t0, "spawn": t2 - t1, "one_rank_samples":
-                     time.time() - t2}
 
     # (a) FSDP and (b) tensor parallelism, against 1 rank and 1 rank in fp32
     (one, one_r), (f32, _) = read("one", 1), read("one-fp32", 1)
-    ab = {"1": {k: one_r[0][k] for k in ("s_per_update", "state_bytes", "memory_allocated",
-                                          "peak_memory")}}
+    ab = {"1": {k: one_r[0][k] for k in ("state_bytes", "memory_allocated", "peak_memory")}}
     for tag, part, micro in (("fsdp", "a", SH_MICRO), ("tp", "b", SH_TP_MICRO)):
         n = micro // SH_ACC - 1  # the last update's parameters
         ref = {"loss_max_abs": max(abs(p - q) for p, q in
@@ -3237,8 +2645,6 @@ def sharding_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
         check_launches(f"({part}) {tag} train", two_r,
                        expected_launches(kernel_calls(cfg.model, rows), microbatches=micro))
         r = {"grid": two_r[0]["grid"], "rows_per_rank": rows, "microbatches": micro,
-             "s_per_update": [x["s_per_update"] for x in two_r],
-             "collective_s_per_update": [x["collective_s_per_update"] for x in two_r],
              "state_bytes": [x["state_bytes"] for x in two_r],
              "state_share": [x["state_bytes"] / one_r[0]["state_bytes"] for x in two_r],
              "memory_allocated": [x["memory_allocated"] for x in two_r],
@@ -3337,7 +2743,6 @@ def sharding_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
             2 * d["codes_mean"]["fp32_vs_1"]:
         raise AssertionError("(d): the samples differ from 1 rank's by more than twice bf16's "
                              "mean distance from fp32, or the copied inputs differ")
-    log("  wall s: " + json.dumps(out["wall_s"]))
     shutil.rmtree(work, ignore_errors=True)
     return out
 
@@ -3345,7 +2750,6 @@ def sharding_phase(dev, root, configs=None, setup=None, pairs=DP_PAIRS):
 # ---------------------------------------------------------------- data layer
 
 DATA_TRAIN, DATA_VAL, DATA_TEST, DATA_EPOCHS = 64, 8, 8, 2  # 256^2 Paeth PNGs; flipped: 128
-LOADER_READINGS, LOADER_EPOCHS = 3, 4  # 3 readings of 4 epochs of 15 timed batches each
 FIXTURES = os.path.join("tests", "data", "torch_images")
 
 
@@ -3359,29 +2763,12 @@ def fixture_arrays(root, sub=""):
                 np.cumsum(z[k], axis=1, dtype=np.uint8) for k in z.files}
 
 
-def decode_ms(decode, paths, reps=20):
-    """Host ms per call of ``decode`` on each file's bytes (after one untimed call)."""
-    out = {}
-    for path in paths:
-        with open(path, "rb") as f:
-            data = f.read()
-        decode(data)
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            decode(data)
-        out[os.path.basename(path)] = (time.perf_counter() - t0) / reps * 1e3
-    return out
-
-
 def codec_checks(root):
-    """Every committed fixture decoded against its stored array (LAB, WebP,
-    WebP as ``cv2.imread`` too); host ms per 256^2 image: PNG by row filter
-    (C++ beside numpy/Python), JPEG 4:2:0 / 4:4:4 / progressive, WebP; the
-    host's CPU count."""
+    """{fixture directory: fixtures checked}: every committed fixture decoded
+    against its stored array or digest (LAB, WebP, WebP as ``cv2.imread`` too)."""
     import hashlib
 
     from bbdm_tpu_torch.data.colors import rgb_to_lab
-    from bbdm_tpu_torch.native import fastimage
     from bbdm_tpu_torch.utils.images import read_image
 
     checked = {}
@@ -3400,15 +2787,7 @@ def codec_checks(root):
                 raise AssertionError(f"fixture {sub}/{key}: decoded array differs from the "
                                      "stored one")
             checked[sub or "png_jpeg_bmp"] += 1
-    fdir = os.path.join(root, FIXTURES)
-    jpeg = decode_ms(fastimage.decode_jpeg, sorted(
-        os.path.join(fdir, "jpeg256", f) for f in os.listdir(os.path.join(fdir, "jpeg256"))))
-    webp = decode_ms(fastimage.decode_webp, sorted(
-        os.path.join(fdir, "webp", f) for f in os.listdir(os.path.join(fdir, "webp"))
-        if f.endswith("_256.webp")))
-    return {"fixtures_checked": checked, "png_ms_256": png_decode_ms(),
-            "jpeg_decode_ms_256": jpeg, "webp_decode_ms_256": webp,
-            "host_cpu_count": os.cpu_count()}
+    return checked
 
 
 def write_paeth_tree(root, size, counts, seed):
@@ -3420,74 +2799,6 @@ def write_paeth_tree(root, size, counts, seed):
                                textured_u8(size, seed + 100 * len(stage) + i), (4,))
 
 
-def write_webp_tree(root, counts):
-    """``<stage>/<i>.webp`` (train, val, test): the committed 256^2 VP8 q85
-    files (``webp/tree256/``) copied in turn."""
-    import shutil
-
-    src = os.path.join(os.path.dirname(os.path.abspath(__file__)), FIXTURES, "webp", "tree256")
-    files = sorted(os.listdir(src))
-    for stage, n in zip(("train", "val", "test"), counts):
-        os.makedirs(os.path.join(root, stage), exist_ok=True)
-        for i in range(n):
-            shutil.copy(os.path.join(src, files[i % len(files)]),
-                        os.path.join(root, stage, f"{i:04d}.webp"))
-
-
-LOADER_SETTINGS = ("one_thread", "default_threads", "cache_in_ram_cold", "cache_in_ram_warm")
-
-
-def loader_rates(cfg, settings=LOADER_SETTINGS):
-    """Batches per second of the train loader (batch 8) over cfg's tree, for
-    each of ``settings``: one thread and the default threads with no cache;
-    ``cache_in_ram`` cold (cleared before each epoch) and warm (filled before
-    the clock). Each epoch
-    is timed from its first batch to its last, so the decode threads and the
-    prefetch thread are running before the clock starts; a reading sums
-    LOADER_EPOCHS epochs, and each setting takes LOADER_READINGS readings
-    (median, min, max). Also the cache's bytes per image."""
-    import statistics as st
-
-    from bbdm_tpu_torch.data import DataLoader, get_dataset
-    from bbdm_tpu_torch.data.base import IMAGE_CACHE, clear_image_cache
-
-    out = {}
-    epoch = iter(range(1 << 30))
-
-    def reading(loader, cold):
-        n, secs = 0, 0.0
-        for _ in range(LOADER_EPOCHS):
-            if cold:
-                clear_image_cache()
-            loader.set_epoch(next(epoch))
-            batches = iter(loader)
-            next(batches)
-            t0 = time.perf_counter()
-            n += sum(1 for _ in batches)
-            secs += time.perf_counter() - t0
-        return n, n / secs
-
-    bs = cfg.data.train.batch_size
-    for label, workers, cache in (("one_thread", 0, False), ("default_threads", None, False),
-                                  ("cache_in_ram_cold", None, True),
-                                  ("cache_in_ram_warm", None, True)):
-        if label not in settings:
-            continue
-        cfg.data.dataset_config.cache_in_ram = cache
-        clear_image_cache()
-        loader = DataLoader(get_dataset(cfg.data)[0], bs, shuffle=True, num_workers=workers)
-        if label == "cache_in_ram_warm":
-            sum(1 for _ in loader)  # fill the cache
-            out["cache_bytes_per_image"] = IMAGE_CACHE.nbytes / len(IMAGE_CACHE)
-        runs = [reading(loader, label == "cache_in_ram_cold") for _ in range(LOADER_READINGS)]
-        rates = [r for _, r in runs]
-        out[label] = {"median": st.median(rates), "min": min(rates), "max": max(rates),
-                      "batches": sum(n for n, _ in runs), "workers": loader.num_workers}
-    out["threads_over_one"] = out["default_threads"]["median"] / out["one_thread"]["median"]
-    clear_image_cache()
-    return out
-
-
 def vqgan_checkpoint(cfg, dev, path):
     """A seeded random VQGAN for ``cfg``'s LBBDM, saved alone."""
     from bbdm_tpu_torch.checkpoints.from_jax import jax_tree_from_state_dict
@@ -3497,9 +2808,6 @@ def vqgan_checkpoint(cfg, dev, path):
     m = build_model(cfg.model, device=dev, generator=torch.Generator(dev).manual_seed(21))
     save_checkpoint({"vqgan": jax_tree_from_state_dict(m)["vqgan"]}, path)
     del m
-
-
-CACHE_ARMS = "ABBA"  # A: the host loader, B: training.device_data_cache
 
 
 @contextlib.contextmanager
@@ -3521,49 +2829,33 @@ def cache_logs(store):
 
 @contextlib.contextmanager
 def cache_builds(store):
-    """Each ``device_cache.Resident`` built in the block: (items, bytes, dtype,
-    seconds of decode and upload, the device synchronized), in ``store``."""
+    """Each ``device_cache.Resident`` built in the block: (items, bytes,
+    dtype), in ``store``."""
     from bbdm_tpu_torch.data import device_cache
 
-    def timed(init):
+    def recorded(init):
         def wrapped(self, dataset, device, *a, **kw):
-            t0 = time.perf_counter()
             init(self, dataset, device, *a, **kw)
-            if torch.device(device).type == "cuda":
-                torch.cuda.synchronize()
             store.append({"items": len(self.x_names), "bytes": self.nbytes,
-                          "dtype": str(self.dtype), "s": time.perf_counter() - t0})
+                          "dtype": str(self.dtype)})
         return wrapped
 
-    with patched(device_cache.Resident, "__init__", timed):
+    with patched(device_cache.Resident, "__init__", recorded):
         yield store
 
 
-def device_cache_abba(dev, counters, work, tree, runner):
-    """Phase 12 (e): ``training.device_data_cache`` on LBBDM-f4 training over the
+def device_cache_checks(dev, counters, work, tree, runner):
+    """Phase 12 (d): ``training.device_data_cache`` on LBBDM-f4 training over the
     Paeth tree as ``custom_aligned`` (its images as both sides: 64 items a
-    stream, 8 microbatches an epoch), on ``runner`` (part (c)'s, reconfigured):
+    stream, 8 microbatches an epoch), on ``runner`` (part (b)'s, reconfigured):
     the cached batches against ``_put_batch`` of the host loader's, bit for
-    bit, over an epoch; the latent-statistics pass with the host loader and
-    with the resident copy, host / cache / cache / host; then one epoch of
-    ``BaseRunner.train`` an arm, in ``CACHE_ARMS`` order (A the host loader as
-    the template configures it, no ``cache_in_ram``; B the cache, rebuilt by
-    each ``train()``): s per microbatch, the idle share over the arm's steps
-    (torch.profiler), peak memory, each cache build's decode + upload seconds
-    and bytes, the log lines, and the launches of each arm against
-    :func:`kernel_calls`."""
-    import statistics as st
-
-    from torch.profiler import ProfilerActivity, profile
-
+    bit, over an epoch; the latent-statistics pass with the resident copy
+    against the host loader's; then one epoch of ``BaseRunner.train`` through
+    the host loader as the template configures it (no ``cache_in_ram``) and
+    one through the cache: each epoch's steps and launches against
+    :func:`kernel_calls`, the caches built and the lines logged."""
     from bbdm_tpu_torch.data.base import clear_image_cache
     from bbdm_tpu_torch.data.device_cache import DeviceCachedLoader
-
-    laps, t_lap = {}, [time.time()]
-
-    def lap(name):
-        laps[name] = time.time() - t_lap[0]
-        t_lap[0] = time.time()
 
     aligned = os.path.join(work, "aligned-paeth")
     for stage in ("train", "val", "test"):
@@ -3578,8 +2870,7 @@ def device_cache_abba(dev, counters, work, tree, runner):
     clear_image_cache()
     training = cfg.training
     training.validation_interval, training.sample_interval = 1, 1000
-    out = {"items_per_stream": DATA_TRAIN, "arms": {}, "cache_builds": []}
-    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    out = {"items_per_stream": DATA_TRAIN, "epochs": {}, "cache_builds": []}
 
     # bit for bit: the cached batches against _put_batch of the host batches
     training.device_data_cache = False
@@ -3597,67 +2888,54 @@ def device_cache_abba(dev, counters, work, tree, runner):
         n += 1
         equal += all(torch.equal(x, y) and x.stride() == y.stride() for x, y in zip(a, b))
     out["batches_equal"] = [equal, n]
-    lap("batches_equal")
-    log(f"  (e) device cache: {equal} of {n} cached batches equal _put_batch of the host "
+    log(f"  (d) device cache: {equal} of {n} cached batches equal _put_batch of the host "
         f"loader's bit for bit (layout included); built {json.dumps(out['cache_builds'])}")
     if equal != n or n != len(host) or n == 0:
         raise AssertionError(f"device cache: {equal} of {n} batches equal the host path's")
 
-    # the latent-statistics pass: host, resident copy, resident copy, host
+    # the latent-statistics pass: the host loader, then the resident copy
     stats = []
-    for arm in "ABBA":
-        training.device_data_cache = arm == "B"
-        sync()
-        t0 = time.perf_counter()
+    for cache in (False, True):
+        training.device_data_cache = cache
         runner.get_latent_mean_std()
-        sync()
-        stats.append((arm, time.perf_counter() - t0, {k: v.detach().clone()
-                                                      for k, v in runner.latent_stats.items()}))
-    dev_max = max(float((s[k] - stats[0][2][k]).abs().max()) for _, _, s in stats
-                  for k in s)
-    out["latent_stats_s"] = {"host": [s for a, s, _ in stats if a == "A"],
-                             "cache": [s for a, s, _ in stats if a == "B"],
-                             "max_abs_vs_host": dev_max}
+        stats.append({k: v.detach().clone() for k, v in runner.latent_stats.items()})
+    dev_max = max(float((stats[1][k] - stats[0][k]).abs().max()) for k in stats[0])
+    out["latent_stats_max_abs_vs_host"] = dev_max
     runner._resident.clear()
     del host, cached
-    lap("latent_stats")
     if dev_max > 1e-5:
         raise AssertionError(f"device cache: latent statistics {dev_max} from the host path's")
 
-    # the ABBA reading through BaseRunner.train, one epoch an arm
+    # one epoch of BaseRunner.train through the host loader, one through the cache
     bs = cfg.data.train.batch_size
     micro = DATA_TRAIN // bs
     val_batches = DATA_VAL // cfg.data.val.batch_size
     calls = kernel_calls(cfg.model, bs)
-    marks = []
+    steps_run = []
 
-    def timing_step(build):
-        def build_timed():
+    def counted_step(build):
+        def build_counted():
             step = build()
 
-            def timed_step(*a, **kw):
-                marks.append(time.perf_counter())
+            def counted(*a, **kw):
+                steps_run.append(1)
                 return step(*a, **kw)
-            return timed_step
-        return build_timed
+            return counted
+        return build_counted
 
-    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
     logs = []
-    for i, arm in enumerate(CACHE_ARMS):
-        training.device_data_cache = arm == "B"
+    for label, cache in (("host", False), ("cache", True)):
+        training.device_data_cache = cache
         training.n_epochs = runner.global_epoch + 1
         for mod, attr in counters.values():
             getattr(mod, attr).launches = 0
-        marks.clear()
+        steps_run.clear()
         builds = []
         steps = range(runner.global_step + 1, runner.global_step + micro + 1)
         want = expected_launches(calls, microbatches=micro + val_batches
                                  + sum(g % 50 == 0 for g in steps))  # validation steps
-        if dev.type == "cuda":
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats()
         with contextlib.ExitStack() as stack:
-            stack.enter_context(patched(runner, "build_train_step", timing_step))
+            stack.enter_context(patched(runner, "build_train_step", counted_step))
             for attr, stub in (("get_checkpoint_states", ({}, {})),
                                ("_save_checkpoints", None)):
                 stack.enter_context(patched(runner, attr,
@@ -3665,61 +2943,33 @@ def device_cache_abba(dev, counters, work, tree, runner):
             stack.enter_context(patched(runner, "logger", lambda fn: lambda m: (
                 logs.append(m) if "device_data_cache" in str(m) else None, fn(m))))
             stack.enter_context(cache_builds(builds))
-            prof = stack.enter_context(profile(activities=acts))
-            t_prof = time.perf_counter()
             runner.train()
-            sync()
-            end = time.perf_counter()
         launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
-        if launches != want or len(marks) != micro:
-            raise AssertionError(f"device cache arm {i} ({arm}): launches {launches} != {want}"
-                                 f" or {len(marks)} microbatches, not {micro}")
-        lo, hi = marks[0], marks[-1]  # from the first step's start to the last one's
-        kernels = [(e.time_range.start / 1e6 + t_prof, e.time_range.end / 1e6 + t_prof)
-                   for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(min(b, hi) - a for a, b in kernels if lo <= a < hi)
-        deltas = [b - a for a, b in zip(marks, marks[1:])]
-        out["arms"][f"{i}{arm}"] = {
-            "s_per_microbatch": (marks[-1] - marks[0]) / (micro - 1),
-            "median_step_delta_s": st.median(deltas), "device_busy_s": busy,
-            "idle_share": 1 - busy / (hi - lo), "train_s": end - t_prof,
-            "peak_memory_bytes": torch.cuda.max_memory_allocated() if dev.type == "cuda"
-            else None, "cache_builds": builds, "launches": launches}
-        del prof
-        lap(f"arm_{i}{arm}")
+        if launches != want or len(steps_run) != micro:
+            raise AssertionError(f"device cache, {label} epoch: launches {launches} != {want}"
+                                 f" or {len(steps_run)} microbatches, not {micro}")
+        out["epochs"][label] = {"cache_builds": builds, "launches": launches}
     out["logged"] = logs
-    out["laps_s"] = laps
-    for arm in "AB":
-        rows = [v for k, v in out["arms"].items() if k.endswith(arm)]
-        out[f"mean_s_per_microbatch_{arm}"] = sum(r["s_per_microbatch"] for r in rows) / 2
-    out["cache_over_host"] = out["mean_s_per_microbatch_B"] / out["mean_s_per_microbatch_A"]
-    log(f"  (e) LBBDM-f4 train on the Paeth tree as custom_aligned, {micro} microbatches an "
-        f"arm, arms {CACHE_ARMS} (A host loader, B device cache) in one process: "
-        + json.dumps(out["arms"]) + f"; latent statistics s {json.dumps(out['latent_stats_s'])}"
-        f"; cache s per microbatch / host {out['cache_over_host']:.4f}; logged {logs}; laps s "
-        + json.dumps(laps))
-    if len(logs) != 2 * CACHE_ARMS.count("B") or any(
-            len(r["cache_builds"]) != (2 if k.endswith("B") else 0)
-            for k, r in out["arms"].items()):
+    log(f"  (d) LBBDM-f4 train on the Paeth tree as custom_aligned, {micro} microbatches an "
+        f"epoch, through the host loader, then the device cache: " + json.dumps(out["epochs"])
+        + f"; latent statistics from the cache within {dev_max:.3g} of the host's; logged {logs}")
+    if len(logs) != 2 or [len(e["cache_builds"]) for e in out["epochs"].values()] != [0, 2]:
         raise AssertionError(f"device cache: builds or log lines wrong: {logs}")
     return out
 
 
 def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
                aligned_config=None):
-    """Phase 12 (see the module docstring): the host codec, the loader, LBBDM-f4
-    training on a ``custom_inpainting`` Paeth tree under ``cache_in_ram``,
+    """Phase 12 (see the module docstring): the host codec, LBBDM-f4 training on
+    a ``custom_inpainting`` Paeth tree under ``cache_in_ram``,
     ``--sample_to_eval`` from a ``custom_colorization_LAB`` tree of the JPEG
     fixtures and from a ``custom_aligned`` tree of WebP files, through
-    ``main_torch.main``, and the device cache's reading
-    (:func:`device_cache_abba`, on part (c)'s runner).
-    ``config``/``lab_config``/``aligned_config`` let a CPU rehearsal pass tiny
-    models."""
+    ``main_torch.main``, and the device cache (:func:`device_cache_checks`, on
+    part (b)'s runner). ``config``/``lab_config``/``aligned_config`` let a CPU
+    rehearsal pass tiny models."""
     import shutil
-    import statistics as st
 
     import numpy as np
-    from torch.profiler import ProfilerActivity, profile
 
     import main_torch
     from bbdm_tpu_torch.config import load_config, save_config
@@ -3727,42 +2977,20 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
     from bbdm_tpu_torch.runners import base as runner_base
 
     here = os.path.dirname(os.path.abspath(__file__))
-    out = {"codec": codec_checks(here)}
-    c = out["codec"]
-    log(f"  codec: stored fixture arrays equal {json.dumps(c['fixtures_checked'])}; host "
-        f"CPUs {c['host_cpu_count']}; JPEG decode ms per 256^2 image "
-        f"{json.dumps(c['jpeg_decode_ms_256'])}; WebP decode ms per 256^2 image "
-        f"{json.dumps(c['webp_decode_ms_256'])}; PNG ms per 256^2 image by row filter "
-        f"{json.dumps(c['png_ms_256'])}")
+    out = {"fixtures_checked": codec_checks(here)}
+    log(f"  (a) codec: stored fixture arrays equal {json.dumps(out['fixtures_checked'])}")
 
     work = os.path.join(root, "data-phase")
     template = os.path.join(here, "configs", "Template-LBBDM-f4.yaml")
     cfg = config or load_config(template)
     size = cfg.data.dataset_config.image_size
     tree = os.path.join(work, "paeth")
-    t0 = time.time()
     write_paeth_tree(tree, 256, (DATA_TRAIN, DATA_VAL, DATA_TEST), seed=12)
-    t1 = time.time()
+
+    # (b) training through main_torch.main, cache_in_ram on
     d = cfg.data.dataset_config
     cfg.data.dataset_type = "custom_inpainting"
     d.dataset_path, d.flip, d.cache_in_ram = tree, True, True
-    out["loader_batches_per_s"] = loader_rates(cfg)
-    log(f"  paeth tree of {DATA_TRAIN}/{DATA_VAL}/{DATA_TEST} 256^2 PNGs written in "
-        f"{t1 - t0:.1f} s; train loader (batch {cfg.data.train.batch_size}, "
-        f"custom_inpainting, flipped, at {size}^2; {time.time() - t1:.1f} s), batches per "
-        "s: " + json.dumps(out["loader_batches_per_s"]))
-    webp_tree = os.path.join(work, "webp")
-    write_webp_tree(webp_tree, (DATA_TRAIN, DATA_VAL, DATA_TEST))
-    d.dataset_path = webp_tree
-    t1 = time.time()
-    out["loader_batches_per_s_webp"] = loader_rates(cfg, LOADER_SETTINGS[:2])
-    log(f"  VP8 q85 tree of {DATA_TRAIN}/{DATA_VAL}/{DATA_TEST} 256^2 files, train loader "
-        f"({time.time() - t1:.1f} s), batches per s: "
-        + json.dumps(out["loader_batches_per_s_webp"]))
-    d.dataset_path = tree
-
-    # (c) training through main_torch.main, cache_in_ram on
-    d.cache_in_ram = True
     cfg.model.VQGAN.params.ckpt_path = os.path.join(work, "vqgan.ckpt")
     vqgan_checkpoint(cfg, dev, cfg.model.VQGAN.params.ckpt_path)
     t = cfg.training
@@ -3779,34 +3007,26 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
         "cache_in_ram": True, "sample_interval": "none during training",
         "weights": "random UNet (seed), a smoke-made VQGAN (seed 21)"}))
 
-    marks = {"epoch": [], "steps": [], "val": [], "decodes": [], "served": [], "bad": []}
+    # the image decodes started before each train epoch's set_epoch and before
+    # the validation epoch mark the epochs' bounds in the list of decodes
+    marks = {"epoch": [], "val": [], "decodes": [], "served": [], "bad": []}
 
     def on_set_epoch(fn):
         def wrapped(self, epoch):
             if isinstance(self.dataset, custom.CustomInpaintingDataset) and self.dataset.flip:
-                marks["epoch"].append((time.perf_counter(), int(epoch)))
+                marks["epoch"].append((len(marks["decodes"]), int(epoch)))
             return fn(self, epoch)
         return wrapped
 
-    def timing_step(make):
+    def on_validation(fn):
         def wrapped(*a, **kw):
-            step = make(*a, **kw)
-
-            def timed_step(*sa, **skw):
-                marks["steps"].append(time.perf_counter())
-                return step(*sa, **skw)
-            return timed_step
-        return wrapped
-
-    def span(fn):
-        def wrapped(*a, **kw):
-            marks["val"].append(time.perf_counter())
+            marks["val"].append(len(marks["decodes"]))
             return fn(*a, **kw)
         return wrapped
 
     def counted_load(fn):
         def wrapped(*a, **kw):
-            marks["decodes"].append(time.perf_counter())
+            marks["decodes"].append(1)
             return fn(*a, **kw)
         return wrapped
 
@@ -3832,20 +3052,12 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
     result = os.path.join(work, "results-train")
     argv = ["-c", path, "--train", "--max_epoch", str(DATA_EPOCHS), "-r", result, "-s",
             str(CLI_SEED), "--gpu_ids", gpu_ids]
-    acts = [ProfilerActivity.CUDA] if dev.type == "cuda" else [ProfilerActivity.CPU]
-    t0 = time.time()
     with contextlib.ExitStack() as stack:
         stack.enter_context(patched(loader.DataLoader, "set_epoch", on_set_epoch))
-        stack.enter_context(patched(runner_base, "make_train_step", timing_step))
-        stack.enter_context(patched(runner_base.BaseRunner, "validation_epoch", span))
+        stack.enter_context(patched(runner_base.BaseRunner, "validation_epoch", on_validation))
         stack.enter_context(patched(base, "_load_image", counted_load))
         stack.enter_context(patched(custom.CustomInpaintingDataset, "__getitem__", checked_item))
-        prof = stack.enter_context(profile(activities=acts))
-        t_prof = time.perf_counter()
         runner = main_torch.main(argv)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-    wall = time.time() - t0
     launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
     micro = DATA_EPOCHS * micro_per_epoch
     val_batches = DATA_VAL // cfg.data.val.batch_size
@@ -3854,45 +3066,31 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
         raise AssertionError(f"data train: {runner.global_step} steps, not {micro}")
     if launches != want:
         raise AssertionError(f"data train: launches {launches} != {want} (kernel_calls)")
-    kernels = [(e.time_range.start / 1e6 + t_prof, e.time_range.end / 1e6 + t_prof)
-               for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
-    starts = [ts for ts, _ in marks["epoch"]]
     if [e for _, e in marks["epoch"]] != list(range(DATA_EPOCHS)) or len(marks["val"]) != 1:
         raise AssertionError(f"data train: epochs {marks['epoch']}, validations {marks['val']}")
-    bounds = starts + [marks["val"][0]]
-    epochs = []
-    for e in range(DATA_EPOCHS):
-        lo, hi = bounds[e], bounds[e + 1]
-        steps = [s for s in marks["steps"] if lo <= s < hi]
-        busy = sum(min(b, hi) - a for a, b in kernels if lo <= a < hi)
-        decodes = sum(1 for s in marks["decodes"] if lo <= s < hi)
-        deltas = [b - a for a, b in zip(steps, steps[1:])]
-        epochs.append({"microbatches": len(steps), "s_per_microbatch": (hi - lo) / len(steps),
-                       "median_step_delta_s": st.median(deltas) if deltas else None,
-                       "device_busy_s": busy, "idle_share": 1 - busy / (hi - lo),
-                       "decodes": decodes})
+    bounds = [n for n, _ in marks["epoch"]] + marks["val"]
+    decodes = [hi - lo for lo, hi in zip(bounds, bounds[1:])]
     seeds = sorted({sd for _, sd in marks["served"]})
-    out["train"] = {"wall_s": wall, "launches": launches, "expected_launches": want,
-                    "epochs": epochs, "served_items": len(marks["served"]),
+    out["train"] = {"launches": launches, "expected_launches": want,
+                    "decodes_per_epoch": decodes, "served_items": len(marks["served"]),
                     "mask_seeds": seeds, "bad_masks": len(marks["bad"]),
                     "checkpoint": sorted(os.listdir(runner.config.result.ckpt_path))}
-    log(f"  data train (main_torch --train, custom_inpainting, cache_in_ram): {wall:.1f} s, "
-        f"{micro} microbatches, launches {launches} (kernel_calls: {want}); per epoch "
-        + json.dumps(epochs) + f"; {len(marks['served'])} served train items checked against "
-        f"the box rule for seeds {seeds}: {len(marks['bad'])} wrong")
+    log(f"  (b) data train (main_torch --train, custom_inpainting, cache_in_ram): {micro} "
+        f"microbatches, launches {launches} (kernel_calls: {want}); image decodes per epoch "
+        f"{decodes}; {len(marks['served'])} served train items checked against the box rule "
+        f"for seeds {seeds}: {len(marks['bad'])} wrong")
     if marks["bad"] or seeds != [CLI_SEED + e for e in range(DATA_EPOCHS)] \
             or len(marks["served"]) != micro * bs:
         raise AssertionError("data train: the served masks do not follow the epoch seeds")
-    if epochs[0]["decodes"] != 2 * DATA_TRAIN or any(e["decodes"] for e in epochs[1:]):
-        raise AssertionError(f"data train: decodes per epoch {[e['decodes'] for e in epochs]}, "
+    if decodes[0] != 2 * DATA_TRAIN or any(decodes[1:]):
+        raise AssertionError(f"data train: decodes per epoch {decodes}, "
                              f"expected {2 * DATA_TRAIN} then 0 (cache_in_ram)")
     ckpt = os.path.join(runner.config.result.ckpt_path, "last_model.ckpt")
-    del prof
-    out["device_cache"] = device_cache_abba(dev, counters, work, tree, runner)
+    out["device_cache"] = device_cache_checks(dev, counters, work, tree, runner)
     del runner
     torch.cuda.empty_cache()
 
-    # (d) --sample_to_eval from that checkpoint over a LAB tree of the JPEG
+    # (c) --sample_to_eval from that checkpoint over a LAB tree of the JPEG
     # fixtures and over a custom_aligned tree of WebP pairs
     def sample_to_eval(key, label, c, kind, tree, names):
         c.data.dataset_type = kind
@@ -3904,20 +3102,17 @@ def data_phase(dev, counters, root, gpu_ids="0", config=None, lab_config=None,
         save_config(c, path)
         for mod, attr in counters.values():
             getattr(mod, attr).launches = 0
-        t0 = time.time()
         runner = main_torch.main(["-c", path, "--sample_to_eval", "--resume_model", ckpt, "-r",
                                   os.path.join(work, f"results-{key}"), "-s", str(CLI_SEED),
                                   "--gpu_ids", gpu_ids])
-        wall = time.time() - t0
         launches = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
         want = expected_launches(kernel_calls(c.model, bs), steps=len(runner.model.coeffs.steps),
                                  draws=1, batches=1)
         check_tree(runner.config.result.sample_to_eval_path, names, names, SAMPLE_STEP, 1,
                    c.data.dataset_config.image_size)
-        out[f"{key}_sample_to_eval"] = {"wall_s": wall, "launches": launches, "expected": want,
-                                        "names": names}
-        log(f"  {label} --sample_to_eval ({SAMPLE_STEP} steps, 1 draw): {wall:.1f} s, "
-            f"launches {launches} (kernel_calls: {want}), tree checked")
+        out[f"{key}_sample_to_eval"] = {"launches": launches, "expected": want, "names": names}
+        log(f"  (c) {label} --sample_to_eval ({SAMPLE_STEP} steps, 1 draw): launches "
+            f"{launches} (kernel_calls: {want}), tree checked")
         if launches != want or min(launches.values()) <= 0:
             raise AssertionError(f"{label} sample_to_eval: launches {launches} != {want}")
 
@@ -4054,7 +3249,6 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
                **(bench_env or {}))
     for label, sampler, n_steps in (("bench_euler", "euler", steps),
                                     ("bench_heun", "heun", heun_steps)):
-        t0 = time.time()
         line = run_tool(["bench_torch.py"], dict(env, BENCH_STEPS=str(n_steps),
                                                  BENCH_SAMPLER=sampler))
         d = line["detail"]
@@ -4069,9 +3263,7 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
         if on_card:
             check_launches(label, d["launches"], expected_launches(
                 calls, steps=nfe, draws=1, batches=TOOLS_BENCH_CALLS))
-        line["wall_s"] = time.time() - t0
         out[label] = line
-    t0 = time.time()
     line = run_tool(["-m", "bbdm_tpu_torch.tools.bench_train"], env)
     d = line["detail"]
     if d["flops_per_image"] != training_flops_per_image(load_config(template).model):
@@ -4081,7 +3273,6 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
     if on_card:
         check_launches("bench_train", d["launches"],  # training runs no K2 (naive up-conv)
                        expected_launches(calls, microbatches=TOOLS_TRAIN_STEPS), ("K1", "K3"))
-    line["wall_s"] = time.time() - t0
     out["bench_train"] = line
 
     # (e) the VQGAN roundtrip over phase 5's ground truth, bf16 and fp32
@@ -4093,13 +3284,11 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
         label = "vqgan_recon_" + ("fp32" if fp32 else "bf16")
         kernel_launches(reset=True)
         seen = {}
-        t0 = time.time()
         with dtype_calls(seen):
             line = vqgan_recon.main(
                 ["--config", config_path, "--vq-ckpt", vqgan_path, "--data", gt,
                  "--out", os.path.join(root, label), "--batch",
                  str(p5.data.test.batch_size)] + (["--fp32"] if fp32 else []) + cpu)
-        line["wall_s"] = time.time() - t0
         if line["count"] != images or not np.isfinite(line["psnr"]):
             raise AssertionError(f"{label}: {line}")
         check_launches(label, kernel_launches(), expected_launches(
@@ -4120,9 +3309,7 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
             "--result", os.path.join(root, "sweep")] + cpu
     batches = len(os.listdir(gt)) // p5.data.test.batch_size
     kernel_launches(reset=True)
-    t0 = time.time()
     rows = sampler_sweep.main(argv)
-    sweep_s = time.time() - t0
     want = {k: a + b for (k, a), b in zip(
         expected_launches(recon_calls, steps=steps // 10, draws=1, batches=batches).items(),
         expected_launches(recon_calls, steps=2 * (steps // 20 - 1) + 1, draws=1,
@@ -4136,7 +3323,7 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
     if again != json.loads(json.dumps(rows, default=float)) or any(kernel_launches().values()):
         raise AssertionError("sampler sweep: the second invocation did not skip both variants")
     os.remove(bridge)
-    out["sampler_sweep"] = {"rows": rows, "wall_s": sweep_s}
+    out["sampler_sweep"] = {"rows": rows}
 
     # (g) q_sample_loop at the latent of phase 5's config, bf16 against its fp32 self
     model = build_model(p5.model, device=dev)
@@ -4150,17 +3337,14 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
     def loop(dt):
         return model.q_sample_loop(x0.to(dt), y.to(dt), noise=noise)
 
-    ms = {"fp32": cuda_ms(lambda: loop(torch.float32), runs=3, warmup=1) if on_card else None,
-          "bf16": cuda_ms(lambda: loop(torch.bfloat16), runs=3, warmup=1) if on_card else None}
     ref, low = loop(torch.float32), loop(torch.bfloat16)
     sigma = torch.sqrt(model._variance_t).view(-1, 1, 1, 1, 1)
     bar = Q_SAMPLE_BAR * (x0.abs() + y.abs() + sigma * noise.abs())
     excess = float(((low - ref).abs() / bar).max())
     drawn = model.q_sample_loop(x0.bfloat16(), y.bfloat16(), generator=g)
-    out["q_sample_loop"] = {"shape": list(ref.shape), "ms": ms, "bf16_vs_fp32_over_bar": excess,
-                            "max_abs": float((low - ref).abs().max()),
-                            "bytes_fp32_out": ref.numel() * 4}
-    log(f"  q_sample_loop {list(ref.shape)}: ms {ms}, bf16 vs fp32 max |d| "
+    out["q_sample_loop"] = {"shape": list(ref.shape), "bf16_vs_fp32_over_bar": excess,
+                            "max_abs": float((low - ref).abs().max())}
+    log(f"  q_sample_loop {list(ref.shape)}: bf16 vs fp32 max |d| "
         f"{out['q_sample_loop']['max_abs']:.3g} = {excess:.3f} of the bar")
     if excess > 1 or drawn.shape != ref.shape or not torch.isfinite(drawn).all():
         raise AssertionError("q_sample_loop: bf16 beyond its bar, or a non-finite draw")
@@ -4177,16 +3361,13 @@ def tools_phase(dev, root, tree, config_path, vqgan_path, template=None,
     tokens = m32.tokenize(BERT_TEXTS, vocab)
     with torch.no_grad():
         a, b = m32.eval()(tokens), m16.eval()(tokens)
-        ms = ({k: cuda_ms(lambda m=m: m(tokens), runs=5) for k, m in (("fp32", m32),
-                                                                        ("bf16", m16))}
-              if on_card else None)
     rel = float((b - a).norm() / a.norm())
     out["bert_embedder"] = {"width": width, "layers": depth, "tokens": list(tokens.shape),
                             "rel_fro_bf16_vs_fp32": rel,
                             "max_abs": float((b - a).abs().max()),
-                            "max_ref": float(a.abs().max()), "ms": ms}
+                            "max_ref": float(a.abs().max())}
     log(f"  BERTEmbedder {width} x {depth} on tokens {list(tokens.shape)}: bf16 vs fp32 "
-        f"relative {rel:.4f} (bar {BERT_REL_BAR}), ms {ms}")
+        f"relative {rel:.4f} (bar {BERT_REL_BAR})")
     if tokens.shape != (len(BERT_TEXTS), BERT_TOKENS) or not torch.isfinite(b).all() \
             or rel > BERT_REL_BAR:
         raise AssertionError("BERTEmbedder: bf16 beyond its bar or bad tokens")
@@ -4340,14 +3521,13 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
     n_train, n_val, n_test = pairs
     trees = {"restore": os.path.join(work, "synpix256"),
              "stochastic": os.path.join(work, "synstoch64")}
-    t0 = time.time()
     for task, tree in trees.items():
         for stage, n, seed in (("train", n_train, 0), ("val", n_val, 1_000_000),
                                ("test", n_test, 2_000_000)):
             write_stage(tree, stage, n, size if task == "restore" else stoch_size, seed,
                         task=task)
-    log(f"  demo trees written in {time.time() - t0:.1f} s: {pairs} pairs, restore at "
-        f"{size}^2, stochastic at {stoch_size}^2 (tools.synthetic)")
+    log(f"  demo trees: {pairs} pairs, restore at {size}^2, stochastic at {stoch_size}^2 "
+        "(tools.synthetic)")
     paths = {}
     for name, cfg in configs.items():
         cfg.data.dataset_config.dataset_path = trees[
@@ -4376,14 +3556,12 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
         for mod, attr in counters.values():
             getattr(mod, attr).launches = 0
         store, builds, logged = {}, [], []
-        t0 = time.time()
         with training_runs(store), cache_builds(builds), cache_logs(logged):
             result = fn(argv + cpu)
-        wall_s = time.time() - t0
         got = {SHORT[k]: getattr(mod, attr).launches for k, (mod, attr) in counters.items()}
         want = want(store) if callable(want) else want
         launches[label] = got
-        log(f"  {label}: {wall_s:.1f} s, launches {got}, derived from the code {want}; "
+        log(f"  {label}: launches {got}, derived from the code {want}; "
             f"training runs (class, steps, epoch, stop) {store['runs']}; device caches "
             f"{json.dumps(builds)}, logged {logged}")
         if got != want or not all(want[k] > 0 for k in needed):
@@ -4392,8 +3570,7 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
         if len(builds) != caches or len(logged) != caches:
             raise AssertionError(f"{label}: {len(builds)} device caches built and "
                                  f"{len(logged)} logged, the configs ask for {caches}")
-        out[label] = {"wall_s": wall_s, "launches": got, "result": result,
-                      "device_caches": builds}
+        out[label] = {"launches": got, "result": result, "device_caches": builds}
         torch.cuda.empty_cache()
         return result, store
 
@@ -4450,20 +3627,17 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
     check_png(os.path.join(ev["eval_root"], str(steps), "test_00000.png"), size, size)
     log(f"  chain: {out['chain_steps']}; PSNR/SSIM sample {ev['sample_vs_gt']['psnr']:.2f} / "
         f"{ev['sample_vs_gt']['ssim']:.3f}, floor {ev['condition_vs_gt_floor']['psnr']:.2f}, "
-        f"ceiling {ev['vqgan_roundtrip_ceiling']['psnr']:.2f}; phase D "
-        f"{tput['delivered_samples_per_sec']} samples/s delivered ({tput['samples']} samples, "
-        f"{tput['wall_sec']} s; first batch {tput['first_batch_wall_sec_incl_compile']} s)")
+        f"ceiling {ev['vqgan_roundtrip_ceiling']['psnr']:.2f}; phase D {tput['samples']} "
+        f"samples")
 
     # (d) read_tboard over (a)'s event files: the scalars the runners logged
-    t0 = time.time()
     rows = read_tboard.main([chain] + cpu)
     got = sorted((tag, step, value) for tag, step, _, value in rows)
     if got != sorted(store["scalars"]) or not any(r[0] == "loss/train" for r in got):
         raise AssertionError(f"read_tboard: {len(got)} rows, the runners logged "
                              f"{len(store['scalars'])}: {got[:3]} vs {store['scalars'][:3]}")
-    out["demo_read_tboard"] = {"wall_s": time.time() - t0, "rows": len(rows)}
-    log(f"  demo_read_tboard: {len(rows)} rows equal to the logged scalars "
-        f"({time.time() - t0:.1f} s)")
+    out["demo_read_tboard"] = {"rows": len(rows)}
+    log(f"  demo_read_tboard: {len(rows)} rows equal to the logged scalars")
 
     # (e) run_parity over (a)'s checkpoints: the bridge as a reference .pth
     bridge = load_checkpoint(reports["bridge"]["ckpt"])
@@ -4510,8 +3684,7 @@ def demos_phase(dev, counters, root, configs=None, pairs=DEMO_PAIRS, size=256, s
         raise AssertionError(f"pixel demo rows: {rows}")
     for r in rows:
         log(f"  pixel {r['sampler']}:{r['steps']} PSNR/SSIM {r['sample_vs_gt']['psnr']:.2f} / "
-            f"{r['sample_vs_gt']['ssim']:.3f} (floor {r['condition_vs_gt_floor']['psnr']:.2f}),"
-            f" {r['wall_sec_incl_compile']} s")
+            f"{r['sample_vs_gt']['ssim']:.3f} (floor {r['condition_vs_gt_floor']['psnr']:.2f})")
 
     # (c) the stochastic demo: phase T for one epoch (with the device cache its
     # config asks for), then phase S, one variant of DEMO_STOCH_DRAWS draws
@@ -4590,8 +3763,7 @@ def main() -> int:
         t0 = time.time()
         host_path = host_build.build()
         host_build.library()
-        host_build_s = time.time() - t0
-        log(f"host image library build: {host_build_s:.1f} s ({os.path.basename(host_path)}, "
+        log(f"host image library build: {time.time() - t0:.1f} s ({os.path.basename(host_path)}, "
             f"{host_build.compiler()} {' '.join(host_build.FLAGS)})")
     except Exception:
         traceback.print_exc()
@@ -4622,10 +3794,10 @@ def main() -> int:
         next(e for e in entries if e["name"] == name)[key] = block
         torch.cuda.empty_cache()
 
-    timings = {}
+    agreement = {}
     try:
         t0 = time.time()
-        launches, timings = slice_phase(dev, counters)
+        launches, agreement = slice_phase(dev, counters)
         for e in entries:
             e["launches"] = launches[e["name"]]
         log(f"slice: ok ({time.time() - t0:.1f} s)")
@@ -4743,7 +3915,6 @@ def main() -> int:
         try:
             t0 = time.time()
             data = data_phase(dev, counters, root)
-            data["host_library_build_s"] = host_build_s
             for e in entries:
                 k = short[e["name"]]
                 e["launches_by_path"].update({
@@ -4783,7 +3954,7 @@ def main() -> int:
             failed.append("demos")
             demos = {}
 
-    log(json.dumps({"kernels": entries, "slice": timings, "cli": cli, "train": train,
+    log(json.dumps({"kernels": entries, "slice": agreement, "cli": cli, "train": train,
                     "vqgan_train": vqgan, "vqgan_train_perceptual": perceptual,
                     "evaluation": evaluation, "latent_paths": paths, "parallel": dp,
                     "sharding": sh, "data": data, "tools": tools, "demos": demos,

@@ -11,7 +11,7 @@ Pillow writes no interlaced PNG). BMP: 24-bit, 32-bit (OpenCV's BI_BITFIELDS),
 Two files that ``cv2.imread`` turns upright and Pillow does not: a JPEG whose
 EXIF (APP1) orientation is 6 and a PNG whose ``eXIf`` orientation is 8. One
 WebP. ``jpeg256/``: three 256^2 JPEGs (4:2:0, 4:4:4, progressive 4:2:0)
-that ``chip_smoke.py`` times the decoder on.
+whose decodes ``chip_smoke.py`` holds to their digests on the card's host.
 
 ``expected.npz`` holds ``np.asarray(Image.open(f).convert("RGB"))`` of every
 fixture of this directory but the WebP under its file name, each uint8

@@ -18,12 +18,12 @@ an odd width, ``exact`` with transparent pixels, near-lossless, and alpha.
 Written by hand: two animations whose first frame (lossy, lossless) is smaller
 than the canvas and offset, and a VP8X file with ICCP, XMP and an odd-sized
 unknown chunk. ``exif_orientation6.webp``: an EXIF orientation of 6, which
-``cv2.imread`` applies and Pillow does not. ``*_256.webp``: the 256^2 files
-whose decode ``chip_smoke.py`` times (a photo-like image at q75 and q90, with
-ALPH, and lossless; that image quantized to 64 colours, lossless);
-``tree256/``: eight 256^2 images of its Paeth tree
+``cv2.imread`` applies and Pillow does not. ``*_256.webp``: 256^2 files
+whose decodes ``chip_smoke.py`` holds to their digests (a photo-like image at
+q75 and q90, with ALPH, and lossless; that image quantized to 64 colours,
+lossless); ``tree256/``: eight 256^2 images of its Paeth tree
 (``chip_smoke.textured_u8``, seeds 512-519) saved by Pillow at q85, from which
-it builds its WebP loader and ``custom_aligned`` trees.
+it builds its ``custom_aligned`` WebP tree.
 
 ``expected.npz`` holds ``np.asarray(Image.open(f).convert("RGB"))`` of every
 file but the 256^2 ones under its name, stored as ``../expected.npz`` stores

@@ -93,8 +93,8 @@ def test_png_writer_round_trips_through_pillow(tmp_path, channels):
 
 def test_import_needs_no_jax_yaml_or_pillow(tmp_path):
     """The package (every module, ``evaluation/``, ``native/`` and ``tools/``
-    included), main_torch.py, bench_torch.py, preprocess_and_evaluation_torch.py,
-    tp_conv_probe_torch.py and chip_smoke.py import where jax, flax, optax, yaml, PIL, cv2, msgpack and
+    included), main_torch.py, bench_torch.py, preprocess_and_evaluation_torch.py
+    and chip_smoke.py import where jax, flax, optax, yaml, PIL, cv2, msgpack and
     transformers are absent, and import no
     triton, nothing of ``bbdm_tpu`` or ``tests`` and build nothing at import
     time: no compiler runs (``CXX`` names a file that records a call) and the
@@ -126,7 +126,6 @@ def test_import_needs_no_jax_yaml_or_pillow(tmp_path):
         "import bench_torch\n"
         "import preprocess_and_evaluation_torch\n"
         "import chip_smoke\n"
-        "import tp_conv_probe_torch\n"
         "assert 'triton' not in sys.modules\n"
         "assert 'bbdm_tpu_torch.native.fastimage' in sys.modules\n"
         "from bbdm_tpu_torch.native import build\n"
